@@ -1,0 +1,556 @@
+"""Corpus store and record materialization.
+
+`ReviewDataset` holds the preprocessed corpus (rating triples per split,
+per-entity review lists, the (u, i) -> review-index maps used for
+leakage removal, held-out eval reviews, negative sets, word vectors) and
+materializes fixed-shape int32 record tensors for the review models.
+The records are byte-identical to the JAX package's
+(`reviews4rec_tpu/data/corpus.py`) for the same corpus file:
+
+- leakage removal on the train split: the (u, i) pair's own review is
+  dropped from both the user's and the item's review list and returned
+  separately as `this_doc`; eval splits keep everything and `this_doc`
+  is the held-out review.
+- doc layouts: one concatenated row of `input_length` words, or one row
+  per review (NARRE, MPCN).
+- neighbor-id lists padded to exactly 10 slots with the sentinel id
+  `total + 1`.
+
+Only the in-memory numpy materializer is here; the native (C++)
+materializer, the out-of-core record store and the entity doc store are
+still to be ported.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..utils.io import load_npz
+
+NEIGHBOR_SLOTS = 10
+
+
+@dataclass
+class Split:
+    """One rating split: parallel (user, item, rating) arrays."""
+
+    user: np.ndarray
+    item: np.ndarray
+    rating: np.ndarray
+
+    def __len__(self) -> int:
+        return int(self.user.shape[0])
+
+
+def _doc_layout(hp) -> Tuple[int, int]:
+    """(rows, words) per model family. rows == 1 -> concatenated doc."""
+    if hp.model_type == "NARRE":
+        return hp.narre_num_reviews, hp.narre_num_words
+    if hp.model_type == "MPCN":
+        return hp.mpcn_dmax, hp.mpcn_smax
+    return 1, hp.input_length
+
+
+def _not_ported(hp) -> None:
+    if hp.out_of_core:
+        raise NotImplementedError(
+            "the out-of-core record store is not ported yet (ROADMAP.md, "
+            "Queue 1: deferred data-layer pieces)")
+
+
+class ReviewDataset:
+    """In-memory corpus plus materialization cache. Construct with
+    `load()` (a corpus.npz written by either package) or `build()`."""
+
+    @classmethod
+    def build(cls, *, num_users: int, num_items: int, num_words: int,
+              splits: Dict[str, Split],
+              user_reviews: List[List[np.ndarray]],
+              item_reviews: List[List[np.ndarray]],
+              u_to_i: List[List[int]], i_to_u: List[List[int]],
+              this_index: Dict[Tuple[int, int], Tuple[int, int]],
+              test_reviews: Dict[Tuple[int, int], np.ndarray],
+              neg_users: np.ndarray, neg_cands: np.ndarray,
+              word_vectors: np.ndarray,
+              vocab: Optional[Dict[str, int]] = None) -> "ReviewDataset":
+        self = cls.__new__(cls)
+        self.num_users = int(num_users)
+        self.num_items = int(num_items)
+        self.num_words = int(num_words)
+        self.splits = splits
+        self.user_reviews = [
+            [np.asarray(r, np.int32) for r in revs] for revs in user_reviews]
+        self.item_reviews = [
+            [np.asarray(r, np.int32) for r in revs] for revs in item_reviews]
+        self.u_to_i = [list(map(int, lst)) for lst in u_to_i]
+        self.i_to_u = [list(map(int, lst)) for lst in i_to_u]
+        self.this_index = {
+            (int(u), int(i)): (int(a), int(b))
+            for (u, i), (a, b) in this_index.items()}
+        self.test_reviews = {
+            (int(u), int(i)): np.asarray(t, np.int32)
+            for (u, i), t in test_reviews.items()}
+        self.neg_users = np.asarray(neg_users, np.int32)
+        self.neg_cands = np.asarray(neg_cands, np.int32)
+        self.word_vectors = np.asarray(word_vectors, np.float32)
+        self.vocab = dict(vocab) if vocab is not None else None
+        tr = splits["train"]
+        self.user_count = np.bincount(tr.user, minlength=num_users) \
+            .astype(np.int64)
+        self.item_count = np.bincount(tr.item, minlength=num_items) \
+            .astype(np.int64)
+        self._cache: Dict = {}
+        self._flat_store = None
+        self._ti_arrays = None
+        self._train_pair_keys = None
+        return self
+
+    # ------------------------------------------------------------------
+    def apply_to(self, hp):
+        """Fill the corpus-size fields of `hp`."""
+        return hp.replace(total_users=self.num_users,
+                          total_items=self.num_items,
+                          total_words=self.num_words)
+
+    # ------------------------------------------------------------------
+    # (u, i) -> this_index lookup: sorted int64 keys plus parallel value
+    # arrays, searchsorted instead of a per-example dict get.
+    # ------------------------------------------------------------------
+    def _ti_lookup(self):
+        if self._ti_arrays is None:
+            items = sorted(self.this_index.items())
+            if items:
+                keys = np.asarray([u * self.num_items + i
+                                   for (u, i), _ in items], np.int64)
+                a = np.asarray([v[0] for _, v in items], np.int32)
+                b = np.asarray([v[1] for _, v in items], np.int32)
+            else:
+                keys = np.zeros(0, np.int64)
+                a = b = np.zeros(0, np.int32)
+            self._ti_arrays = (keys, a, b)
+        return self._ti_arrays
+
+    def _ti_find(self, user: np.ndarray, item: np.ndarray):
+        """(found_mask, ui_idx, iu_idx) for parallel (u, i) arrays."""
+        keys, a, b = self._ti_lookup()
+        q = user.astype(np.int64) * self.num_items + item.astype(np.int64)
+        if len(keys) == 0:
+            z = np.zeros(q.shape, np.int32)
+            return np.zeros(q.shape, bool), z, z
+        pos = np.searchsorted(keys, q)
+        safe = np.minimum(pos, len(keys) - 1)
+        return keys[safe] == q, a[safe], b[safe]
+
+    # ------------------------------------------------------------------
+    # Flat (CSR-style) review store the materializer reads.
+    # ------------------------------------------------------------------
+    def _flat(self) -> Dict:
+        if self._flat_store is not None:
+            return self._flat_store
+
+        revs: List[np.ndarray] = []
+        base = np.zeros(self.num_users + 1, np.int64)
+        for u in range(self.num_users):
+            base[u + 1] = base[u] + len(self.user_reviews[u])
+            revs.extend(self.user_reviews[u])
+        n_train_revs = len(revs)
+
+        u_off = base.copy()
+        u_revs = np.arange(n_train_revs, dtype=np.int32)
+        u_other = np.asarray(
+            [i for lst in self.u_to_i for i in lst], np.int32)
+        if u_other.shape[0] != n_train_revs:
+            # item id 0 is a real item: a zero-fill would corrupt the
+            # neighbor-id features
+            raise ValueError(
+                f"u_to_i maps {u_other.shape[0]} reviews but the review "
+                f"store holds {n_train_revs}; the corpus is inconsistent")
+
+        i_counts = np.asarray([len(lst) for lst in self.i_to_u], np.int64)
+        i_off = np.zeros(self.num_items + 1, np.int64)
+        np.cumsum(i_counts, out=i_off[1:])
+        i_other = np.asarray(
+            [u for lst in self.i_to_u for u in lst], np.int32)
+        pair_item = np.repeat(
+            np.arange(self.num_items, dtype=np.int64), i_counts)
+        # ui index of each (u, i) pair; missing pairs fall back to (0, 0)
+        found, ui_of_pair, _ = self._ti_find(i_other, pair_item)
+        ui_of_pair = np.where(found, ui_of_pair, 0)
+        i_revs = (base[i_other] + ui_of_pair).astype(np.int32)
+
+        # eval-split held-out reviews go after the train reviews, so
+        # `this_rev` indexes one token store for every split
+        eval_keys_l: List[int] = []
+        for key in sorted(self.test_reviews):
+            eval_keys_l.append(key[0] * self.num_items + key[1])
+            revs.append(self.test_reviews[key])
+        eval_keys = np.asarray(eval_keys_l, np.int64)
+        eval_rids = np.arange(n_train_revs,
+                              n_train_revs + len(eval_keys_l),
+                              dtype=np.int32)
+
+        if revs:
+            tokens = np.concatenate(
+                [np.asarray(r, np.int32).reshape(-1) for r in revs])
+            lens = np.asarray([len(r) for r in revs], np.int64)
+        else:
+            tokens = np.zeros(0, np.int32)
+            lens = np.zeros(0, np.int64)
+        rev_off = np.zeros(len(revs) + 1, np.int64)
+        np.cumsum(lens, out=rev_off[1:])
+
+        self._flat_store = {
+            "tokens": tokens.astype(np.int32), "rev_off": rev_off,
+            "u_revs": u_revs, "u_off": u_off, "u_other": u_other,
+            "i_revs": i_revs, "i_off": i_off, "i_other": i_other,
+            "rev_base": base, "eval_keys": eval_keys,
+            "eval_rids": eval_rids,
+        }
+        return self._flat_store
+
+    # ------------------------------------------------------------------
+    def _examples(self, split: str):
+        """(user, item, ui_idx, iu_idx, this_rev) example arrays.
+        Train: leakage-removal indices from this_index plus the pair's
+        own review id. Eval: -1 indices (nothing removed), this_rev =
+        held-out review."""
+        sp = self.splits[split]
+        flat = self._flat()
+        n = len(sp)
+        user = sp.user.astype(np.int32)
+        item = sp.item.astype(np.int32)
+        ui_idx = np.full(n, -1, np.int32)
+        iu_idx = np.full(n, -1, np.int32)
+        this_rev = np.full(n, -1, np.int32)
+        if n == 0:
+            return user, item, ui_idx, iu_idx, this_rev
+        if split == "train":
+            base = flat["rev_base"]
+            found, a, b = self._ti_find(user, item)
+            ui_idx = np.where(found, a, -1).astype(np.int32)
+            iu_idx = np.where(found, b, -1).astype(np.int32)
+            this_rev = np.where(found, base[user] + a, -1).astype(np.int32)
+        else:
+            keys, rids = flat["eval_keys"], flat["eval_rids"]
+            if len(keys):
+                q = user.astype(np.int64) * self.num_items + item
+                pos = np.searchsorted(keys, q)
+                safe = np.minimum(pos, len(keys) - 1)
+                this_rev = np.where(keys[safe] == q, rids[safe],
+                                    -1).astype(np.int32)
+        return user, item, ui_idx, iu_idx, this_rev
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _python_text(flat, user, item, ui_idx, iu_idx, this_rev,
+                     rows, words, slots, user_pad, item_pad):
+        """The numpy materializer: doc and neighbor tensors for parallel
+        example arrays."""
+        tokens, rev_off = flat["tokens"], flat["rev_off"]
+        u_off, u_other = flat["u_off"], flat["u_other"]
+        i_revs, i_off, i_other = flat["i_revs"], flat["i_off"], flat["i_other"]
+        u_revs = flat["u_revs"]
+        n = user.shape[0]
+
+        user_doc = np.zeros((n, rows, words), np.int32)
+        item_doc = np.zeros((n, rows, words), np.int32)
+        this_doc = np.zeros((n, rows, words), np.int32)
+        who_gave = np.full((n, slots), user_pad, np.int32)
+        reviewed = np.full((n, slots), item_pad, np.int32)
+
+        def emit_docs(revs, skip, out):
+            if rows == 1:
+                at = 0
+                for j, r in enumerate(revs):
+                    if j == skip or at >= words:
+                        continue
+                    s, e = rev_off[r], rev_off[r + 1]
+                    m = min(int(e - s), words - at)
+                    out[0, at:at + m] = tokens[s:s + m]
+                    at += m
+            else:
+                row = 0
+                for j, r in enumerate(revs):
+                    if j == skip or row >= rows:
+                        continue
+                    s, e = rev_off[r], rev_off[r + 1]
+                    m = min(int(e - s), words)
+                    out[row, :m] = tokens[s:s + m]
+                    row += 1
+
+        def emit_neighbors(other, skip, out):
+            at = 0
+            for j, o in enumerate(other):
+                if j == skip or at >= slots:
+                    continue
+                out[at] = o
+                at += 1
+
+        for x in range(n):
+            u, it = int(user[x]), int(item[x])
+            ur = u_revs[u_off[u]:u_off[u + 1]]
+            ir = i_revs[i_off[it]:i_off[it + 1]]
+            emit_docs(ur, ui_idx[x], user_doc[x])
+            emit_docs(ir, iu_idx[x], item_doc[x])
+            r = int(this_rev[x])
+            if r >= 0:
+                s, e = rev_off[r], rev_off[r + 1]
+                m = min(int(e - s), words)
+                this_doc[x, 0, :m] = tokens[s:s + m]
+            emit_neighbors(u_other[u_off[u]:u_off[u + 1]], ui_idx[x],
+                           reviewed[x])
+            emit_neighbors(i_other[i_off[it]:i_off[it + 1]], iu_idx[x],
+                           who_gave[x])
+
+        return {"user_doc": user_doc, "item_doc": item_doc,
+                "this_doc": this_doc, "users_who_gave": who_gave,
+                "items_reviewed": reviewed}
+
+    def _text_records(self, hp, user, item, ui_idx, iu_idx, this_rev):
+        rows, words = _doc_layout(hp)
+        out = self._python_text(self._flat(), user, item, ui_idx, iu_idx,
+                                this_rev, rows, words, NEIGHBOR_SLOTS,
+                                hp.user_pad_id, hp.item_pad_id)
+        if rows == 1:
+            for k in ("user_doc", "item_doc", "this_doc"):
+                out[k] = out[k].reshape(user.shape[0], words)
+        return out
+
+    # ------------------------------------------------------------------
+    def materialize(self, hp, split: str) -> Dict[str, np.ndarray]:
+        """Fixed-shape record tensors for one split under one model
+        layout (cached). Review families add doc and neighbor tensors."""
+        with_text = hp.family == "review"
+        if with_text:
+            _not_ported(hp)
+        key = (split, _doc_layout(hp) if with_text else "id",
+               hp.user_pad_id if with_text else 0)
+        if key in self._cache:
+            return self._cache[key]
+        sp = self.splits[split]
+        recs = {"user": sp.user.astype(np.int32),
+                "item": sp.item.astype(np.int32),
+                "rating": sp.rating.astype(np.float32)}
+        if with_text:
+            user, item, ui_idx, iu_idx, this_rev = self._examples(split)
+            recs.update(self._text_records(hp, user, item, ui_idx, iu_idx,
+                                           this_rev))
+        self._cache[key] = recs
+        return recs
+
+    # In candidate grids the user side is identical across the C
+    # candidates, so it is materialized once per row at lead [.., 1]
+    # and broadcast inside the models.
+    _USER_SIDE = ("user_doc", "items_reviewed")
+    _ITEM_SIDE = ("item_doc", "this_doc", "users_who_gave")
+
+    def _grid_text_records(self, hp, user_rows, item_flat, ui_flat,
+                           iu_flat, this_flat, m, c):
+        """Doc/neighbor tensors for an [m, c] candidate grid: user side
+        once per row ([m, 1, ...]), item side per candidate
+        ([m, c, ...])."""
+        dummy_u = np.zeros(m * c, np.int32)
+        dummy_i = np.zeros(m, np.int32)
+        neg1_m = np.full(m, -1, np.int32)
+        uside = self._text_records(hp, user_rows, dummy_i,
+                                   ui_flat[::c].copy(), neg1_m, neg1_m)
+        iside = self._text_records(hp, dummy_u, item_flat,
+                                   np.full(m * c, -1, np.int32), iu_flat,
+                                   this_flat)
+        out = {}
+        for k in self._USER_SIDE:
+            v = uside[k]
+            out[k] = v.reshape((m, 1) + v.shape[1:])
+        for k in self._ITEM_SIDE:
+            v = iside[k]
+            out[k] = v.reshape((m, c) + v.shape[1:])
+        return out
+
+    def materialize_negs(self, hp,
+                         include_text: Optional[bool] = None
+                         ) -> Dict[str, np.ndarray]:
+        """Candidate-grid records for ranking eval: [M, C] ids (positive
+        in column 0), plus doc tensors for review models: item side
+        [M, C, ...], user side [M, 1, ...]. No leakage removal;
+        `this_doc` stays zero."""
+        with_text = (hp.family == "review" if include_text is None
+                     else include_text)
+        if with_text:
+            _not_ported(hp)
+        m, c = self.neg_cands.shape
+        user = np.repeat(self.neg_users, c).reshape(m, c).astype(np.int32)
+        item = self.neg_cands.astype(np.int32)
+        rating = np.zeros((m, c), np.float32)
+        neg1 = np.full(m * c, -1, np.int32)
+        key = ("negs", _doc_layout(hp) if with_text else "id",
+               hp.user_pad_id if with_text else 0)
+        if key in self._cache:
+            return self._cache[key]
+        recs = {"user": user, "item": item, "rating": rating}
+        if with_text:
+            recs.update(self._grid_text_records(
+                hp, self.neg_users.astype(np.int32), item.reshape(-1),
+                neg1, neg1, neg1, m, c))
+        self._cache[key] = recs
+        return recs
+
+    def candidate_grid_records(self, hp, users: np.ndarray,
+                               items: np.ndarray,
+                               include_text: Optional[bool] = None
+                               ) -> Dict[str, np.ndarray]:
+        """[U, C] scoring-grid records for `users` x candidate `items`,
+        in the layout the rank evaluator reads, with no leakage
+        removal."""
+        users = np.asarray(users, np.int32)
+        items = np.asarray(items, np.int32)
+        u, c = len(users), len(items)
+        user = np.repeat(users, c).reshape(u, c)
+        item = np.broadcast_to(items[None], (u, c)).copy()
+        recs = {"user": user, "item": item,
+                "rating": np.zeros((u, c), np.float32),
+                "weight": np.ones(u, np.float32)}
+        with_text = (hp.family == "review" if include_text is None
+                     else include_text)
+        if with_text:
+            neg1 = np.full(u * c, -1, np.int32)
+            recs.update(self._grid_text_records(
+                hp, users, item.reshape(-1), neg1, neg1, neg1, u, c))
+        return recs
+
+    def train_pair_mask(self, users: np.ndarray, items: np.ndarray
+                        ) -> np.ndarray:
+        """Boolean mask (broadcast shape of users x items) marking the
+        (u, i) pairs of the TRAIN split."""
+        if self._train_pair_keys is None:
+            tr = self.splits["train"]
+            keys = (tr.user.astype(np.int64) * self.num_items
+                    + tr.item.astype(np.int64))
+            self._train_pair_keys = np.unique(keys)
+        keys = self._train_pair_keys
+        q = (np.asarray(users).astype(np.int64) * self.num_items
+             + np.asarray(items).astype(np.int64))
+        if len(keys) == 0:
+            return np.zeros(q.shape, bool)
+        pos = np.minimum(np.searchsorted(keys, q), len(keys) - 1)
+        return keys[pos] == q
+
+    def materialize_wide_negs(self, hp, num_negs: int, seed: int = 0,
+                              include_text: Optional[bool] = None
+                              ) -> Dict[str, np.ndarray]:
+        """Wide eval candidate grids: per stored neg-set row, column 0
+        keeps that row's positive and columns 1..num_negs are items
+        sampled uniformly outside the user's train/val/test
+        interactions (the 1+99 protocol). Same [M, C] layout as
+        `materialize_negs`."""
+        with_text = (hp.family == "review" if include_text is None
+                     else include_text)
+        if with_text:
+            _not_ported(hp)
+        m = int(self.neg_users.shape[0])
+        c = num_negs + 1
+        rng = np.random.default_rng(seed)
+        all_keys = np.unique(np.concatenate(
+            [s.user.astype(np.int64) * self.num_items + s.item
+             for s in self.splits.values()]))
+
+        def interacted(users_2d, items_2d):
+            q = (users_2d.astype(np.int64) * self.num_items
+                 + items_2d.astype(np.int64))
+            if len(all_keys) == 0:
+                return np.zeros(q.shape, bool)
+            pos = np.minimum(np.searchsorted(all_keys, q),
+                             len(all_keys) - 1)
+            return all_keys[pos] == q
+
+        cands = np.empty((m, c), np.int32)
+        cands[:, 0] = self.neg_cands[:, 0]
+        draw = rng.integers(0, self.num_items, size=(m, num_negs),
+                            dtype=np.int64)
+        u_col = self.neg_users.astype(np.int64)[:, None]
+        for _ in range(10):  # bounded vectorized rejection
+            bad = interacted(np.broadcast_to(u_col, draw.shape), draw)
+            if not bad.any():
+                break
+            draw[bad] = rng.integers(0, self.num_items,
+                                     size=int(bad.sum()))
+        cands[:, 1:] = draw.astype(np.int32)
+
+        user = np.repeat(self.neg_users, c).reshape(m, c).astype(np.int32)
+        rating = np.zeros((m, c), np.float32)
+        neg1 = np.full(m * c, -1, np.int32)
+        key = ("wide_negs", _doc_layout(hp) if with_text else "id",
+               hp.user_pad_id if with_text else 0, num_negs, seed)
+        if key in self._cache:
+            return self._cache[key]
+        recs = {"user": user, "item": cands, "rating": rating}
+        if with_text:
+            recs.update(self._grid_text_records(
+                hp, self.neg_users.astype(np.int32), cands.reshape(-1),
+                neg1, neg1, neg1, m, c))
+        self._cache[key] = recs
+        return recs
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def load(cls, path: str) -> "ReviewDataset":
+        """Read `<path>/corpus.npz`, the archive either package saves."""
+        a = load_npz(os.path.join(path, "corpus.npz"))
+        num_users, num_items, num_words = (int(x) for x in a["meta"])
+        splits = {
+            s: Split(a[f"{s}_user"].astype(np.int32),
+                     a[f"{s}_item"].astype(np.int32),
+                     a[f"{s}_rating"].astype(np.float32))
+            for s in ("train", "test", "val")}
+
+        offs = np.zeros(len(a["ur_lens"]) + 1, np.int64)
+        np.cumsum(a["ur_lens"], out=offs[1:])
+        flat_revs = [a["ur_tokens"][offs[j]:offs[j + 1]].astype(np.int32)
+                     for j in range(len(a["ur_lens"]))]
+        user_reviews: List[List[np.ndarray]] = []
+        u_to_i: List[List[int]] = []
+        at = 0
+        flat_u2i = a["u_to_i"]
+        for u in range(num_users):
+            cnt = int(a["ur_counts"][u])
+            user_reviews.append(flat_revs[at:at + cnt])
+            u_to_i.append(list(map(int, flat_u2i[at:at + cnt])))
+            at += cnt
+
+        i_to_u: List[List[int]] = []
+        at = 0
+        for i in range(num_items):
+            cnt = int(a["i_counts"][i])
+            i_to_u.append(list(map(int, a["i_to_u"][at:at + cnt])))
+            at += cnt
+
+        this_index = {(int(r[0]), int(r[1])): (int(r[2]), int(r[3]))
+                      for r in a["ti"]}
+        item_reviews: List[List[np.ndarray]] = [
+            [np.zeros(0, np.int32)] * len(i_to_u[i])
+            for i in range(num_items)]
+        for (u, i), (ui, iu) in this_index.items():
+            item_reviews[i][iu] = user_reviews[u][ui]
+
+        toffs = np.zeros(len(a["tv_lens"]) + 1, np.int64)
+        np.cumsum(a["tv_lens"], out=toffs[1:])
+        test_reviews = {
+            (int(k[0]), int(k[1])):
+                a["tv_tokens"][toffs[j]:toffs[j + 1]].astype(np.int32)
+            for j, k in enumerate(a["tv_keys"])}
+
+        vocab = None
+        if "vocab_words" in a:
+            vocab = {str(w): int(j) for w, j in
+                     zip(a["vocab_words"], a["vocab_ids"])}
+
+        return cls.build(
+            num_users=num_users, num_items=num_items, num_words=num_words,
+            splits=splits, user_reviews=user_reviews,
+            item_reviews=item_reviews, u_to_i=u_to_i, i_to_u=i_to_u,
+            this_index=this_index, test_reviews=test_reviews,
+            neg_users=a["neg_users"], neg_cands=a["neg_cands"],
+            word_vectors=a["word_vectors"], vocab=vocab)

@@ -1,0 +1,153 @@
+"""Evaluation: rating MSE (with cold-start count maps) and candidate-set
+ranking (HR@k / NDCG@k), as `reviews4rec_tpu/train/evaluate.py` defines
+them:
+
+- MSE is computed per example, then averaged over the whole split.
+- The count-vs-MSE maps bucket each example's squared error by its
+  user's / item's train-set frequency.
+- Ranking: per stored set, the positive sits in column 0; its rank is
+  the number of candidates scoring strictly higher, so a tie goes to
+  the positive.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from ..config import HyperParams
+from ..data.batcher import Batcher
+from ..utils.device import to_device
+
+
+def eval_step(model: torch.nn.Module, batch: Dict[str, torch.Tensor]
+              ) -> Dict[str, torch.Tensor]:
+    """Per-example squared errors and predictions of one batch."""
+    preds = model(batch)
+    return {"sq": (preds - batch["rating"]) ** 2, "pred": preds}
+
+
+def _count_mse_maps(counts: np.ndarray, sq: np.ndarray
+                    ) -> Dict[int, list]:
+    """{train-frequency: [squared errors]}, one entry per distinct
+    count."""
+    out: Dict[int, list] = {}
+    if counts.size == 0:
+        return out
+    order = np.argsort(counts, kind="stable")
+    counts_s = counts[order]
+    sq_s = sq[order]
+    uniq, starts = np.unique(counts_s, return_index=True)
+    for j, c in enumerate(uniq):
+        end = starts[j + 1] if j + 1 < len(uniq) else len(sq_s)
+        out[int(c)] = sq_s[starts[j]:end].tolist()
+    return out
+
+
+def _reduce_eval(outs, weights, users_l, items_l, user_count,
+                 item_count) -> Tuple[Dict, Dict, Dict]:
+    """Host-side reduction of the per-batch outputs."""
+    total_sq, total_n = 0.0, 0.0
+    all_sq = []
+    for out, w in zip(outs, weights):
+        sq = out["sq"][w]
+        total_sq += float(sq.sum())
+        total_n += float(w.sum())
+        all_sq.append(sq)
+    sq = np.concatenate(all_sq) if all_sq else np.zeros(0)
+    users = np.concatenate(users_l) if users_l else np.zeros(0, int)
+    items = np.concatenate(items_l) if items_l else np.zeros(0, int)
+    metrics = {"MSE": round(total_sq / max(total_n, 1.0), 4)}
+    return (metrics, _count_mse_maps(user_count[users], sq),
+            _count_mse_maps(item_count[items], sq))
+
+
+@torch.inference_mode()
+def evaluate(model: torch.nn.Module, batcher: Batcher, hp: HyperParams,
+             user_count: np.ndarray, item_count: np.ndarray,
+             device: torch.device) -> Tuple[Dict, Dict, Dict]:
+    """Split MSE and per-train-frequency MSE maps. Every batch is
+    launched before the outputs come back to the host in one copy."""
+    model.eval()
+    outs, weights, users_l, items_l = [], [], [], []
+    for batch in batcher:
+        outs.append(eval_step(model, to_device(batch, device)))
+        w = batch["weight"].astype(bool)
+        weights.append(w)
+        users_l.append(batch["user"][w])
+        items_l.append(batch["item"][w])
+    outs = _to_host(outs)
+    return _reduce_eval(outs, weights, users_l, items_l, user_count,
+                        item_count)
+
+
+def _to_host(outs: List[Dict[str, torch.Tensor]]
+             ) -> List[Dict[str, np.ndarray]]:
+    if not outs:
+        return []
+    keys = list(outs[0])
+    stacked = {k: torch.stack([o[k] for o in outs]).cpu().numpy()
+               for k in keys}
+    return [{k: stacked[k][j] for k in keys} for j in range(len(outs))]
+
+
+@torch.inference_mode()
+def score_grid(model: torch.nn.Module, records: Dict[str, np.ndarray],
+               batch_size: int, device: torch.device) -> np.ndarray:
+    """Scores [M, C] of a candidate grid (positive in column 0)."""
+    model.eval()
+    scores, weights = [], []
+    for batch in Batcher(records, batch_size):
+        scores.append(model(to_device(batch, device)))
+        weights.append(batch["weight"].astype(bool))
+    if not scores:
+        return np.zeros((0,) + records["item"].shape[1:], np.float32)
+    host = torch.stack(scores).cpu().numpy()
+    return np.concatenate([s[w] for s, w in zip(host, weights)])
+
+
+def positive_ranks(scores: np.ndarray) -> np.ndarray:
+    """0-based rank of column 0: the candidates scoring strictly
+    higher."""
+    return np.sum(scores[:, 1:] > scores[:, :1], axis=1)
+
+
+def ranks_to_metrics(ranks: np.ndarray, ks) -> Dict[str, float]:
+    """HR@k / NDCG@k from 0-based positive ranks (NDCG for k > 1)."""
+    metrics: Dict[str, float] = {}
+    total = max(len(ranks), 1)
+    for k in ks:
+        hr = float((ranks < k).sum()) / total
+        metrics[f"HR@{k}"] = round(100.0 * hr, 2)
+        if k > 1:
+            ndcg = float(np.where(ranks < k, 1.0 / np.log2(ranks + 2),
+                                  0.0).sum()) / total
+            metrics[f"NDCG@{k}"] = round(100.0 * ndcg, 2)
+    return metrics
+
+
+def split_eval_ks(hp: HyperParams) -> Tuple[Tuple[int, ...],
+                                            Tuple[int, ...]]:
+    """(narrow_ks, wide_ks): with hp.eval_num_negs > 0, cutoffs above
+    num_negs move to the wide 1+eval_num_negs candidate sets, on which
+    they do not saturate by construction."""
+    if hp.eval_num_negs <= 0:
+        return tuple(hp.eval_ks), ()
+    wide = tuple(k for k in hp.eval_ks if k > hp.num_negs)
+    bad = [k for k in wide if hp.eval_num_negs < k]
+    if bad:
+        raise ValueError(
+            f"eval_num_negs={hp.eval_num_negs} gives 1+{hp.eval_num_negs}"
+            f"-candidate wide sets, on which HR@{bad[0]} saturates at 100 "
+            f"by construction; set eval_num_negs >= {max(bad)}")
+    return tuple(k for k in hp.eval_ks if k <= hp.num_negs), wide
+
+
+def eval_ranking(model: torch.nn.Module, neg_records: Dict[str, np.ndarray],
+                 hp: HyperParams, batch_size: int,
+                 device: torch.device) -> Dict[str, float]:
+    """HR@k / NDCG@k at `hp.eval_ks` over per-user candidate sets."""
+    scores = score_grid(model, neg_records, batch_size, device)
+    return ranks_to_metrics(positive_ranks(scores), hp.eval_ks)

@@ -1,0 +1,43 @@
+"""Device choice shared by every entry point of the package.
+
+`device=None` means the GPU. Without CUDA an entry point raises unless
+the caller asked for the CPU explicitly: nothing falls back silently.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain "
+            "PyTorch path on the CPU")
+    return dev
+
+
+def to_device(batch: Dict[str, np.ndarray], device: torch.device
+              ) -> Dict[str, torch.Tensor]:
+    """Host numpy batch -> tensors on `device`."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+def module_device(module: torch.nn.Module,
+                  device: Optional[DeviceLike]) -> torch.device:
+    """The device a model's entry point runs on: the one asked for,
+    which must be where the model's parameters already are."""
+    dev = resolve_device(device)
+    have = next(module.parameters()).device
+    if have.type != dev.type or (dev.index is not None
+                                 and have.index != dev.index):
+        raise ValueError(f"the model lies on {have}, the call asks for {dev}"
+                         f"; move it with model.to(device) first")
+    return have
