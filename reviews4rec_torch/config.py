@@ -195,5 +195,8 @@ class HyperParams:
                   f"do{self.dropout}", f"il{self.input_length}"]
         return "_".join(str(p) for p in parts)
 
+    def log_file(self) -> str:
+        return os.path.join(self.log_dir, self.run_tag() + ".log")
+
     def model_path(self) -> str:
         return os.path.join(self.model_dir, self.run_tag() + ".ckpt")

@@ -16,6 +16,10 @@ from .layers import FM, ScorerMLP, TextCNN, doc_shape
 
 
 class DeepCoNN(nn.Module):
+    # the record keys a forward reads (besides the label and weight)
+    INPUTS = ("user", "item", "user_doc", "item_doc", "user_skip",
+              "item_skip")
+
     def __init__(self, num_user_rows: int, num_item_rows: int,
                  latent_size: int, word_vectors: np.ndarray,
                  dropout: float = 0.6, use_fm: bool = True,
@@ -37,7 +41,9 @@ class DeepCoNN(nn.Module):
             self.item_bias = nn.Parameter(torch.full((num_item_rows,), 0.1))
             self.final = ScorerMLP(2 * L, L, dropout, generator=generator)
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        # `generator` draws the dropout masks in training
         # Candidate grids carry the user side at lead [B, 1] (identical
         # across the C candidates) and the item side at [B, C]: the user
         # tower runs once per grid row and its features broadcast.
@@ -53,8 +59,8 @@ class DeepCoNN(nn.Module):
         if i_skip is not None:
             i_skip = i_skip.reshape(-1, 2).to(torch.int32).contiguous()
         wv = self.word_vectors
-        u = self.user_conv(udoc, table=wv, skip=u_skip)
-        i = self.item_conv(idoc, table=wv, skip=i_skip)
+        u = self.user_conv(udoc, table=wv, skip=u_skip, generator=generator)
+        i = self.item_conv(idoc, table=wv, skip=i_skip, generator=generator)
         if u_lead != lead:
             u = u.reshape(u_lead + u.shape[-1:]).expand(
                 lead + u.shape[-1:]).reshape(-1, u.shape[-1])
@@ -62,7 +68,7 @@ class DeepCoNN(nn.Module):
 
         if self.use_fm:
             return (self.global_bias[0] + self.fm(cat)).reshape(lead)
-        rating = (self.final(cat)
+        rating = (self.final(cat, generator)
                   + self.user_bias[batch["user"].reshape(-1)]
                   + self.item_bias[batch["item"].reshape(-1)]
                   + self.global_bias[0])

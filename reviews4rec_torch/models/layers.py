@@ -5,7 +5,9 @@ same parameter layouts so that `weights.params_from_flax` maps one onto
 the other: the TextCNN keeps its conv as a `[W*E, F]` tap-major matrix,
 which the CUDA kernel reads directly. Dense layers are `nn.Linear`
 (weight `[out, in]`, the transpose of a flax kernel). Initialization is
-xavier-uniform from a `torch.Generator`, biases zero.
+xavier-uniform from a `torch.Generator`, biases zero. Dropout draws its
+mask from the `generator` a forward is given, so a training run is
+keyed by its own seed and not by torch's global RNG.
 """
 
 from __future__ import annotations
@@ -24,6 +26,27 @@ def _linear(n_in: int, n_out: int, generator: Optional[torch.Generator]
     nn.init.xavier_uniform_(lin.weight, generator=generator)
     nn.init.zeros_(lin.bias)
     return lin
+
+
+class Dropout(nn.Module):
+    """flax's `nn.Dropout`: in training, keep each value with probability
+    1 - p and scale it by 1 / (1 - p), the mask drawn by `torch.rand`
+    from `generator` on the value's device; the identity in `eval()` or
+    at p = 0."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=generator, device=x.device,
+                          dtype=x.dtype) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
 
 
 class FM(nn.Module):
@@ -60,19 +83,22 @@ class TextCNN(nn.Module):
             generator=generator))
         self.conv_bias = nn.Parameter(torch.zeros(num_filters))
         self.fc = _linear(num_filters, latent_size, generator)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor,
                 table: Optional[torch.Tensor] = None,
-                skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+                skip: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         # x: [B, T, E] embedded words, or int [B, T] ids with a `table`
         # [V, E] to embed them with. `skip` ([B, 2] int32 (start, len))
-        # zeroes that word span of each doc.
+        # zeroes that word span of each doc. A buffer table (frozen) gives
+        # an x that needs no gradient, so the backward skips dx.
         if table is not None and not x.is_floating_point():
             x = table[x]
         y, _ = textcnn_pool(x.contiguous(), self.conv_kernel,
                             self.conv_bias, self.window, skip)
-        return self.dropout(self.fc(y))
+        return self.dropout(self.fc(y), generator)
 
 
 class ScorerMLP(nn.Module):
@@ -82,11 +108,12 @@ class ScorerMLP(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.fc0 = _linear(n_in, hidden, generator)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.fc1 = _linear(hidden, 1, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.dropout(torch.relu(self.fc0(x)))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.dropout(torch.relu(self.fc0(x)), generator)
         return self.fc1(x)[..., 0]
 
 

@@ -11,8 +11,9 @@ Counterpart of `reviews4rec_tpu/serve.py` for the models the port has
   construction; a query encodes only its users and scores the catalog
   with the head split per side, exactly.
 
-Every entry point takes the model to serve. Restoring one from a
-checkpoint comes with the trainer slice (ROADMAP.md, Queue 1 item 4).
+Every entry point takes the model to serve or, without one, restores
+the best-validation params of the checkpoint `api.run` saved
+(`restore_model`).
 """
 
 from __future__ import annotations
@@ -26,10 +27,12 @@ import torch
 from .config import HyperParams
 from .data.batcher import Batcher
 from .data.corpus import ReviewDataset
+from .models import build_model
+from .train import checkpoint as ckpt
 from .utils.device import DeviceLike, module_device, to_device
 
 
-def _check_servable(hp: HyperParams, what: str, model) -> None:
+def _check_servable(hp: HyperParams, what: str) -> None:
     if hp.family == "topic":
         raise ValueError(f"{what} for HFT: models/hft.py writes its "
                          f"per-split predictions itself")
@@ -37,18 +40,39 @@ def _check_servable(hp: HyperParams, what: str, model) -> None:
         raise ValueError(f"{what} for {hp.model_type}: "
                          f"models/neighbors.py::fit_predict returns "
                          f"per-split predictions directly")
-    if model is None:
-        raise NotImplementedError(
-            f"{what} needs a model: restoring one from a checkpoint comes "
-            f"with the trainer slice (ROADMAP.md, Queue 1 item 4)")
+
+
+def restore_model(hp: HyperParams, dataset: ReviewDataset,
+                  checkpoint_path: Optional[str] = None,
+                  device: DeviceLike = None) -> torch.nn.Module:
+    """The model of `hp` on `device` (None = the GPU), in `eval()`, with
+    the best-validation params of the checkpoint `api.run` saved
+    (`train.checkpoint.checkpoint_path(hp)` unless a path is given)."""
+    _check_servable(hp, "restore_model")
+    hp = dataset.apply_to(hp)
+    path = checkpoint_path or ckpt.checkpoint_path(hp)
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"no checkpoint at {path}; train first (api.run with "
+            f"hp.save_model=True, the default)")
+    # normal tensors even when called from an inference-mode entry point
+    with torch.inference_mode(False):
+        model = build_model(hp, dataset.word_vectors, device=device)
+        payload = ckpt.load_checkpoint(
+            path, map_location=module_device(model, device))
+        model.load_state_dict(payload["best_params"] or payload["params"])
+    return model.eval()
 
 
 @torch.inference_mode()
 def predict(hp: HyperParams, dataset: ReviewDataset, split: str = "test",
             model: Optional[torch.nn.Module] = None,
             device: DeviceLike = None) -> np.ndarray:
-    """Predicted ratings for every example of `split`, in split order."""
-    _check_servable(hp, "predict", model)
+    """Predicted ratings for every example of `split`, in split order;
+    `model` defaults to the restored checkpoint."""
+    _check_servable(hp, "predict")
+    if model is None:
+        model = restore_model(hp, dataset, device=device)
     dev = module_device(model, device)
     hp = dataset.apply_to(hp)
     model.eval()
@@ -70,6 +94,8 @@ def save_predictions(hp: HyperParams, dataset: ReviewDataset,
     """Write `<tag>_{split}_results`, one `prediction rating` line per
     example in split order. Returns {split: path}."""
     hp = dataset.apply_to(hp)
+    if model is None:
+        model = restore_model(hp, dataset, device=device)
     d = out_dir or hp.log_dir
     os.makedirs(d, exist_ok=True)
     paths = {}
@@ -107,7 +133,9 @@ class Recommender:
     def __init__(self, hp: HyperParams, dataset: ReviewDataset,
                  model: Optional[torch.nn.Module] = None,
                  item_chunk: int = 512, device: DeviceLike = None):
-        _check_servable(hp, "Recommender", model)
+        _check_servable(hp, "Recommender")
+        if model is None:
+            model = restore_model(hp, dataset, device=device)
         self.hp = dataset.apply_to(hp)
         self.dataset = dataset
         self.model = model.eval()
@@ -162,7 +190,7 @@ class FactorizedRecommender:
                  model: Optional[torch.nn.Module] = None,
                  item_chunk: int = 1024, items: Optional[np.ndarray] = None,
                  device: DeviceLike = None):
-        _check_servable(hp, "FactorizedRecommender", model)
+        _check_servable(hp, "FactorizedRecommender")
         if hp.model_type == "MPCN":
             raise ValueError("MPCN has no exact two-tower factorization; "
                              "use Recommender")
@@ -170,6 +198,8 @@ class FactorizedRecommender:
             raise NotImplementedError(
                 f"factorized serving of {hp.model_type!r} is not ported "
                 f"yet (ROADMAP.md, Queue 1 item 10)")
+        if model is None:
+            model = restore_model(hp, dataset, device=device)
         self.hp = hp = dataset.apply_to(hp)
         self.dataset = dataset
         self.model = model.eval()

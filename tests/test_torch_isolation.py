@@ -28,6 +28,7 @@ def test_import_loads_no_jax():
     assert out.returncode == 0, out.stderr
     mods = json.loads(out.stdout.strip().splitlines()[-1])
     assert "reviews4rec_torch.serve" in mods
+    assert "reviews4rec_torch.train.loop" in mods
     bad = [m for m in mods if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 

@@ -112,10 +112,20 @@ def test_save_predictions_files(served, port_dataset, tmp_path):
     assert paths["test"].endswith(f"{ph.run_tag()}_test_results")
 
 
-def test_entry_points_need_a_model_and_default_to_cuda(served, port_dataset):
+def test_entry_points_need_a_model_and_default_to_cuda(served, port_dataset,
+                                                      tmp_path):
+    """Without `model=` an entry point restores the checkpoint `api.run`
+    saved, and says so when there is none."""
     _, ph, _, _, tm = served
-    with pytest.raises(NotImplementedError, match="trainer slice"):
-        predict(ph, port_dataset, "test", device=CPU)
+    untrained = ph.replace(model_dir=str(tmp_path))
+    for call in (lambda: predict(untrained, port_dataset, "test", device=CPU),
+                 lambda: save_predictions(untrained, port_dataset,
+                                          out_dir=str(tmp_path), device=CPU),
+                 lambda: Recommender(untrained, port_dataset, device=CPU),
+                 lambda: FactorizedRecommender(untrained, port_dataset,
+                                               device=CPU)):
+        with pytest.raises(FileNotFoundError, match="train first"):
+            call()
     with pytest.raises(ValueError):
         predict(ph.replace(model_type="HFT"), port_dataset, model=tm,
                 device=CPU)

@@ -138,7 +138,7 @@ def test_skip_spans_match_value_level_mask():
 
 def test_wrapper_on_cpu_runs_the_plain_version():
     x, k, bias = _inputs(3, 50, 16, 8, 3, seed=2)
-    before = textcnn.launches
+    before = dict(textcnn.launches)
     out, idx = textcnn_pool(torch.from_numpy(x), torch.from_numpy(k),
                             torch.from_numpy(bias), 3)
     ref_out, ref_idx = _port(x, k, bias, 3)
