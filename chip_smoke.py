@@ -25,17 +25,38 @@
 6. Trains a full-width TextCNN tower over a trainable word table, the
    path whose input needs a gradient (dx kernel), and holds its first
    step's gradients against the same step on the CPU.
-7. Prints the card, one JSON line of kernel numbers and, last, the
+7. The entity doc cache (`cache_doc_embeds` + `cache_entity`): holds
+   the two row-gathered kernels (forward and dG on `table[rows]` of a
+   whole [N, T, E] entity table) bitwise against the plain-x kernels on
+   `table[rows]` and within the limits of 2 against their plain
+   versions, and times them; trains both heads 8 steps over the entity
+   cache with and without `pallas_fuse_rows` against the JAX trainer's
+   in `tests/torch_fixtures/entity_ref.npz` (the two variants bitwise
+   equal); trains deepconn 2 epochs through `api.run` on the entity
+   cache with `pallas_fuse_rows` and profiles 50 of its steps; serves
+   both heads from the entity tables (`predict`, `finalize`,
+   `Recommender(entity=True)`) against `e2e_ref.npz`.
+8. Prints the card, one JSON line of kernel numbers and, last, the
    result line. Any failed check raises and the exit code is not 0.
 
 The kernel launch counts are set to 0 just before each path (serving,
-3; training, 5; input gradient, 6) and read just after. Without CUDA or
-the checkout around it, the script exits with an error and prints no
-result.
+3; training, 5; input gradient, 6; entity training against JAX, entity
+training through `api.run` and entity serving, 7) and read just after.
+Without CUDA or the checkout around it, the script exits with an error
+and prints no result.
+
+    python3 chip_smoke.py --e2e-full
+
+is opt-in: it trains deepconn and deepconn++ with the reference's own
+flags (60 epochs, early stop 5, the entity cache) and prints their test
+metrics beside the JAX package's rows in `data/e2e_state.json`.
+`--only PHASE,...` runs only the named phases (see `PHASES`) and
+prints no result line.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -46,10 +67,23 @@ ROOT = Path(__file__).resolve().parent
 CORPUS_DIR = ROOT / "data" / "e2e" / "5_core"
 FIXTURE = ROOT / "tests" / "torch_fixtures" / "e2e_ref.npz"
 TRAIN_FIXTURE = ROOT / "tests" / "torch_fixtures" / "train_ref.npz"
+ENTITY_FIXTURE = ROOT / "tests" / "torch_fixtures" / "entity_ref.npz"
+E2E_STATE = ROOT / "data" / "e2e_state.json"
+MODELS = ("deepconn", "deepconn++")
+ENTITY = dict(cache_doc_embeds=True, cache_entity=True)
 SERVE_SHAPE = dict(b=256, t=1000, e=64, f=100, w=3)
+PHASES = ("kernels", "rows", "serve", "train", "input_grad",
+          "entity_vs_jax", "entity_train", "entity_serve")
 # untrained deepconn's test MSE on the e2e corpus (e2e_ref.npz): two
 # epochs of training must land below it
 UNTRAINED_MSE = 1.524
+# final params of the 8 entity steps against entity_ref.npz: half an Adam
+# step at lr 2e-3. The card and the port's own plain path on the CPU end
+# 5.5e-4 apart on a deepconn++ conv weight whose gradient (~5e-6) changes
+# sign within the 8 steps, where Adam's normalised step turns f32
+# summation order into a fraction of lr; losses and step-1 gradients keep
+# the uncached check's bounds
+ENTITY_PARAMS_TOL = 1e-3
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s
 # outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -469,68 +503,293 @@ def time_backward(torch, textcnn) -> dict:
 
 
 # ---------------------------------------------------------------------
+# the row-gathered kernels (entity doc cache under pallas_fuse_rows)
+# ---------------------------------------------------------------------
+def _rows_cases():
+    """(name, maker, table rows N, (B, T, E, F, W), skip spans) of
+    `check_rows`: the entity training shape (N = the e2e users), a B
+    that is no tile multiple, skip spans of length 0, over the whole doc
+    and past T, forced integer ties, another E and W."""
+    s = SERVE_SHAPE
+    t, e, f, w = s["t"], s["e"], s["f"], s["w"]
+    return [
+        ("N=2500 B=256 T=1000 repeated rows", _random_case, 2500,
+         (256, t, e, f, w), None),
+        ("B=37", _random_case, 300, (37, t, e, f, w), None),
+        ("skip spans", _random_case, 40, (6, t, e, f, w),
+         [[0, 0], [0, 1000], [900, 500], [10, 300], [1, 1], [999, 7]]),
+        ("forced ties", _tie_case, 32, (8, 300, e, f, w), None),
+        ("E=32 W=5", _random_case, 60, (16, 200, 32, f, 5), None),
+    ]
+
+
+def _rows_for(torch, n: int, b: int, seed: int):
+    """[B] int32 row ids into N rows on the card: random, with the first
+    and last row of the table and the last quarter repeating the first."""
+    rows = torch.randint(0, n, (b,),
+                         generator=torch.Generator().manual_seed(seed))
+    rows[0], rows[1] = 0, n - 1
+    q = b // 4
+    if q:
+        rows[b - q:] = rows[:q]
+    return rows.to(torch.int32).cuda()
+
+
+def check_rows(torch, textcnn) -> dict:
+    """Both row-gathered kernels against the plain-x kernels on
+    table[rows] (bitwise: out, idx, dK, and dK and db through the two
+    autograd functions) and against their plain versions (out within
+    1e-4, idx equal, dK within 1e-4 * max(1, max|dK|), db within 1e-4;
+    exact on integer inputs). A row outside [0, N) must give NaN and -1
+    in its batch row and leave the others alone. Returns the largest
+    errors against the plain versions."""
+    worst = {"fwd": 0.0, "dg": 0.0}
+    for j, (name, make, n, (b, t, e, f, w), skip) in enumerate(_rows_cases()):
+        table, k, bias = (a.cuda() for a in make(torch, n, t, e, f, w,
+                                                 seed=50 + j))
+        rows = _rows_for(torch, n, b, seed=j)
+        sk = (torch.tensor(skip, dtype=torch.int32, device="cuda")
+              if skip is not None else None)
+        exact = make is _tie_case
+        gen = torch.Generator().manual_seed(200 + j)
+        g = (torch.randint(-3, 4, (b, f), generator=gen).float() if exact
+             else torch.randn(b, f, generator=gen)).cuda()
+        x = table[rows.long()].contiguous()
+
+        out_r, idx_r = textcnn.textcnn_pool_fwd_rows(table, rows, k, bias, w,
+                                                     sk)
+        out_x, idx_x = textcnn.textcnn_pool_forward(x, k, bias, w, sk)
+        ref_out, ref_idx = textcnn.textcnn_pool_rows_reference(
+            table, rows, k, bias, w, sk)
+        gated = torch.where(out_r > 0, g, 0.0)
+        dk_r = textcnn.textcnn_pool_bwd_dg_rows(table, rows, gated, idx_r, w,
+                                                sk)
+        dk_x = textcnn.textcnn_pool_bwd_dg(x, gated, idx_x, w, sk)
+        dk_ref = textcnn._dg_reference(x, gated, ref_idx, w, sk)
+        grads = []
+        for op, src in ((textcnn.textcnn_pool_rows, (table, rows)),
+                        (textcnn.textcnn_pool, (x,))):
+            kr, br = (a.clone().requires_grad_() for a in (k, bias))
+            op(*src, kr, br, w, sk)[0].backward(g)
+            grads.append((kr.grad, br.grad))
+        torch.cuda.synchronize()
+        bitwise = (torch.equal(out_r, out_x) and torch.equal(idx_r, idx_x)
+                   and torch.equal(dk_r, dk_x)
+                   and torch.equal(grads[0][0], grads[1][0])
+                   and torch.equal(grads[0][1], grads[1][1]))
+        out_err = (out_r - ref_out).abs().max().item()
+        bad_idx = int((idx_r != ref_idx).sum())
+        dk_err = (dk_r - dk_ref).abs().max().item()
+        db_err = (grads[0][1] - gated.sum(0)).abs().max().item()
+        dk_tol = 0.0 if exact else 1e-4 * max(1.0, dk_ref.abs().max().item())
+        db_tol = 0.0 if exact else 1e-4
+        print(f"rows kernels {name}: bitwise the plain-x kernels on "
+              f"table[rows]: {bitwise}; vs plain: max|out err| "
+              f"{out_err:.3e}, idx mismatches {bad_idx}, max|dK err| "
+              f"{dk_err:.3e} (limit {dk_tol:.1e}), max|db err| "
+              f"{db_err:.3e}; {len(set(rows.tolist()))} distinct of {b} "
+              f"rows")
+        if not (bitwise and out_err <= (0.0 if exact else 1e-4)
+                and not bad_idx and dk_err <= dk_tol and db_err <= db_tol):
+            raise AssertionError(f"the rows kernels disagree ({name})")
+        worst["fwd"] = max(worst["fwd"], out_err)
+        worst["dg"] = max(worst["dg"], dk_err)
+        if j == 0:
+            bad = rows.clone()
+            bad[2], bad[3] = -1, n
+            out_b, idx_b = textcnn.textcnn_pool_fwd_rows(table, bad, k, bias,
+                                                         w)
+            keep = torch.ones(b, dtype=torch.bool, device="cuda")
+            keep[2:4] = False
+            ok = (bool(torch.isnan(out_b[2:4]).all())
+                  and bool((idx_b[2:4] == -1).all())
+                  and torch.equal(out_b[keep], out_x[keep])
+                  and torch.equal(idx_b[keep], idx_x[keep]))
+            print(f"rows kernels, rows -1 and N: NaN and -1 in their batch "
+                  f"rows, the others unchanged: {ok}")
+            if not ok:
+                raise AssertionError("a row outside the table is not "
+                                     "flagged")
+    return worst
+
+
+def time_rows(torch, textcnn) -> dict:
+    """Medians of 30 single calls (CUDA events) of each rows kernel at
+    the entity training shape (a [2500, 1000, 64] f32 table, the e2e
+    users; 256 random rows), beside its plain version, the plain-x
+    kernel on `table.index_select(0, rows)` (gather included) and the
+    gather alone, and a library yardstick the port never calls:
+    `index_select` + cuDNN conv1d + ReLU + max (channels-first table
+    prepared outside the timing) for the forward, `torch.autograd.grad`
+    of that graph with respect to (K, b) for dG."""
+    import torch.nn.functional as F
+
+    b, t, e, f, w = (SERVE_SHAPE[k] for k in "btefw")
+    n, halo = 2500, w - 1
+    table = torch.randn(n, t, e, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    _, k, bias = (a.cuda() for a in _random_case(torch, 1, 1, e, f, w, 0))
+    rows = torch.randint(0, n, (b,), generator=torch.Generator()
+                         .manual_seed(11)).to(torch.int32).cuda()
+    rows_l = rows.long()
+    distinct = int(rows.unique().numel())
+    out, idx = textcnn.textcnn_pool_fwd_rows(table, rows, k, bias, w)
+    g = torch.randn(b, f, generator=torch.Generator().manual_seed(7)).cuda()
+    g = torch.where(out > 0, g, 0.0)
+
+    table_cf = table.transpose(1, 2).contiguous()
+    k_cf = k.reshape(w, e, f).permute(2, 1, 0).contiguous()
+
+    def lib_fwd():
+        return torch.relu(F.conv1d(table_cf.index_select(0, rows_l), k_cf,
+                                   bias, padding=halo)).max(2)
+
+    kg, bg = k_cf.clone().requires_grad_(), bias.clone().requires_grad_()
+    y = torch.relu(F.conv1d(table_cf.index_select(0, rows_l), kg, bg,
+                            padding=halo)).max(2).values
+
+    def lib_dg():
+        return torch.autograd.grad(y, (kg, bg), g, retain_graph=True)
+
+    ref_out, _ = textcnn.textcnn_pool_rows_reference(table, rows, k, bias, w)
+    ref_dk = textcnn._dg_reference(table[rows_l], g, idx, w, None)
+    lib_dk = lib_dg()[0].permute(2, 1, 0).reshape(w * e, f)
+    if not ((lib_fwd().values - ref_out).abs().max().item() <= 1e-4
+            and (lib_dk - ref_dk).abs().max().item()
+            <= 1e-4 * max(1.0, ref_dk.abs().max().item())):
+        raise AssertionError("the library yardstick computes another "
+                             "function")
+
+    # the work this run's data needs: the distinct table rows the batch
+    # reads (forward); the FMAs of the non-zero g and the distinct table
+    # positions that their winning windows cover (dG)
+    flops = 2.0 * b * (t + halo) * w * e * f
+    fwd_bytes = 4.0 * (distinct * t * e + w * e * f + f + b) + 8.0 * b * f
+    nz = g != 0
+    pos = idx.long()[:, :, None] + torch.arange(w, device="cuda")
+    src = rows_l[:, None, None].expand_as(pos)
+    sel = nz[:, :, None].expand_as(pos)
+    covered = torch.zeros(n, t + 2 * halo, dtype=torch.bool, device="cuda")
+    covered[src[sel], pos[sel]] = True
+    cells = int(covered[:, halo:halo + t].sum())
+    dg_flops = 2.0 * int(nz.sum()) * w * e
+    dg_bytes = 4.0 * cells * e + 4.0 * (2 * b * f + w * e * f + b)
+    gather = lambda: table.index_select(0, rows_l)       # noqa: E731
+    res = {
+        "fwd": dict(
+            _bound(flops, fwd_bytes),
+            ms=_median_ms(torch, lambda: textcnn.textcnn_pool_fwd_rows(
+                table, rows, k, bias, w)),
+            plain_ms=_median_ms(torch, lambda: textcnn
+                                .textcnn_pool_rows_reference(table, rows, k,
+                                                             bias, w)),
+            take_ms=_median_ms(torch, lambda: textcnn.textcnn_pool_forward(
+                gather(), k, bias, w)),
+            library_ms=_median_ms(torch, lib_fwd)),
+        "dg": dict(
+            _bound(dg_flops, dg_bytes), cells=cells,
+            ms=_median_ms(torch, lambda: textcnn.textcnn_pool_bwd_dg_rows(
+                table, rows, g, idx, w)),
+            plain_ms=_median_ms(torch, lambda: textcnn._dg_reference(
+                textcnn.take_rows(table, rows), g, idx, w, None)),
+            take_ms=_median_ms(torch, lambda: textcnn.textcnn_pool_bwd_dg(
+                gather(), g, idx, w)),
+            library_ms=_median_ms(torch, lib_dg)),
+        "gather_ms": _median_ms(torch, gather),
+        # the [B, T, E] copy the rows kernels do without: read and written
+        "gather_bound_ms": 1e3 * 8.0 * b * t * e / PEAK_BYTES_S,
+        "distinct": distinct, "gated_off": int((~nz).sum())}
+    return res
+
+
+# ---------------------------------------------------------------------
 # training held against the JAX trainer
 # ---------------------------------------------------------------------
-def train_vs_jax(torch, ds, device) -> None:
-    """8 steps of both heads from the e2e_ref.npz weights at dropout 0,
-    against train_ref.npz: losses within 1e-4 relative, step-1 gradients
-    within 1e-4 of each tensor's max |grad|, final params within 5e-4
-    absolute (Adam turns f32 rounding of near-zero gradients into up to
-    a few percent of lr per step; tests/test_torch_train.py)."""
+def _steps_vs_ref(torch, model, opt, batches, ref, mt: str, what: str,
+                  p_tol: float = 5e-4):
+    """Train `model` one step per batch of `batches` and hold the run
+    against the JAX trainer's in `ref` (under `<mt>/`): losses within
+    1e-4 relative, step-1 gradients within 1e-4 of each tensor's max
+    |grad|, final params within `p_tol` absolute (Adam turns f32
+    rounding of near-zero gradients into up to a few percent of lr per
+    step; tests/test_torch_train.py). Prints the worst param element with
+    its step-1 gradients and Adam moments. Returns (losses, step-1
+    grads, params)."""
     import numpy as np
 
+    from reviews4rec_torch.train.loop import train_step
+    from reviews4rec_torch.weights import params_from_flax
+
+    grads = {}
+
+    def grab(_opt, _args, _kwargs):
+        if not grads:
+            grads.update({n: p.grad.detach().clone()
+                          for n, p in model.named_parameters()})
+
+    hook = opt.register_step_pre_hook(grab)
+    model.train()
+    t0 = time.perf_counter()
+    losses = torch.stack([train_step(model, opt, batch())[0]
+                          for batch in batches])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    hook.remove()
+    got = losses.cpu().numpy()
+    want = ref[f"{mt}/loss"]
+    loss_err = float(np.max(np.abs(got - want) / np.abs(want)))
+    grad_err = 0.0
+    for name, wg in params_from_flax(_subtree(ref, f"{mt}/grad1/")).items():
+        err = (grads[name].cpu() - wg).abs().max().item()
+        grad_err = max(grad_err, err / max(wg.abs().max().item(), 1e-30))
+    state = model.state_dict()
+    want_p = params_from_flax(_subtree(ref, f"{mt}/params/"))
+    worst = max(want_p, key=lambda n: (state[n].cpu() - want_p[n])
+                .abs().max().item())
+    diff = (state[worst].cpu() - want_p[worst]).abs()
+    p_err = diff.max().item()
+    at = int(diff.argmax())
+    want_g = params_from_flax(_subtree(ref, f"{mt}/grad1/"))[worst]
+    moments = opt.state[dict(model.named_parameters())[worst]]
+    print(f"{mt} {len(got)} {what} vs JAX ({secs:.2f} s): losses "
+          f"{np.round(got, 5).tolist()}; max loss err {loss_err:.2e} "
+          f"(relative), step-1 grad err {grad_err:.2e} (of each max), "
+          f"final params max|err| {p_err:.2e} ({worst}[{at}]: port "
+          f"{state[worst].flatten()[at].item():.6e}, JAX "
+          f"{want_p[worst].flatten()[at].item():.6e}; step-1 grad port "
+          f"{grads[worst].flatten()[at].item():.3e}, JAX "
+          f"{want_g.flatten()[at].item():.3e}; Adam m "
+          f"{moments['exp_avg'].flatten()[at].item():.3e}, v "
+          f"{moments['exp_avg_sq'].flatten()[at].item():.3e})")
+    if not (loss_err <= 1e-4 and grad_err <= 1e-4 and p_err <= p_tol):
+        raise AssertionError(f"{mt}: {what} differ from the JAX trainer's")
+    return losses, grads, {k: v.clone() for k, v in state.items()}
+
+
+def train_vs_jax(torch, ds, device) -> None:
+    """8 steps of both heads from the e2e_ref.npz weights at dropout 0,
+    against train_ref.npz, within `_steps_vs_ref`'s bounds."""
     from reviews4rec_torch.config import HyperParams
     from reviews4rec_torch.data import Batcher
     from reviews4rec_torch.models import build_model
-    from reviews4rec_torch.train.loop import make_optimizer, train_step
+    from reviews4rec_torch.train.loop import make_optimizer
     from reviews4rec_torch.utils.device import to_device
     from reviews4rec_torch.utils.io import load_npz
-    from reviews4rec_torch.weights import load_flax_params, params_from_flax
+    from reviews4rec_torch.weights import load_flax_params
 
     ref = load_npz(str(TRAIN_FIXTURE))
     init = load_npz(str(FIXTURE))
     geom = json.loads(str(ref["geometry"]))
     steps = geom.pop("steps")
-    for mt in ("deepconn", "deepconn++"):
+    for mt in MODELS:
         hp = ds.apply_to(HyperParams(model_type=mt, **geom))
         model = build_model(hp, ds.word_vectors, device=device)
         load_flax_params(model, _subtree(init, f"{mt}/params/"))
-        opt = make_optimizer(hp, model)
-        grads = {}
-
-        def grab(_opt, _args, _kwargs):
-            if not grads:
-                grads.update({n: p.grad.detach().clone()
-                              for n, p in model.named_parameters()})
-
-        hook = opt.register_step_pre_hook(grab)
-        model.train()
-        t0 = time.perf_counter()
-        losses = [train_step(model, opt, to_device(batch, device))[0]
-                  for batch, _ in zip(Batcher(ds.materialize(hp, "train"),
-                                              hp.batch_size), range(steps))]
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        hook.remove()
-        losses = torch.stack(losses).cpu().numpy()
-        want = ref[f"{mt}/loss"]
-        loss_err = float(np.max(np.abs(losses - want) / np.abs(want)))
-        grad_err = 0.0
-        for name, wg in params_from_flax(_subtree(ref, f"{mt}/grad1/")).items():
-            err = (grads[name].cpu() - wg).abs().max().item()
-            grad_err = max(grad_err, err / max(wg.abs().max().item(), 1e-30))
-        state = model.state_dict()
-        want_p = params_from_flax(_subtree(ref, f"{mt}/params/"))
-        worst = max(want_p, key=lambda n: (state[n].cpu() - want_p[n])
-                    .abs().max().item())
-        p_err = (state[worst].cpu() - want_p[worst]).abs().max().item()
-        print(f"{mt} {steps} training steps vs JAX ({secs:.2f} s): losses "
-              f"{np.round(losses, 5).tolist()}; max loss err {loss_err:.2e} "
-              f"(relative), step-1 grad err {grad_err:.2e} (of each max), "
-              f"final params max|err| {p_err:.2e} ({worst})")
-        if not (loss_err <= 1e-4 and grad_err <= 1e-4 and p_err <= 5e-4):
-            raise AssertionError(f"{mt}: training differs from the JAX "
-                                 f"trainer")
+        batches = [lambda b=batch: to_device(b, device) for batch, _ in zip(
+            Batcher(ds.materialize(hp, "train"), hp.batch_size),
+            range(steps))]
+        _steps_vs_ref(torch, model, make_optimizer(hp, model), batches, ref,
+                      mt, "training steps")
 
 
 # ---------------------------------------------------------------------
@@ -552,7 +811,9 @@ def _device_rows(torch, prof):
 
 
 def _print_profile(torch, prof, what: str, wall: float, top: int,
-                   host_top: int = 0) -> None:
+                   host_top: int = 0) -> list:
+    """Print the device time by kernel; returns `_device_rows`'
+    kernels and copies."""
     rows, ranges = _device_rows(torch, prof)
     total = sum(r[0] for r in rows)
     if total <= 0:
@@ -573,6 +834,7 @@ def _print_profile(torch, prof, what: str, wall: float, top: int,
         for ev in cpu[:host_top]:
             print(f"  {ev.self_cpu_time_total / 1e3:9.3f} ms  "
                   f"x{ev.count:<5d} {ev.key[:80]}")
+    return rows
 
 
 def train_product(torch, textcnn, ds, device) -> dict:
@@ -748,9 +1010,367 @@ def train_input_grad(torch, textcnn, ds, device, steps: int = 3) -> dict:
     if not torch.isfinite(losses).all() or errs[worst] > 1e-4:
         raise AssertionError("the input-gradient path differs from the "
                              "plain versions")
-    if any(launches[name] != steps for name in textcnn.KERNELS):
-        raise AssertionError(f"expected {steps} launches of each kernel")
+    plain_x = (textcnn.FWD, textcnn.BWD_DG, textcnn.BWD_DX)
+    if any(launches[name] != (steps if name in plain_x else 0)
+           for name in textcnn.KERNELS):
+        raise AssertionError(f"expected {steps} launches of each plain-x "
+                             f"kernel and none of the rows kernels")
     return launches
+
+
+# ---------------------------------------------------------------------
+# the entity doc cache: training and serving
+# ---------------------------------------------------------------------
+def train_entity_vs_jax(torch, textcnn, ds, device) -> dict:
+    """8 steps of both heads from the e2e_ref.npz weights at dropout 0
+    over the entity cache (batch rows 0..2047 in order), on the card
+    once with the float tables gathered by `table[rows]` and once read
+    whole by the rows kernels (`pallas_fuse_rows`), and once on the
+    host's CPU through the plain versions. Each run is held against
+    entity_ref.npz within `_steps_vs_ref`'s bounds, params within
+    ENTITY_PARAMS_TOL; the two card variants must agree bitwise, and the
+    card's final params are printed against the CPU run's, the floor
+    that f32 summation order alone sets after Adam. Returns the launches
+    of the card runs."""
+    from reviews4rec_torch.config import HyperParams
+    from reviews4rec_torch.models import build_model
+    from reviews4rec_torch.train.loop import (build_entity_cache,
+                                              gather_cached_batch,
+                                              make_optimizer)
+    from reviews4rec_torch.utils.io import load_npz
+    from reviews4rec_torch.weights import load_flax_params
+
+    ref = load_npz(str(ENTITY_FIXTURE))
+    init = load_npz(str(FIXTURE))
+    geom = json.loads(str(ref["geometry"]))
+    steps = geom.pop("steps")
+    hp0 = ds.apply_to(HyperParams(model_type=MODELS[0], **geom))
+    recs = ds.materialize_entity(hp0, "train")
+    (udocs, _), (idocs, _) = ds._entity_spans(hp0.input_length)
+    bs = hp0.batch_size
+    _reset(textcnn)
+    runs = {}
+    for dev, fuse, label in ((device, False, "table[rows]"),
+                             (device, True, "rows kernels"),
+                             (torch.device("cpu"), False, "CPU plain")):
+        if dev.type == "cpu":
+            launches = dict(textcnn.launches)
+        cache = build_entity_cache(
+            recs, {"user_doc": udocs, "item_doc": idocs}, ds.word_vectors,
+            torch.float32, dev, keys=("user_doc", "item_doc"),
+            fuse_rows=fuse)
+        weight = torch.ones(bs, device=dev)
+        batches = [lambda s=s: gather_cached_batch(
+            cache, torch.arange(s * bs, (s + 1) * bs, device=dev), weight)
+            for s in range(steps)]
+        for mt in MODELS:
+            hp = ds.apply_to(HyperParams(model_type=mt, **geom,
+                                         pallas_fuse_rows=fuse))
+            model = build_model(hp, ds.word_vectors, device=dev)
+            load_flax_params(model, _subtree(init, f"{mt}/params/"))
+            runs[mt, label] = _steps_vs_ref(
+                torch, model, make_optimizer(hp, model), batches, ref, mt,
+                f"entity steps, {label}", p_tol=ENTITY_PARAMS_TOL)
+        del cache, batches
+    print(f"entity training vs JAX: launches {launches}")
+
+    def equal(a, b):
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(torch.equal(a[k], b[k])
+                                                for k in a)
+        return torch.equal(a, b)
+
+    for mt in MODELS:
+        same = all(equal(a, b) for a, b in zip(runs[mt, "table[rows]"],
+                                               runs[mt, "rows kernels"]))
+        card, cpu = runs[mt, "table[rows]"][2], runs[mt, "CPU plain"][2]
+        worst = max(cpu, key=lambda k: (card[k].cpu() - cpu[k]).abs().max()
+                    .item())
+        floor = (card[worst].cpu() - cpu[worst]).abs().max().item()
+        print(f"  {mt}: rows kernels bitwise the table[rows] path (losses, "
+              f"step-1 grads, params): {same}; card vs the CPU's plain "
+              f"path, final params max|diff| {floor:.2e} ({worst})")
+        if not same:
+            raise AssertionError(f"{mt}: pallas_fuse_rows changes training")
+    if not (launches[textcnn.FWD_ROWS] == launches[textcnn.BWD_DG_ROWS]
+            == len(MODELS) * 2 * steps):
+        raise AssertionError("expected 2 launches of each rows kernel per "
+                             "fused step")
+    return launches
+
+
+def train_entity_product(torch, textcnn, ds, device) -> dict:
+    """`api.run` for deepconn at full width on the entity cache with
+    `pallas_fuse_rows`, 2 epochs, dropout 0.6: 2 dG-rows launches per
+    step and no plain-x dG or dx, at least 2 forward-rows launches per
+    step (training and validation), a val MSE below the untrained one,
+    finite metrics. Returns the launches of the run."""
+    import math
+    import re
+    import tempfile
+
+    import numpy as np
+
+    from reviews4rec_torch.api import run
+    from reviews4rec_torch.config import HyperParams
+    from reviews4rec_torch.train.loop import build_entity_tables
+
+    with tempfile.TemporaryDirectory() as tmp:
+        hp = ds.apply_to(HyperParams(
+            model_type="deepconn", dataset="e2e", latent_size=10,
+            batch_size=256, eval_num_negs=99, epochs=2, log_dir=tmp,
+            model_dir=tmp, pallas_fuse_rows=True, **ENTITY))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tables = build_entity_tables(hp, ds, device)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        table_bytes = {k: v.numel() * v.element_size()
+                       for k, v in tables.items()}
+        del tables
+        print(f"entity tables: built in {build_s:.3f} s, on the device "
+              + ", ".join(f"{k} {v / 1e6:.1f} MB"
+                          for k, v in table_bytes.items()))
+        steps = hp.epochs * math.ceil(len(ds.splits["train"]) /
+                                      hp.batch_size)
+        torch.cuda.reset_peak_memory_stats()
+        _reset(textcnn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics, _, _ = run(hp, ds, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(textcnn.launches)
+        banners = re.findall(
+            r"end of epoch (\d+) \| time: *([\d.]+)s \| MSE = ([\d.]+) "
+            r"\| examples_per_s = ([\d.]+)", open(hp.log_file()).read())
+    print(f"entity training path: api.run deepconn, pallas_fuse_rows, "
+          f"{hp.epochs} epochs of {steps // hp.epochs} steps, {wall:.1f} s, "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" GB: launches {launches}")
+    n_train = len(ds.splits["train"])
+    for ep, secs, mse, eps in banners:
+        per_step = 1e3 * n_train / float(eps) / (steps // hp.epochs)
+        print(f"  epoch {ep}: {float(eps):.1f} train examples/s, "
+              f"{per_step:.3f} ms per step, val MSE {mse}, epoch {secs} s "
+              f"with val")
+    print(f"  test: {metrics}")
+    if launches[textcnn.BWD_DG_ROWS] != 2 * steps:
+        raise AssertionError(f"expected 2 dG-rows launches per step, "
+                             f"{2 * steps} in all")
+    if launches[textcnn.BWD_DG] or launches[textcnn.BWD_DX]:
+        raise AssertionError("the fused entity path launched a plain-x "
+                             "backward kernel")
+    if launches[textcnn.FWD_ROWS] < 2 * steps:
+        raise AssertionError("expected 2 forward-rows launches per step")
+    vals = [float(m) for _, _, m, _ in banners]
+    numbers = [metrics[k] for k in ("MSE", "HR@1", "HR@10", "NDCG@10",
+                                    "train_examples_per_s")]
+    if len(vals) != hp.epochs or not np.isfinite(vals + numbers).all():
+        raise AssertionError("missing or non-finite training metrics")
+    if not vals[-1] < UNTRAINED_MSE:
+        raise AssertionError(f"val MSE {vals[-1]} after training is not "
+                             f"below the untrained {UNTRAINED_MSE}")
+    return launches
+
+
+def profile_train_entity(torch, ds, device) -> None:
+    """Device time by kernel over 50 warm deepconn steps over the entity
+    cache with `pallas_fuse_rows`, through the port's own `trace`. The
+    only gathers left are the [B] ones of the example arrays: a gather
+    kernel taking more than 50 us a launch (a [B, T, E] doc gather takes
+    about 0.16 ms) fails the phase."""
+    import tempfile
+
+    import numpy as np
+
+    from reviews4rec_torch.config import HyperParams
+    from reviews4rec_torch.data import Batcher
+    from reviews4rec_torch.models import build_model
+    from reviews4rec_torch.train.loop import (EntityCache, _fuse_tables,
+                                              build_entity_tables,
+                                              epoch_generator,
+                                              make_optimizer, train_epoch)
+    from reviews4rec_torch.train.profiler import trace
+    from reviews4rec_torch.utils.device import to_device
+
+    hp = ds.apply_to(HyperParams(model_type="deepconn", dataset="e2e",
+                                 latent_size=10, batch_size=256,
+                                 pallas_fuse_rows=True, **ENTITY))
+    cache = EntityCache(to_device(ds.materialize_entity(hp, "train"), device),
+                        _fuse_tables(build_entity_tables(hp, ds, device)))
+    model = build_model(hp, ds.word_vectors, device=device)
+    opt = make_optimizer(hp, model)
+    gen = epoch_generator(hp.seed, 1, device)
+    n = len(ds.splits["train"])
+
+    def batches(lo, hi):
+        return Batcher({"row": np.arange(lo * 256, hi * 256) % n}, 256)
+
+    train_epoch(model, opt, batches(0, 5), gen, device, cache)  # warm
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp) as prof:
+            t0 = time.perf_counter()
+            train_epoch(model, opt, batches(5, 55), gen, device, cache)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    rows = _print_profile(torch, prof, "50 deepconn entity steps "
+                          "(pallas_fuse_rows, B=256, T=1000)", wall, top=12,
+                          host_top=8)
+    gathers = [(us, key, count) for us, key, count in rows
+               if "gather" in key.lower() or "index" in key.lower()]
+    print("  gather kernels left: " + (", ".join(
+        f"{key[:60]} x{count} ({us / count:.1f} us each)"
+        for us, key, count in gathers) or "none"))
+    print("  copies: " + (", ".join(
+        f"{key} x{count} ({us / 1e3:.3f} ms)" for us, key, count in rows
+        if "Memcpy" in key) or "none"))
+    if any(us / count > 50.0 for us, _, count in gathers):
+        raise AssertionError("a doc-sized gather is left on the fused "
+                             "entity path")
+
+
+def serve_entity(torch, textcnn, ds, device) -> dict:
+    """Both heads from the e2e_ref.npz weights with the entity cache on:
+    `predict` on test, `finalize` and `Recommender(entity=True).topk`,
+    held against the JAX outputs with the `serve` phase's limits; the
+    grid top-10 timed beside the host-record path's. Serving reads the
+    entity tables through the plain-x forward kernel, never the rows
+    kernels (as the JAX package). Returns the launches of the path."""
+    import numpy as np
+
+    from reviews4rec_torch.api import finalize
+    from reviews4rec_torch.config import HyperParams
+    from reviews4rec_torch.models import build_model
+    from reviews4rec_torch.serve import Recommender, predict
+    from reviews4rec_torch.train.evaluate import score_grid
+    from reviews4rec_torch.train.loop import build_entity_tables
+    from reviews4rec_torch.utils.io import load_npz
+    from reviews4rec_torch.weights import load_flax_params
+
+    ref = load_npz(str(FIXTURE))
+    geom = json.loads(str(ref["geometry"]))
+    users = ref["serve_users"]
+    models = {}
+    for mt in MODELS:
+        hp = ds.apply_to(HyperParams(model_type=mt, **geom, **ENTITY))
+        model = build_model(hp, ds.word_vectors, device=device)
+        load_flax_params(model, _subtree(ref, f"{mt}/params/"))
+        models[mt] = (hp, model)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t1
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset(textcnn)
+    results = {}
+    for mt, (hp, model) in models.items():
+        r = results[mt] = {}
+        r["predict"], r["predict_s"] = timed(lambda: predict(
+            hp, ds, "test", model=model, device=device))
+        r["finalize"], r["finalize_s"] = timed(lambda: finalize(
+            hp, model, ds, device=device))
+        rec, r["rec_build_s"] = timed(lambda: Recommender(
+            hp, ds, model=model, device=device, entity=True))
+        r["topk"], r["topk_s"] = timed(lambda: rec.topk(users, k=10))
+        del rec
+    launches = dict(textcnn.launches)
+    print(f"entity serving path: launches {launches}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if launches[textcnn.FWD] == 0 or any(
+            launches[k] for k in textcnn.KERNELS if k != textcnn.FWD):
+        raise AssertionError("entity serving must run the forward kernel "
+                             "alone")
+
+    for mt, (hp, model) in models.items():
+        r = results[mt]
+        _, host_s = timed(lambda: Recommender(
+            hp, ds, model=model, device=device).topk(users, k=10))
+        print(f"{mt} entity: predict {r['predict_s']:.3f} s, finalize "
+              f"{r['finalize_s']:.3f} s, Recommender(entity=True) tables "
+              f"{r['rec_build_s']:.3f} s + grid top-10 of {len(users)} users "
+              f"{r['topk_s']:.3f} s (host-record grid top-10 {host_s:.3f} s)")
+        pred, want = r["predict"], ref[f"{mt}/test_pred"]
+        if pred.shape != want.shape or not np.isfinite(pred).all():
+            raise AssertionError(f"{mt}: bad entity predictions")
+        perr = float(np.max(np.abs(pred - want)))
+        metrics, ucm, icm = r["finalize"]
+        ref_metrics = json.loads(str(ref[f"{mt}/metrics"]))
+        print(f"  predictions max|err| {perr:.3e}; metrics {metrics}; JAX "
+              f"{ref_metrics}")
+        if not (perr <= 1e-3 and abs(metrics["MSE"] - ref_metrics["MSE"])
+                <= 1e-4 + 1e-9):
+            raise AssertionError(f"{mt}: entity predictions or MSE differ")
+        if (sorted(ucm) != ref[f"{mt}/user_count_keys"].tolist()
+                or sorted(icm) != ref[f"{mt}/item_count_keys"].tolist()):
+            raise AssertionError(f"{mt}: count-map keys differ")
+        tables = build_entity_tables(hp, ds, device)
+        moved = _check_ranks(f"{mt} entity 1+5 grids", score_grid(
+            model, ds.materialize_negs(hp, include_text=False), 64, device,
+            tables), ref[f"{mt}/narrow_scores"])
+        moved += _check_ranks(f"{mt} entity 1+{hp.eval_num_negs} grids",
+                              score_grid(model, ds.materialize_wide_negs(
+                                  hp, hp.eval_num_negs, seed=hp.seed,
+                                  include_text=False), 32, device, tables),
+                              ref[f"{mt}/wide_scores"])
+        del tables
+        for key in ("HR@1", "HR@10", "NDCG@10"):
+            if moved == 0 and metrics[key] != ref_metrics[key]:
+                raise AssertionError(f"{mt}: {key} differs")
+        _check_topk(f"{mt} entity grid top-10 vs JAX", *r["topk"],
+                    ref[f"{mt}/topk_ids"], ref[f"{mt}/topk_scores"])
+    return launches
+
+
+def e2e_full(torch, ds, device) -> None:
+    """deepconn and deepconn++ trained with the reference's own flags
+    (`examples/e2e_realistic.py`: batch 256, eval_num_negs 99, 60
+    epochs, early stop 5, scan_steps 10, the entity cache without
+    `pallas_fuse_rows`), their test metrics printed beside the JAX
+    package's rows in `data/e2e_state.json`."""
+    import re
+    import tempfile
+
+    import numpy as np
+
+    from reviews4rec_torch.api import run
+    from reviews4rec_torch.config import HyperParams
+
+    jax_rows = json.loads(E2E_STATE.read_text())["results"]
+    out = {}
+    for mt in MODELS:
+        with tempfile.TemporaryDirectory() as tmp:
+            hp = ds.apply_to(HyperParams(
+                model_type=mt, dataset="e2e", batch_size=256,
+                eval_num_negs=99, epochs=60, early_stop=5, use_pallas=True,
+                scan_steps=10, log_dir=tmp, model_dir=tmp, **ENTITY))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics, _, _ = run(hp, ds, device=device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            log = open(hp.log_file()).read()
+        vals = [float(m) for m in re.findall(
+            r"end of epoch \d+ \|[^\n]*?\| MSE = ([\d.]+)", log)]
+        stop = re.search(r"early stop at epoch (\d+)", log)
+        row = {k: metrics[k] for k in ("MSE", "HR@1", "HR@10", "NDCG@10",
+                                       "train_examples_per_s")}
+        row.update(wall_s=round(wall, 1), epochs_run=len(vals),
+                   best_epoch=int(np.argmin(vals)) + 1,
+                   early_stop_at=int(stop.group(1)) if stop else None,
+                   jax=jax_rows[mt],
+                   mse_gap=round(metrics["MSE"] - jax_rows[mt]["MSE"], 4))
+        out[mt] = row
+        print(f"e2e-full {mt}: {row}", flush=True)
+        if not np.isfinite([row[k] for k in ("MSE", "HR@1", "HR@10",
+                                             "NDCG@10")]).all():
+            raise AssertionError(f"{mt}: non-finite test metrics")
+    print(json.dumps({"e2e_full": out}))
 
 
 def profile_predict(torch, ds) -> None:
@@ -776,7 +1396,77 @@ def profile_predict(torch, ds) -> None:
                    top=8)
 
 
-def main() -> None:
+def _print_build(_build) -> None:
+    t0 = time.perf_counter()
+    seconds = _build.build(_build.sources())
+    print(f"build: {time.perf_counter() - t0:.2f} s wall; per source "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
+    for name in _build.sources():
+        print(f"  {name}: " + _build.library_path(name).with_suffix(".log")
+              .read_text().strip().splitlines()[-1].strip())
+
+
+def _load_corpus(ReviewDataset):
+    t0 = time.perf_counter()
+    ds = ReviewDataset.load(str(CORPUS_DIR))
+    sizes = (ds.num_users, ds.num_items, ds.word_vectors.shape,
+             len(ds.splits["train"]), len(ds.splits["test"]))
+    if sizes != (2500, 1515, (8921, 64), 79577, 9948):
+        raise AssertionError(f"unexpected e2e corpus sizes {sizes}")
+    print(f"corpus loaded in {time.perf_counter() - t0:.2f} s: "
+          f"{sizes[0]} users, {sizes[1]} items, word table {sizes[2]}, "
+          f"{sizes[3]} train and {sizes[4]} test examples")
+    return ds
+
+
+def _print_kernel_times(textcnn, fwd, bwd) -> None:
+    print(f"textcnn_pool_fwd at B=256 T=1000 E=64 F=100 W=3 f32: kernel "
+          f"{fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, "
+          f"conv1d+relu+max {fwd['library_ms']:.4f} ms, bound "
+          f"{fwd['bound_ms']:.4f} ms ({fwd['bound_by']}; "
+          f"{fwd['gflop']:.2f} GFLOP, {fwd['mbytes']:.1f} MB)")
+    for key, name in (("dg", textcnn.BWD_DG), ("dx", textcnn.BWD_DX)):
+        r = bwd[key]
+        print(f"{name} at B=256 T=1000 E=64 F=100 W=3 f32 ({bwd['gated_off']}"
+              f" of 25600 g gated off): kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, autograd of conv1d+relu+max "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}; {r['mflop']:.2f} MFLOP, "
+              f"{r['mbytes']:.2f} MB" + (f", {r['rows']} distinct doc rows"
+                                         if "rows" in r else "") + ")")
+
+
+def _print_rows_times(textcnn, rows) -> None:
+    print(f"rows kernels at N=2500 B=256 T=1000 E=64 F=100 W=3 f32 "
+          f"({rows['distinct']} distinct rows, {rows['gated_off']} of 25600 "
+          f"g gated off): the [B, T, E] gather they do without "
+          f"{rows['gather_ms']:.4f} ms (bound {rows['gather_bound_ms']:.4f} "
+          f"ms)")
+    for key, name, lib in (("fwd", textcnn.FWD_ROWS,
+                            "index_select+conv1d+relu+max"),
+                           ("dg", textcnn.BWD_DG_ROWS,
+                            "autograd of index_select+conv1d+relu+max")):
+        r = rows[key]
+        print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+              f"ms, plain-x kernel on the gather {r['take_ms']:.4f} ms, {lib}"
+              f" {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}; {r['mflop']:.2f} MFLOP, "
+              f"{r['mbytes']:.2f} MB" + (f", {r['cells']} distinct table "
+                                         f"positions" if "cells" in r
+                                         else "") + ")")
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--e2e-full", action="store_true",
+                        help="train both heads with the reference's flags "
+                             "and compare with data/e2e_state.json")
+    parser.add_argument("--only", default=None,
+                        help="comma-separated phases of " + ",".join(PHASES))
+    args = parser.parse_args(argv)
+    want = set(PHASES if args.only is None else args.only.split(","))
+    if not want <= set(PHASES):
+        parser.error(f"unknown phases {sorted(want - set(PHASES))}")
     try:
         import torch
     except ImportError:
@@ -790,7 +1480,8 @@ def main() -> None:
     except ImportError as exc:
         fail(f"the reviews4rec_torch package is not beside this script "
              f"({exc})")
-    for need in (CORPUS_DIR / "corpus.npz", FIXTURE, TRAIN_FIXTURE):
+    for need in (CORPUS_DIR / "corpus.npz", FIXTURE, TRAIN_FIXTURE,
+                 ENTITY_FIXTURE, E2E_STATE):
         if not need.exists():
             fail(f"missing {need.relative_to(ROOT)}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -800,72 +1491,73 @@ def main() -> None:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
-    t0 = time.perf_counter()
-    seconds = _build.build(_build.sources())
-    print(f"build: {time.perf_counter() - t0:.2f} s wall; per source "
-          + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
-    for name in textcnn.KERNELS:
-        print(f"  {name}: " + _build.library_path(name).with_suffix(".log")
-              .read_text().strip().splitlines()[-1].strip())
+    _print_build(_build)
+    if args.e2e_full:
+        e2e_full(torch, _load_corpus(ReviewDataset), device)
+        print(card)
+        return
 
-    fwd_err = check_textcnn(torch, textcnn)
-    fwd = time_textcnn(torch, textcnn)
-    print(f"textcnn_pool_fwd at B=256 T=1000 E=64 F=100 W=3 f32: kernel "
-          f"{fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, "
-          f"conv1d+relu+max {fwd['library_ms']:.4f} ms, bound "
-          f"{fwd['bound_ms']:.4f} ms ({fwd['bound_by']}; "
-          f"{fwd['gflop']:.2f} GFLOP, {fwd['mbytes']:.1f} MB)")
-    bwd_err = check_backward(torch, textcnn)
-    bwd = time_backward(torch, textcnn)
-    for key, name in (("dg", textcnn.BWD_DG), ("dx", textcnn.BWD_DX)):
-        r = bwd[key]
-        print(f"{name} at B=256 T=1000 E=64 F=100 W=3 f32 ({bwd['gated_off']}"
-              f" of 25600 g gated off): kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, autograd of conv1d+relu+max "
-              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}; {r['mflop']:.2f} MFLOP, "
-              f"{r['mbytes']:.2f} MB" + (f", {r['rows']} distinct doc rows"
-                                         if "rows" in r else "") + ")")
+    if "kernels" in want:
+        fwd_err = check_textcnn(torch, textcnn)
+        fwd = time_textcnn(torch, textcnn)
+        bwd_err = check_backward(torch, textcnn)
+        bwd = time_backward(torch, textcnn)
+        _print_kernel_times(textcnn, fwd, bwd)
+    if "rows" in want:
+        rows_err = check_rows(torch, textcnn)
+        rows = time_rows(torch, textcnn)
+        _print_rows_times(textcnn, rows)
 
-    t0 = time.perf_counter()
-    ds = ReviewDataset.load(str(CORPUS_DIR))
-    sizes = (ds.num_users, ds.num_items, ds.word_vectors.shape,
-             len(ds.splits["train"]), len(ds.splits["test"]))
-    if sizes != (2500, 1515, (8921, 64), 79577, 9948):
-        raise AssertionError(f"unexpected e2e corpus sizes {sizes}")
-    print(f"corpus loaded in {time.perf_counter() - t0:.2f} s: "
-          f"{sizes[0]} users, {sizes[1]} items, word table {sizes[2]}, "
-          f"{sizes[3]} train and {sizes[4]} test examples")
+    ds = _load_corpus(ReviewDataset)
+    # launches on each path: serving (plain-x forward), uncached training
+    # (plain-x forward and dG: the towers read the frozen word table),
+    # the input-gradient path (dx), the entity cache with and without
+    # pallas_fuse_rows (rows kernels), entity serving (plain-x forward)
+    paths = {}
+    if "serve" in want:
+        paths["serve"] = serve(torch, textcnn, ds, device)
+        profile_predict(torch, ds)
+    if "train" in want:
+        train_vs_jax(torch, ds, device)
+        paths["train"] = train_product(torch, textcnn, ds, device)
+        profile_train(torch, ds, device)
+    if "input_grad" in want:
+        paths["input_grad"] = train_input_grad(torch, textcnn, ds, device)
+    if "entity_vs_jax" in want:
+        paths["train_entity_vs_jax"] = train_entity_vs_jax(torch, textcnn,
+                                                           ds, device)
+    if "entity_train" in want:
+        paths["train_entity"] = train_entity_product(torch, textcnn, ds,
+                                                     device)
+        profile_train_entity(torch, ds, device)
+    if "entity_serve" in want:
+        paths["serve_entity"] = serve_entity(torch, textcnn, ds, device)
+    if want != set(PHASES):
+        print(f"partial run of {sorted(want)}: no result line")
+        return
 
-    serve_launches = serve(torch, textcnn, ds, device)
-    profile_predict(torch, ds)
-    train_vs_jax(torch, ds, device)
-    train_launches = train_product(torch, textcnn, ds, device)
-    profile_train(torch, ds, device)
-    grad_launches = train_input_grad(torch, textcnn, ds, device)
-
-    # launches on each path; dx runs only where the input needs a
-    # gradient: the deepconn towers read the frozen word table
-    paths = {name: {"serve": serve_launches[name],
-                    "train": train_launches[name],
-                    "input_grad": grad_launches[name]}
-             for name in textcnn.KERNELS}
     src = "reviews4rec_torch/csrc/{}.cu"
     pallas = "reviews4rec_tpu/ops/textcnn_pallas.py:{}"
     kernels = []
     for name, numbers, err, line in (
             (textcnn.FWD, fwd, fwd_err, 153),
             (textcnn.BWD_DG, bwd["dg"], bwd_err["dg"], 448),
-            (textcnn.BWD_DX, bwd["dx"], bwd_err["dx"], 380)):
+            (textcnn.BWD_DX, bwd["dx"], bwd_err["dx"], 380),
+            (textcnn.FWD_ROWS, rows["fwd"], rows_err["fwd"], 945),
+            (textcnn.BWD_DG_ROWS, rows["dg"], rows_err["dg"], 1001)):
+        by_path = {path: counts[name] for path, counts in paths.items()}
         kernels.append({
-            "name": name, "route": "cuda", "source": src.format(name),
+            "name": name, "route": "cuda",
+            "source": src.format(textcnn.SOURCE[name]),
             "replaces": pallas.format(line),
-            "launches": sum(paths[name].values()),
-            "launches_by_path": paths[name],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": err, "ms": numbers["ms"],
             "plain_ms": numbers["plain_ms"], "bound_ms": numbers["bound_ms"],
             "bound_by": numbers["bound_by"],
             "library_ms": numbers["library_ms"]})
+        if "take_ms" in numbers:   # the plain-x kernel on table[rows]
+            kernels[-1]["take_ms"] = numbers["take_ms"]
     kernels[0]["also_replaces"] = pallas.format(47)
     print(card)
     print(json.dumps({"kernels": kernels}))

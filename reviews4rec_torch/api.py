@@ -4,10 +4,13 @@
   JAX package's `api.run` does: deepconn and deepconn++ so far (other
   families raise `NotImplementedError` naming their ROADMAP.md item).
 - `finalize` scores a model the way the JAX package's `api._finalize`
-  does on its host-materialized path: test MSE with the count-vs-MSE
-  maps, HR@1 on the stored 1+5 candidate sets and, with
-  `hp.eval_num_negs > 0`, the k > num_negs cutoffs on the wide
-  1+eval_num_negs sets.
+  does: test MSE with the count-vs-MSE maps, HR@1 on the stored 1+5
+  candidate sets and, with `hp.eval_num_negs > 0`, the k > num_negs
+  cutoffs on the wide 1+eval_num_negs sets. With the entity cache on
+  (`hp.cache_doc_embeds` and `hp.cache_entity`) it runs from the entity
+  doc tables on the device: the test MSE through an entity example
+  cache and the ranking over id-only grids, with the same metrics as
+  the host path (eval removes nothing).
 """
 
 from __future__ import annotations
@@ -22,9 +25,11 @@ from .data.batcher import Batcher
 from .data.corpus import ReviewDataset
 from .models import build_model
 from .train.checkpoint import checkpoint_path
-from .train.evaluate import eval_ranking, evaluate, split_eval_ks
-from .train.loop import train_complete
-from .utils.device import DeviceLike, module_device
+from .train.evaluate import (eval_ranking, evaluate, evaluate_cached,
+                             split_eval_ks)
+from .train.loop import (EntityCache, build_entity_tables, entity_serving,
+                         train_complete)
+from .utils.device import DeviceLike, module_device, to_device
 from .utils.logging import log_end_epoch
 
 
@@ -35,26 +40,43 @@ def finalize(hp: HyperParams, model: torch.nn.Module,
     the test split and the ranking sets."""
     dev = module_device(model, device)
     hp = dataset.apply_to(hp)
-    test_b = Batcher(dataset.materialize(hp, "test"), hp.batch_size)
-    metrics, ucm, icm = evaluate(model, test_b, hp, dataset.user_count,
-                                 dataset.item_count, dev)
-    neg_recs = dataset.materialize_negs(hp)
-    # review grids are large: a smaller outer batch, as the JAX package
-    rank_bs = max(1, hp.batch_size // (4 if hp.uses_reviews else 1))
+    use_ent = entity_serving(hp)
+    tables = None
+    if use_ent:
+        tables = build_entity_tables(hp, dataset, dev)
+        test_recs = dataset.materialize_entity(hp, "test")
+        test_cache = EntityCache(to_device(test_recs, dev), tables)
+        metrics, ucm, icm = evaluate_cached(model, test_cache, test_recs, hp,
+                                            dataset.user_count,
+                                            dataset.item_count, dev)
+    else:
+        test_b = Batcher(dataset.materialize(hp, "test"), hp.batch_size)
+        metrics, ucm, icm = evaluate(model, test_b, hp, dataset.user_count,
+                                     dataset.item_count, dev)
+    text = False if use_ent else None
+    neg_recs = dataset.materialize_negs(hp, include_text=text)
+    # host review grids are large: a smaller outer batch, as the JAX
+    # package; the entity path carries only ids per grid row
+    heavy = hp.uses_reviews and not use_ent
+    rank_bs = max(1, hp.batch_size // (4 if heavy else 1))
     if hp.eval_num_negs > 0:
         narrow_ks, wide_ks = split_eval_ks(hp)
         metrics.update(eval_ranking(model, neg_recs,
                                     hp.replace(eval_ks=narrow_ks),
-                                    rank_bs, dev))
+                                    rank_bs, dev, tables))
         if wide_ks:
             wide_recs = dataset.materialize_wide_negs(
-                hp, hp.eval_num_negs, seed=hp.seed)
-            wide_bs = max(1, rank_bs // (4 if hp.uses_reviews else 1))
+                hp, hp.eval_num_negs, seed=hp.seed, include_text=text)
+            # the entity grid gathers [B, C, T, E] docs on the device:
+            # a smaller outer batch keeps a 1+99 grid near 1 GB
+            wide_bs = max(1, rank_bs // (8 if use_ent else
+                                         4 if hp.uses_reviews else 1))
             metrics.update(eval_ranking(model, wide_recs,
                                         hp.replace(eval_ks=wide_ks),
-                                        wide_bs, dev))
+                                        wide_bs, dev, tables))
     else:
-        metrics.update(eval_ranking(model, neg_recs, hp, rank_bs, dev))
+        metrics.update(eval_ranking(model, neg_recs, hp, rank_bs, dev,
+                                    tables))
     return metrics, ucm, icm
 
 

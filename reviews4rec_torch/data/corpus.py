@@ -15,10 +15,16 @@ The records are byte-identical to the JAX package's
   per review (NARRE, MPCN).
 - neighbor-id lists padded to exactly 10 slots with the sentinel id
   `total + 1`.
+- the entity doc store (`hp.cache_entity`): one canonical concatenated
+  doc per user and per item (`_entity_spans`) and per-example records of
+  ids, rating and, on train, the (start, len) span of the pair's own
+  review inside each doc (`materialize_entity`), which the model masks
+  in place instead of removing it.
 
 Only the in-memory numpy materializer is here; the native (C++)
-materializer, the out-of-core record store and the entity doc store are
-still to be ported.
+materializer, the out-of-core record store and the entity store's
+per-review (rows > 1, NARRE) and `this_doc` (transnet) forms are still to
+be ported.
 """
 
 from __future__ import annotations
@@ -492,6 +498,95 @@ class ReviewDataset:
                 hp, self.neg_users.astype(np.int32), cands.reshape(-1),
                 neg1, neg1, neg1, m, c))
         self._cache[key] = recs
+        return recs
+
+    # ------------------------------------------------------------------
+    # Entity-level doc store (hp.cache_entity): ONE canonical concatenated
+    # doc per user / per item, plus each train review's (start, len) span
+    # inside its owner's doc, so train-time leakage removal becomes an
+    # in-place MASK of the pair's own review (the TextCNN `skip`). Memory
+    # scales with entities, not examples. The mask differs from the
+    # per-example records, which REMOVE the shared review and pull later
+    # words into the truncation window; eval splits remove nothing, so
+    # their docs are the per-example ones.
+    # ------------------------------------------------------------------
+    def _entity_spans(self, words: int):
+        """((user_docs, u_rev_span), (item_docs, i_rev_span)) for the
+        concatenated rows==1 layout: canonical [U|I, words] docs and,
+        aligned with u_off/i_off review ordering, each train review's
+        (start, len) span inside its owner's doc (len 0 = truncated
+        out). Cached per `words`."""
+        key = ("entity_docs", words)
+        if key in self._cache:
+            return self._cache[key]
+        flat = self._flat()
+        tokens, rev_off = flat["tokens"], flat["rev_off"]
+        u_off, i_off = flat["u_off"], flat["i_off"]
+        i_revs = flat["i_revs"]
+        n_train = int(flat["u_revs"].shape[0])
+
+        def side(rids: np.ndarray, seg_off: np.ndarray, n_ent: int):
+            lens = (rev_off[rids + 1] - rev_off[rids]).astype(np.int64)
+            csum = np.concatenate([[0], np.cumsum(lens)])
+            counts = np.diff(seg_off).astype(np.int64)
+            # exclusive prefix length within the owner's segment
+            excl = csum[:-1] - np.repeat(csum[seg_off[:-1]], counts)
+            start = np.minimum(excl, words)
+            ln = np.maximum(np.minimum(lens, words - start), 0)
+            span = np.stack([start, ln], axis=1).astype(np.int32)
+            docs = np.zeros((n_ent, words), np.int32)
+            owner = np.repeat(np.arange(n_ent), counts)
+            for j in range(len(rids)):
+                m = int(ln[j])
+                if m > 0:
+                    s = int(start[j])
+                    r = int(rids[j])
+                    docs[owner[j], s:s + m] = \
+                        tokens[rev_off[r]:rev_off[r] + m]
+            return docs, span
+
+        # user side: reviews are user-major 0..n_train in u_off order;
+        # item side: i_revs indexes the same token store in i_off order
+        out = (side(np.arange(n_train), u_off, self.num_users),
+               side(i_revs, i_off, self.num_items))
+        self._cache[key] = out
+        return out
+
+    def materialize_entity(self, hp, split: str) -> Dict[str, np.ndarray]:
+        """Per-example records for the entity doc cache: user, item,
+        rating and, on the train split only, 'user_skip' / 'item_skip'
+        [N, 2] int32 (start, len) word spans into the canonical docs of
+        `_entity_spans`. No doc tensors: those live once per entity."""
+        rows, words = _doc_layout(hp)
+        if hp.model_type in ("transnet", "transnet++"):
+            raise NotImplementedError(
+                "the entity store's per-example this_doc (transnet) is not "
+                "ported yet: ROADMAP.md Queue 1 item 8")
+        if rows > 1:
+            raise NotImplementedError(
+                f"the per-review entity store of {hp.model_type} (rows > 1) "
+                f"is not ported yet: ROADMAP.md Queue 1 item 8")
+        sp = self.splits[split]
+        recs = {"user": sp.user.astype(np.int32),
+                "item": sp.item.astype(np.int32),
+                "rating": sp.rating.astype(np.float32)}
+        if split != "train":
+            return recs
+        flat = self._flat()
+        user, item, ui_idx, iu_idx, _ = self._examples(split)
+        (_, u_span), (_, i_span) = self._entity_spans(words)
+        zero = np.zeros(2, np.int32)
+
+        def spans(idx, off, ent, span):
+            pos = off[ent] + np.maximum(idx, 0)
+            s = span[np.minimum(pos, len(span) - 1)] \
+                if len(span) else np.zeros((len(ent), 2), np.int32)
+            return np.where(idx[:, None] >= 0, s, zero[None])
+
+        recs["user_skip"] = spans(ui_idx, flat["u_off"], user,
+                                  u_span).astype(np.int32)
+        recs["item_skip"] = spans(iu_idx, flat["i_off"], item,
+                                  i_span).astype(np.int32)
         return recs
 
     # ------------------------------------------------------------------

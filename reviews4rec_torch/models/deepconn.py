@@ -18,7 +18,7 @@ from .layers import FM, ScorerMLP, TextCNN, doc_shape
 class DeepCoNN(nn.Module):
     # the record keys a forward reads (besides the label and weight)
     INPUTS = ("user", "item", "user_doc", "item_doc", "user_skip",
-              "item_skip")
+              "item_skip", "user_doc__table", "item_doc__table")
 
     def __init__(self, num_user_rows: int, num_item_rows: int,
                  latent_size: int, word_vectors: np.ndarray,
@@ -47,11 +47,23 @@ class DeepCoNN(nn.Module):
         # Candidate grids carry the user side at lead [B, 1] (identical
         # across the C candidates) and the item side at [B, C]: the user
         # tower runs once per grid row and its features broadcast.
+        # Under hp.pallas_fuse_rows a `<side>_doc__table` key carries the
+        # WHOLE per-entity doc table, read by entity id in the kernels.
         lead = tuple(batch["item"].shape)
-        u_lead, u_tail = doc_shape(batch["user_doc"], 1)
-        _, i_tail = doc_shape(batch["item_doc"], 1)
-        udoc = batch["user_doc"].reshape((-1,) + u_tail)
-        idoc = batch["item_doc"].reshape((-1,) + i_tail)
+        u_rows = i_rows = None
+        if "user_doc__table" in batch:
+            udoc = batch["user_doc__table"]
+            u_rows = batch["user"].reshape(-1)
+            u_lead = lead
+        else:
+            u_lead, u_tail = doc_shape(batch["user_doc"], 1)
+            udoc = batch["user_doc"].reshape((-1,) + u_tail)
+        if "item_doc__table" in batch:
+            idoc = batch["item_doc__table"]
+            i_rows = batch["item"].reshape(-1)
+        else:
+            _, i_tail = doc_shape(batch["item_doc"], 1)
+            idoc = batch["item_doc"].reshape((-1,) + i_tail)
         u_skip = batch.get("user_skip")
         i_skip = batch.get("item_skip")
         if u_skip is not None:
@@ -59,8 +71,10 @@ class DeepCoNN(nn.Module):
         if i_skip is not None:
             i_skip = i_skip.reshape(-1, 2).to(torch.int32).contiguous()
         wv = self.word_vectors
-        u = self.user_conv(udoc, table=wv, skip=u_skip, generator=generator)
-        i = self.item_conv(idoc, table=wv, skip=i_skip, generator=generator)
+        u = self.user_conv(udoc, table=wv, skip=u_skip, generator=generator,
+                           rows=u_rows)
+        i = self.item_conv(idoc, table=wv, skip=i_skip, generator=generator,
+                           rows=i_rows)
         if u_lead != lead:
             u = u.reshape(u_lead + u.shape[-1:]).expand(
                 lead + u.shape[-1:]).reshape(-1, u.shape[-1])

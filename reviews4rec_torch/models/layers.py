@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.textcnn import textcnn_pool
+from ..ops.textcnn import textcnn_pool, textcnn_pool_rows
 
 
 def _linear(n_in: int, n_out: int, generator: Optional[torch.Generator]
@@ -88,12 +88,23 @@ class TextCNN(nn.Module):
     def forward(self, x: torch.Tensor,
                 table: Optional[torch.Tensor] = None,
                 skip: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[torch.Tensor] = None) -> torch.Tensor:
         # x: [B, T, E] embedded words, or int [B, T] ids with a `table`
         # [V, E] to embed them with. `skip` ([B, 2] int32 (start, len))
         # zeroes that word span of each doc. A buffer table (frozen) gives
         # an x that needs no gradient, so the backward skips dx.
+        # `rows` ([B] int32): x is then a whole per-entity doc table and
+        # example b reads row rows[b] (hp.pallas_fuse_rows). A float
+        # [N, T, E] table goes to the row-gathered kernels, which read
+        # the rows themselves; int [N, T] ids are gathered first.
+        if rows is not None and x.is_floating_point() and x.dim() == 3:
+            y, _ = textcnn_pool_rows(x, rows.to(torch.int32).contiguous(),
+                                     self.conv_kernel, self.conv_bias,
+                                     self.window, skip)
+            return self.dropout(self.fc(y), generator)
+        if rows is not None:
+            x = x[rows.long()]
         if table is not None and not x.is_floating_point():
             x = table[x]
         y, _ = textcnn_pool(x.contiguous(), self.conv_kernel,

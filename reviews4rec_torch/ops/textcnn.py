@@ -29,6 +29,14 @@ inside the skip span.
   `csrc/textcnn_pool_bwd_dg.cu` (dK) and `csrc/textcnn_pool_bwd_dx.cu`
   (dx, only when x needs a gradient). Each launch adds one to that
   kernel's entry of `launches`.
+- `textcnn_pool_rows`: the same op on `table[rows]` of a whole [N, T, E]
+  entity doc table (the entity doc cache under `hp.pallas_fuse_rows`),
+  a `TextCNNPoolRows` autograd function differentiable in K and b only.
+  Its two kernels read each row straight from the table, so the
+  [B, T, E] copy `table[rows]` never exists: the row-gathered
+  instantiations of the forward and dG kernels, in the same two sources,
+  `textcnn_pool_fwd_rows` and `textcnn_pool_bwd_dg_rows`. Their plain
+  version is `textcnn_pool_rows_reference`, the op on `table[rows]`.
 """
 
 from __future__ import annotations
@@ -43,7 +51,14 @@ from . import _build
 
 FWD, BWD_DG, BWD_DX = "textcnn_pool_fwd", "textcnn_pool_bwd_dg", \
     "textcnn_pool_bwd_dx"
-KERNELS = (FWD, BWD_DG, BWD_DX)
+FWD_ROWS, BWD_DG_ROWS = "textcnn_pool_fwd_rows", "textcnn_pool_bwd_dg_rows"
+KERNELS = (FWD, BWD_DG, BWD_DX, FWD_ROWS, BWD_DG_ROWS)
+# the source `csrc/<source>.cu` that holds each kernel's entry point
+SOURCE = {FWD: FWD, BWD_DG: BWD_DG, BWD_DX: BWD_DX, FWD_ROWS: FWD,
+          BWD_DG_ROWS: BWD_DG}
+# (pointer, int) argument counts of each `<name>_f32`, before its stream
+_ARGS = {FWD: (6, 5), BWD_DG: (5, 5), BWD_DX: (5, 5), FWD_ROWS: (7, 6),
+         BWD_DG_ROWS: (6, 6)}
 
 # kernel launches since the counts were last set to 0
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -132,46 +147,73 @@ def textcnn_pool_backward_reference(
     return dx, dk, g.sum(0)
 
 
+def take_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """table[rows], raising IndexError for a row outside [0, N) (plain
+    indexing would wrap a negative one)."""
+    n = table.shape[0]
+    if rows.numel() and not (0 <= int(rows.min()) and int(rows.max()) < n):
+        raise IndexError(f"rows must lie in [0, {n}), got "
+                         f"{int(rows.min())}..{int(rows.max())}")
+    return table[rows.long()]
+
+
+def textcnn_pool_rows_reference(table: torch.Tensor, rows: torch.Tensor,
+                                kernel: torch.Tensor, bias: torch.Tensor,
+                                window: int = 3,
+                                skip: Optional[torch.Tensor] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, idx) of the op on table[rows] ([N, T, E] table, [B] rows),
+    the plain version of the row-gathered forward kernel."""
+    return textcnn_pool_reference(take_rows(table, rows), kernel, bias,
+                                  window, skip)
+
+
 # ---------------------------------------------------------------------
 # kernel wrappers: the plain version for a CPU tensor, else the kernel
 # ---------------------------------------------------------------------
 def _library(name: str) -> ctypes.CDLL:
-    """The built library of `csrc/<name>.cu`, its entry points typed:
-    `<name>_f32(5 or 6 pointers, B, T, E, F, W, stream)`,
-    `<name>_smem_bytes(E, W)` and `<name>_error_string(code)`."""
-    lib = _build.load(name)
-    if not getattr(lib, "_typed", False):
+    """The built library of kernel `name`'s source, its entry points
+    typed: `<name>_f32(pointers, [N,] B, T, E, F, W, stream)` and the
+    source's `<source>_smem_bytes(E, W)` and
+    `<source>_error_string(code)`."""
+    src = SOURCE[name]
+    lib = _build.load(src)
+    typed = getattr(lib, "_typed", set())
+    if name not in typed:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn = getattr(lib, f"{name}_f32")
-        fn.argtypes = [p] * (6 if name == FWD else 5) + [i] * 5 + [p]
+        pointers, ints = _ARGS[name]
+        fn.argtypes = [p] * pointers + [i] * ints + [p]
         fn.restype = i
-        getattr(lib, f"{name}_smem_bytes").argtypes = [i, i]
-        getattr(lib, f"{name}_smem_bytes").restype = ctypes.c_size_t
-        getattr(lib, f"{name}_error_string").argtypes = [i]
-        getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
-        if name == FWD:
+        getattr(lib, f"{src}_smem_bytes").argtypes = [i, i]
+        getattr(lib, f"{src}_smem_bytes").restype = ctypes.c_size_t
+        getattr(lib, f"{src}_error_string").argtypes = [i]
+        getattr(lib, f"{src}_error_string").restype = ctypes.c_char_p
+        if src == FWD:
             lib.textcnn_pool_fwd_max_window.argtypes = []
             lib.textcnn_pool_fwd_max_window.restype = i
-        lib._typed = True
+        lib._typed = typed | {name}
     return lib
 
 
-def _launch(name: str, ref: torch.Tensor, pointers, b: int, t: int, e: int,
-            f: int, window: int) -> None:
-    """Launch `<name>_f32` on the current stream of `ref`'s device, raise
-    with the shape and shared-memory figure if CUDA refuses it, and
-    count the launch."""
+def _launch(name: str, ref: torch.Tensor, pointers,
+            dims: Dict[str, int]) -> None:
+    """Launch `<name>_f32` with the sizes `dims` ([N,] B, T, E, F, W, in
+    that order) on the current stream of `ref`'s device, raise with the
+    shape and shared-memory figure if CUDA refuses it, and count the
+    launch."""
     lib = _library(name)
+    src = SOURCE[name]
     with torch.cuda.device(ref.device):
         stream = torch.cuda.current_stream(ref.device).cuda_stream
-        err = getattr(lib, f"{name}_f32")(*pointers, b, t, e, f, window,
-                                          stream)
+        err = getattr(lib, f"{name}_f32")(*pointers, *dims.values(), stream)
     if err != 0:
-        smem = getattr(lib, f"{name}_smem_bytes")(e, window)
+        smem = getattr(lib, f"{src}_smem_bytes")(dims["E"], dims["W"])
+        shape = ", ".join(f"{k}={v}" for k, v in dims.items())
         raise RuntimeError(
-            f"{name} launch failed at B={b}, T={t}, E={e}, F={f}, "
-            f"W={window} ({smem} bytes of shared memory per block): "
-            f"{getattr(lib, f'{name}_error_string')(err).decode()}")
+            f"{name} launch failed at {shape} ({smem} bytes of shared "
+            f"memory per block): "
+            f"{getattr(lib, f'{src}_error_string')(err).decode()}")
     launches[name] += 1
 
 
@@ -202,10 +244,15 @@ def _check_skip(skip: Optional[torch.Tensor], b: int) -> None:
                          f"{skip.dtype} {tuple(skip.shape)}")
 
 
-def _check_forward(x, kernel, bias, window, skip) -> None:
+def _check_forward(x, kernel, bias, window, skip, rows=None) -> None:
+    """x is [B, T, E], or with `rows` [B] int32 a [N, T, E] table."""
     if x.dim() != 3:
-        raise ValueError(f"x must be [B, T, E], got {tuple(x.shape)}")
-    b, t, e = x.shape
+        raise ValueError(f"x must be [B, T, E] (a table [N, T, E] with "
+                         f"rows), got {tuple(x.shape)}")
+    if rows is not None and rows.dim() != 1:
+        raise ValueError(f"rows must be [B], got {tuple(rows.shape)}")
+    b = x.shape[0] if rows is None else rows.shape[0]
+    t, e = x.shape[1], x.shape[2]
     if kernel.dim() != 2 or kernel.shape[0] != window * e:
         raise ValueError(f"kernel must be [W*E={window * e}, F], got "
                          f"{tuple(kernel.shape)}")
@@ -215,10 +262,12 @@ def _check_forward(x, kernel, bias, window, skip) -> None:
     _check_skip(skip, b)
     f32 = torch.float32
     _check_cuda("textcnn_pool", [("x", x), ("kernel", kernel),
-                                 ("bias", bias), ("skip", skip)],
-                [f32, f32, f32, torch.int32])
-    if min(b, t, e, f) < 1:
-        raise ValueError(f"empty operand: B={b}, T={t}, E={e}, F={f}")
+                                 ("bias", bias), ("skip", skip),
+                                 ("rows", rows)],
+                [f32, f32, f32, torch.int32, torch.int32])
+    if min(x.shape[0], b, t, e, f) < 1:
+        raise ValueError(f"empty operand: {x.shape[0]} rows, B={b}, "
+                         f"T={t}, E={e}, F={f}")
 
 
 def textcnn_pool_forward(x: torch.Tensor, kernel: torch.Tensor,
@@ -240,7 +289,7 @@ def textcnn_pool_forward(x: torch.Tensor, kernel: torch.Tensor,
     idx = torch.empty((b, f), dtype=torch.int32, device=x.device)
     _launch(FWD, x, (x.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
                      _ptr(skip), out.data_ptr(), idx.data_ptr()),
-            b, t, e, f, window)
+            dict(B=b, T=t, E=e, F=f, W=window))
     return out, idx
 
 
@@ -272,7 +321,8 @@ def textcnn_pool_bwd_dg(x: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
     f = g.shape[1]
     dk = torch.empty((window * e, f), dtype=torch.float32, device=x.device)
     _launch(BWD_DG, x, (x.data_ptr(), g.data_ptr(), idx.data_ptr(),
-                        _ptr(skip), dk.data_ptr()), b, t, e, f, window)
+                        _ptr(skip), dk.data_ptr()),
+            dict(B=b, T=t, E=e, F=f, W=window))
     return dk
 
 
@@ -295,8 +345,65 @@ def textcnn_pool_bwd_dx(g: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"empty operand: T={t}, E={e}")
     dx = torch.empty((b, t, e), dtype=torch.float32, device=g.device)
     _launch(BWD_DX, g, (g.data_ptr(), idx.data_ptr(), kernel.data_ptr(),
-                        _ptr(skip), dx.data_ptr()), b, t, e, f, window)
+                        _ptr(skip), dx.data_ptr()),
+            dict(B=b, T=t, E=e, F=f, W=window))
     return dx
+
+
+def textcnn_pool_fwd_rows(table: torch.Tensor, rows: torch.Tensor,
+                          kernel: torch.Tensor, bias: torch.Tensor,
+                          window: int = 3,
+                          skip: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, idx) of the op on table[rows] without autograd: the plain
+    version on the CPU, else the row-gathered instantiation of
+    `csrc/textcnn_pool_fwd.cu`. On the card a row outside [0, N) gives
+    NaN in `out` and -1 in `idx` for its batch row."""
+    if table.device.type == "cpu":
+        return textcnn_pool_rows_reference(table, rows, kernel, bias, window,
+                                           skip)
+    _check_forward(table, kernel, bias, window, skip, rows)
+    n, t, e = table.shape
+    b, f = rows.shape[0], kernel.shape[1]
+    max_window = _library(FWD_ROWS).textcnn_pool_fwd_max_window()
+    if not 1 <= window <= max_window:
+        raise ValueError(f"window {window} outside the kernel's "
+                         f"1..{max_window}")
+    out = torch.empty((b, f), dtype=torch.float32, device=table.device)
+    idx = torch.empty((b, f), dtype=torch.int32, device=table.device)
+    _launch(FWD_ROWS, table, (table.data_ptr(), rows.data_ptr(),
+                              kernel.data_ptr(), bias.data_ptr(), _ptr(skip),
+                              out.data_ptr(), idx.data_ptr()),
+            dict(N=n, B=b, T=t, E=e, F=f, W=window))
+    return out, idx
+
+
+def textcnn_pool_bwd_dg_rows(table: torch.Tensor, rows: torch.Tensor,
+                             g: torch.Tensor, idx: torch.Tensor,
+                             window: int = 3,
+                             skip: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """dK [W*E, F] of the op on table[rows] from the gated g [B, F] and
+    idx: the plain version on the CPU, else the row-gathered
+    instantiation of `csrc/textcnn_pool_bwd_dg.cu`."""
+    if table.device.type == "cpu":
+        return _dg_reference(take_rows(table, rows), g, idx, window, skip)
+    if (table.dim() != 3 or rows.dim() != 1 or g.dim() != 2
+            or rows.shape[0] != g.shape[0]):
+        raise ValueError(f"table [N, T, E], rows [B] and g [B, F] expected, "
+                         f"got {tuple(table.shape)}, {tuple(rows.shape)} "
+                         f"and {tuple(g.shape)}")
+    _check_backward(BWD_DG_ROWS, g, idx, ("table", table), skip, window)
+    _check_cuda(BWD_DG_ROWS, [("table", table), ("rows", rows)],
+                [torch.float32, torch.int32])
+    n, t, e = table.shape
+    b, f = g.shape
+    dk = torch.empty((window * e, f), dtype=torch.float32, device=g.device)
+    _launch(BWD_DG_ROWS, table, (table.data_ptr(), rows.data_ptr(),
+                                 g.data_ptr(), idx.data_ptr(), _ptr(skip),
+                                 dk.data_ptr()),
+            dict(N=n, B=b, T=t, E=e, F=f, W=window))
+    return dk
 
 
 class TextCNNPool(torch.autograd.Function):
@@ -327,8 +434,46 @@ class TextCNNPool(torch.autograd.Function):
         return dx, dk, g.sum(0), None, None
 
 
+class TextCNNPoolRows(torch.autograd.Function):
+    """(out, idx) of the op on table[rows], differentiable in K and b
+    only (the JAX op returns zeros for the table and no cotangent for
+    rows). The table is the frozen entity doc cache; a table that needs
+    a gradient is refused, since the op has no dx."""
+
+    @staticmethod
+    def forward(ctx, table, rows, kernel, bias, window, skip):
+        if table.requires_grad:
+            raise ValueError("textcnn_pool_rows computes no gradient for its "
+                             "table; gather table[rows] and use textcnn_pool")
+        out, idx = textcnn_pool_fwd_rows(table, rows, kernel, bias, window,
+                                         skip)
+        ctx.window = window
+        ctx.save_for_backward(table, rows, out, idx, skip)
+        ctx.mark_non_differentiable(idx)
+        return out, idx
+
+    @staticmethod
+    def backward(ctx, g_out, _g_idx):
+        table, rows, out, idx, skip = ctx.saved_tensors
+        g = torch.where(out > 0, g_out, torch.zeros((), dtype=g_out.dtype,
+                                                    device=g_out.device))
+        g = g.contiguous()
+        dk = (textcnn_pool_bwd_dg_rows(table, rows, g, idx, ctx.window, skip)
+              if ctx.needs_input_grad[2] else None)
+        return None, None, dk, g.sum(0), None, None
+
+
 def textcnn_pool(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                  window: int = 3, skip: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [B, F] f32, idx [B, F] int32); see the module docstring."""
     return TextCNNPool.apply(x, kernel, bias, window, skip)
+
+
+def textcnn_pool_rows(table: torch.Tensor, rows: torch.Tensor,
+                      kernel: torch.Tensor, bias: torch.Tensor,
+                      window: int = 3, skip: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [B, F] f32, idx [B, F] int32) of the op on table[rows], for a
+    [N, T, E] table and [B] int32 rows; see the module docstring."""
+    return TextCNNPoolRows.apply(table, rows, kernel, bias, window, skip)

@@ -4,9 +4,13 @@ Counterpart of `reviews4rec_tpu/serve.py` for the models the port has
 (deepconn, deepconn++):
 
 - `predict()` / `save_predictions()`: per-example predictions of a
-  rating split, and the reference's `<tag>_{split}_results` files.
+  rating split, and the reference's `<tag>_{split}_results` files. With
+  `hp.cache_doc_embeds` and `hp.cache_entity` a split scores from the
+  entity doc tables on the device: no host doc records.
 - `Recommender`: scores `users` x catalog grids through the model, one
-  item chunk at a time, with a running top-k merge on the device.
+  item chunk at a time, with a running top-k merge on the device; with
+  `entity=True` the grids are id-only and their docs are gathered on the
+  device from the entity tables.
 - `FactorizedRecommender`: runs the item tower once over the catalog at
   construction; a query encodes only its users and scores the catalog
   with the head split per side, exactly.
@@ -29,6 +33,9 @@ from .data.batcher import Batcher
 from .data.corpus import ReviewDataset
 from .models import build_model
 from .train import checkpoint as ckpt
+from .train.evaluate import assemble_entity_grid
+from .train.loop import (EntityCache, build_entity_tables, entity_serving,
+                         gather_cached_batch)
 from .utils.device import DeviceLike, module_device, to_device
 
 
@@ -69,7 +76,12 @@ def predict(hp: HyperParams, dataset: ReviewDataset, split: str = "test",
             model: Optional[torch.nn.Module] = None,
             device: DeviceLike = None) -> np.ndarray:
     """Predicted ratings for every example of `split`, in split order;
-    `model` defaults to the restored checkpoint."""
+    `model` defaults to the restored checkpoint.
+
+    With the entity cache on, val / test predictions equal the host
+    path's (eval removes nothing); train predictions mask the pair's own
+    review in place where the host path removes it, as entity training
+    does."""
     _check_servable(hp, "predict")
     if model is None:
         model = restore_model(hp, dataset, device=device)
@@ -77,9 +89,20 @@ def predict(hp: HyperParams, dataset: ReviewDataset, split: str = "test",
     hp = dataset.apply_to(hp)
     model.eval()
     outs, weights = [], []
-    for batch in Batcher(dataset.materialize(hp, split), hp.batch_size):
-        outs.append(model(to_device(batch, dev)))
-        weights.append(batch["weight"].astype(bool))
+    if entity_serving(hp):
+        recs = dataset.materialize_entity(hp, split)
+        cache = EntityCache(to_device(recs, dev),
+                            build_entity_tables(hp, dataset, dev))
+        for batch in Batcher({"row": np.arange(len(recs["rating"]))},
+                             hp.batch_size):
+            placed = to_device(batch, dev)
+            outs.append(model(gather_cached_batch(cache, placed["row"],
+                                                  placed["weight"])))
+            weights.append(batch["weight"].astype(bool))
+    else:
+        for batch in Batcher(dataset.materialize(hp, split), hp.batch_size):
+            outs.append(model(to_device(batch, dev)))
+            weights.append(batch["weight"].astype(bool))
     if not outs:
         return np.zeros(0, np.float32)
     host = torch.stack(outs).cpu().numpy()
@@ -128,12 +151,22 @@ def _empty_topk(n: int, k: int, dev: torch.device):
 class Recommender:
     """Top-k retrieval through the model's joint forward over
     [users, item_chunk] candidate grids (the rank evaluator's layout:
-    the user tower runs once per grid row)."""
+    the user tower runs once per grid row).
+
+    `entity=True` (review models): the grids are id-only and their docs
+    are gathered on the device from the entity doc tables, built once
+    here, so a query builds no host doc records. Scores are the same
+    (serving removes nothing)."""
 
     def __init__(self, hp: HyperParams, dataset: ReviewDataset,
                  model: Optional[torch.nn.Module] = None,
-                 item_chunk: int = 512, device: DeviceLike = None):
+                 item_chunk: int = 512, device: DeviceLike = None,
+                 entity: bool = False):
         _check_servable(hp, "Recommender")
+        if entity and hp.family != "review":
+            raise ValueError(
+                "entity=True gathers review docs from entity "
+                f"tables; {hp.model_type!r} has none")
         if model is None:
             model = restore_model(hp, dataset, device=device)
         self.hp = dataset.apply_to(hp)
@@ -141,6 +174,9 @@ class Recommender:
         self.model = model.eval()
         self.device = module_device(model, device)
         self.item_chunk = int(item_chunk)
+        self._entity_tables = (build_entity_tables(self.hp, dataset,
+                                                   self.device)
+                               if entity else None)
 
     @torch.inference_mode()
     def topk(self, users: np.ndarray, k: int = 10,
@@ -154,10 +190,14 @@ class Recommender:
         items = np.asarray(items, np.int32)
         k = min(k, len(items))
         top_s, top_i = _empty_topk(len(users), k, dev)
+        tables = self._entity_tables
         for start in range(0, len(items), self.item_chunk):
             chunk = items[start:start + self.item_chunk]
-            batch = to_device(
-                dataset.candidate_grid_records(hp, users, chunk), dev)
+            batch = to_device(dataset.candidate_grid_records(
+                hp, users, chunk,
+                include_text=False if tables is not None else None), dev)
+            if tables is not None:
+                batch = assemble_entity_grid(batch, tables)
             scores = self.model(batch)
             if exclude_seen:
                 mask = dataset.train_pair_mask(users[:, None], chunk[None])

@@ -8,11 +8,16 @@ them:
 - Ranking: per stored set, the positive sits in column 0; its rank is
   the number of candidates scoring strictly higher, so a tie goes to
   the positive.
+- Over the device caches (`train.loop`): `evaluate_cached` gathers each
+  batch on the device from [B] row ids, and `assemble_entity_grid` builds
+  an id-only candidate grid's docs from the entity tables. Eval removes
+  nothing, so the entity docs are the per-example eval docs and the
+  metrics equal the host path's.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,6 +88,33 @@ def evaluate(model: torch.nn.Module, batcher: Batcher, hp: HyperParams,
                         item_count)
 
 
+@torch.inference_mode()
+def evaluate_cached(model: torch.nn.Module, cache, records: Dict[str, np.ndarray],
+                    hp: HyperParams, user_count: np.ndarray,
+                    item_count: np.ndarray, device: torch.device
+                    ) -> Tuple[Dict, Dict, Dict]:
+    """`evaluate` over a device cache (per-example or EntityCache): the
+    same metrics and maps, with only [B] row ids crossing to the device
+    per batch and one host fetch per split. `records` gives the host's
+    user / item ids for the count maps."""
+    from .loop import gather_cached_batch
+    model.eval()
+    n = len(records["rating"])
+    outs, weights, users_l, items_l = [], [], [], []
+    for batch in Batcher({"row": np.arange(n)}, hp.batch_size):
+        placed = to_device(batch, device)
+        outs.append(eval_step(model, gather_cached_batch(
+            cache, placed["row"], placed["weight"])))
+        w = batch["weight"].astype(bool)
+        weights.append(w)
+        sel = batch["row"][w]
+        users_l.append(records["user"][sel])
+        items_l.append(records["item"][sel])
+    outs = _to_host(outs)
+    return _reduce_eval(outs, weights, users_l, items_l, user_count,
+                        item_count)
+
+
 def _to_host(outs: List[Dict[str, torch.Tensor]]
              ) -> List[Dict[str, np.ndarray]]:
     if not outs:
@@ -93,14 +125,40 @@ def _to_host(outs: List[Dict[str, torch.Tensor]]
     return [{k: stacked[k][j] for k in keys} for j in range(len(outs))]
 
 
+def assemble_entity_grid(batch: Dict[str, torch.Tensor],
+                         tables: Dict[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
+    """The docs of an id-only [B, C] candidate grid from the entity
+    tables (`train.loop.build_entity_tables`): the user's row once per
+    grid row at [B, 1, ...], the models' broadcast layout, and the item
+    rows per candidate. Shared by the entity ranking pass and
+    `serve.Recommender(entity=True)`."""
+    b = dict(batch)
+    if "user_doc" in tables:
+        b["user_doc"] = tables["user_doc"].index_select(
+            0, b["user"][:, 0])[:, None]
+    if "item_doc" in tables:
+        t = tables["item_doc"]
+        b["item_doc"] = t.index_select(0, b["item"].reshape(-1)).reshape(
+            tuple(b["item"].shape) + tuple(t.shape[1:]))
+    return b
+
+
 @torch.inference_mode()
 def score_grid(model: torch.nn.Module, records: Dict[str, np.ndarray],
-               batch_size: int, device: torch.device) -> np.ndarray:
-    """Scores [M, C] of a candidate grid (positive in column 0)."""
+               batch_size: int, device: torch.device,
+               entity_tables: Optional[Dict[str, torch.Tensor]] = None
+               ) -> np.ndarray:
+    """Scores [M, C] of a candidate grid (positive in column 0). With
+    `entity_tables` the records are id-only and each batch's docs are
+    gathered on the device (`assemble_entity_grid`)."""
     model.eval()
     scores, weights = [], []
     for batch in Batcher(records, batch_size):
-        scores.append(model(to_device(batch, device)))
+        placed = to_device(batch, device)
+        if entity_tables is not None:
+            placed = assemble_entity_grid(placed, entity_tables)
+        scores.append(model(placed))
         weights.append(batch["weight"].astype(bool))
     if not scores:
         return np.zeros((0,) + records["item"].shape[1:], np.float32)
@@ -146,8 +204,11 @@ def split_eval_ks(hp: HyperParams) -> Tuple[Tuple[int, ...],
 
 
 def eval_ranking(model: torch.nn.Module, neg_records: Dict[str, np.ndarray],
-                 hp: HyperParams, batch_size: int,
-                 device: torch.device) -> Dict[str, float]:
-    """HR@k / NDCG@k at `hp.eval_ks` over per-user candidate sets."""
-    scores = score_grid(model, neg_records, batch_size, device)
+                 hp: HyperParams, batch_size: int, device: torch.device,
+                 entity_tables: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> Dict[str, float]:
+    """HR@k / NDCG@k at `hp.eval_ks` over per-user candidate sets; with
+    `entity_tables`, over id-only grids whose docs come from them."""
+    scores = score_grid(model, neg_records, batch_size, device,
+                        entity_tables)
     return ranks_to_metrics(positive_ranks(scores), hp.eval_ks)

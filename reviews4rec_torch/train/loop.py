@@ -1,7 +1,8 @@
 """Training loop of the port, for the pointwise review towers (deepconn,
-deepconn++) without the device doc cache. Counterpart of
-`reviews4rec_tpu/train/loop.py` (`make_optimizer`, `_batch_loss`,
-`train_epoch`, `train_complete`), with the same dynamics:
+deepconn++). Counterpart of `reviews4rec_tpu/train/loop.py`
+(`make_optimizer`, `_batch_loss`, `train_epoch` and `train_epoch_cached`
+as one `train_epoch`, the device doc caches, `train_complete`), with the
+same dynamics:
 
 - Adam with additive (not decoupled) L2 weight decay: torch's
   `Adam(weight_decay=...)` is optax's `add_decayed_weights` then `adam`.
@@ -18,9 +19,21 @@ keys its own by the absolute epoch, as the JAX loop does: one
 and the `Batcher` shuffle is keyed by seed + epoch. A resumed run is
 therefore the same as an uninterrupted one.
 
+The device caches (`hp.cache_doc_embeds`) keep a split's records on the
+device, so a step moves only [B] row ids from the host:
+
+- the per-example doc cache: every doc pre-embedded through the frozen
+  word table ([N, T, E] f32), or kept as int ids per `hp.cache_sides`;
+- the entity cache (`hp.cache_entity`): one doc per user and per item
+  (`build_entity_tables`) plus per-example ids, ratings and the (start,
+  len) span of the pair's own review, which the towers mask in place.
+  With `hp.pallas_fuse_rows` the float tables reach the towers whole
+  (`<side>_doc__table` keys) and the row-gathered kernels read each
+  example's row themselves; without it the step gathers `table[rows]`.
+
 Not ported here, each raising `NotImplementedError` with its ROADMAP.md
-item: the device doc and entity caches (Queue 1 item 7), ranking losses
-(item 11), transnet's routed loss (item 8) and meshes (item 13).
+item: ranking losses (item 11), transnet's routed loss (item 8) and
+meshes (item 13), with or without a cache.
 """
 
 from __future__ import annotations
@@ -29,16 +42,18 @@ import collections
 import os
 import statistics
 import time
-from typing import Dict, Iterable, Iterator, Optional, Tuple
+from typing import Dict, Iterable, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import HyperParams
 from ..data.batcher import Batcher
+from ..data.corpus import _doc_layout
+from ..utils.device import to_device
 from ..utils.logging import file_write, log_end_epoch
 from .checkpoint import load_checkpoint, save_checkpoint
-from .evaluate import evaluate
+from .evaluate import evaluate, evaluate_cached
 from .profiler import Throughput, annotate
 
 Params = Dict[str, torch.Tensor]
@@ -46,10 +61,6 @@ Params = Dict[str, torch.Tensor]
 
 def check_trainable(hp: HyperParams) -> None:
     """Raise for the training options this slice does not port."""
-    if hp.cache_doc_embeds or hp.cache_entity:
-        raise NotImplementedError(
-            "the device doc cache and the entity cache (cache_doc_embeds, "
-            "cache_entity) are not ported yet: ROADMAP.md Queue 1 item 7")
     if tuple(hp.mesh_shape) != (1, 1):
         raise NotImplementedError(
             f"mesh_shape {tuple(hp.mesh_shape)}: data / model parallel "
@@ -133,9 +144,16 @@ def _prefetch(batcher: Batcher, device: torch.device, depth: int = 2):
 
 def train_epoch(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                 batcher: Batcher, generator: Optional[torch.Generator],
-                device: torch.device) -> Dict:
+                device: torch.device, cache=None) -> Dict:
     """One epoch of updates, in batch order. The squared-error sums stay
-    on the device until the end of the epoch: one sync per epoch."""
+    on the device until the end of the epoch: one sync per epoch.
+
+    With a device `cache` (the JAX package's `train_epoch_cached`),
+    `batcher` iterates {"row", "weight"}: a Batcher over {"row":
+    arange(n)} with the record Batcher's seed, so the shuffle is the
+    record Batcher's, and each step gathers its batch on the device.
+    Padded tail rows gather row 0 with weight 0, so loss and gradients
+    are the padded batch's."""
     model.train()
     tp = Throughput()
     sq_sum = torch.zeros((), device=device)
@@ -143,6 +161,9 @@ def train_epoch(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     bs, remaining = batcher.batch_size, batcher.n
     for batch in _prefetch(batcher, device):
         with annotate("train_step"):
+            if cache is not None:
+                batch = gather_cached_batch(cache, batch["row"],
+                                            batch["weight"])
             _, s, c = train_step(model, optimizer, batch, generator)
         sq_sum += s
         n += c
@@ -150,6 +171,206 @@ def train_epoch(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         remaining -= bs
     total, count = float(sq_sum), float(n)   # the epoch's one sync
     return {"MSE": round(total / max(count, 1.0), 4), **tp.metrics()}
+
+
+# ---------------------------------------------------------------------
+# device caches (hp.cache_doc_embeds, hp.cache_entity)
+# ---------------------------------------------------------------------
+# Doc tensors that embed through the FROZEN word table: the keys the
+# device cache pre-embeds.
+DOC_KEYS = ("user_doc", "item_doc", "this_doc")
+
+
+def doc_cache_keys(model_type: str, sides: str = "both"
+                   ) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """(embed_keys, id_keys) for the device cache. embed_keys are
+    pre-embedded through the frozen table; id_keys stay int32 ids on the
+    device and are embedded by the model (the same values, at 4 bytes a
+    word instead of 4 E). Only transnet reads `this_doc`. `sides`
+    (hp.cache_sides): both | item | user pre-embeds those sides (this_doc
+    counts as item side), ids none."""
+    read = (DOC_KEYS if model_type in ("transnet", "transnet++")
+            else ("user_doc", "item_doc"))
+    side_of = {"user_doc": "user", "item_doc": "item", "this_doc": "item"}
+    if sides == "both":
+        embed = read
+    elif sides == "ids":
+        embed = ()
+    elif sides in ("item", "user"):
+        embed = tuple(k for k in read if side_of[k] == sides)
+    else:
+        raise ValueError(f"cache_sides must be both|item|user|ids, "
+                         f"got {sides!r}")
+    return embed, tuple(k for k in read if k not in embed)
+
+
+def cache_dtype_for(hp: HyperParams) -> torch.dtype:
+    """The dtype of cached doc embeddings: f32, the kernels' type (and
+    the JAX package's off the TPU), so a cached run computes on the same
+    values as an uncached one."""
+    return torch.float32
+
+
+def build_doc_cache(records: Dict[str, np.ndarray], word_vectors,
+                    dtype: torch.dtype, device: torch.device,
+                    keys: Tuple[str, ...] = DOC_KEYS,
+                    id_keys: Tuple[str, ...] = (),
+                    chunk_words: int = 4_096_000) -> Dict[str, torch.Tensor]:
+    """Device-resident records with the frozen-table docs of `keys`
+    pre-embedded (int ids [N, ...] -> f32 [N, ..., E]) and every other
+    array moved as it is; a doc key in neither `keys` nor `id_keys` is
+    dropped. Each doc array is embedded chunk by chunk straight into one
+    preallocated buffer, so the peak is the buffer and one chunk of
+    indices. The values are those of `table[ids]` in the step."""
+    table = torch.as_tensor(np.asarray(word_vectors)).to(device, dtype)
+    e = table.shape[1]
+    cache = {}
+    for k, v in records.items():
+        if k in DOC_KEYS and k not in keys and k not in id_keys:
+            continue
+        arr = np.ascontiguousarray(v)
+        if k not in DOC_KEYS or k not in keys:
+            cache[k] = torch.from_numpy(arr).to(device)
+            continue
+        buf = torch.empty(arr.shape + (e,), dtype=dtype, device=device)
+        step = max(1, chunk_words // max(int(np.prod(arr.shape[1:])), 1))
+        for s in range(0, arr.shape[0], step):
+            ids = torch.from_numpy(arr[s:s + step].reshape(-1)).to(device)
+            torch.index_select(table, 0, ids.long(),
+                               out=buf[s:s + step].view(-1, e))
+        cache[k] = buf
+    return cache
+
+
+class EntityCache(NamedTuple):
+    """The entity doc cache on the device: `example` holds the
+    per-example arrays (ids, rating, leakage-mask spans), `tables` the
+    canonical per-entity doc stores keyed by the record name they stand
+    for ("user_doc" -> [U, ...], "item_doc" -> [I, ...]), or by
+    `<name>__table` when the towers read them whole."""
+
+    example: Dict[str, torch.Tensor]
+    tables: Dict[str, torch.Tensor]
+
+
+# the example key holding the entity id of each table
+ENTITY_ID_KEY = {"user_doc": "user", "item_doc": "item"}
+
+
+def gather_cached_batch(cache, rows: torch.Tensor, weight: torch.Tensor
+                        ) -> Dict[str, torch.Tensor]:
+    """The batch of example rows `rows` [B] from a device cache, shared
+    by the cached train and eval steps. From an EntityCache each doc
+    side's canonical row is gathered by the example's entity id; a
+    `<doc>__table` is passed WHOLE, for the row-gathered kernels."""
+    if isinstance(cache, EntityCache):
+        batch = {k: v.index_select(0, rows) for k, v in cache.example.items()}
+        for dk, table in cache.tables.items():
+            batch[dk] = (table if dk.endswith("__table") else
+                         table.index_select(0, batch[ENTITY_ID_KEY[dk]]))
+    else:
+        batch = {k: v.index_select(0, rows) for k, v in cache.items()}
+    batch["weight"] = weight
+    return batch
+
+
+def _fuse_tables(tables: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Float tables under `<doc>__table`, for the row-gathered kernels;
+    int id tables keep their key (they are gathered, then embedded)."""
+    return {(k + "__table" if v.is_floating_point() else k): v
+            for k, v in tables.items()}
+
+
+def build_entity_cache(records: Dict[str, np.ndarray],
+                       entity_docs: Dict[str, np.ndarray], word_vectors,
+                       dtype: torch.dtype, device: torch.device,
+                       keys: Tuple[str, ...] = (),
+                       id_keys: Tuple[str, ...] = (),
+                       fuse_rows: bool = False) -> EntityCache:
+    """EntityCache from per-example `records` (materialize_entity) and
+    canonical `entity_docs` ({"user_doc": [U, T], "item_doc": [I, T]}
+    int32), the docs embedded as `build_doc_cache` does. `fuse_rows`
+    passes the float tables whole (`_fuse_tables`)."""
+    tables = build_doc_cache(entity_docs, word_vectors, dtype, device,
+                             keys=keys, id_keys=id_keys)
+    if fuse_rows:
+        tables = _fuse_tables(tables)
+    return EntityCache(example=to_device(records, device),
+                       tables=tables)
+
+
+def entity_supported(hp: HyperParams) -> bool:
+    """Whether `hp.model_type` has an entity doc store."""
+    return hp.model_type in ("deepconn", "deepconn++", "NARRE",
+                             "transnet", "transnet++")
+
+
+def entity_serving(hp: HyperParams) -> bool:
+    """Whether eval and serving score from the entity doc tables: the
+    entity cache is on and the model has an entity doc store."""
+    return bool(hp.cache_doc_embeds and hp.cache_entity
+                and hp.family == "review" and entity_supported(hp))
+
+
+def fuse_rows_for(hp: HyperParams) -> bool:
+    """Whether entity training hands the float tables whole to the
+    row-gathered kernels (hp.pallas_fuse_rows): the concatenated-doc
+    towers only."""
+    return hp.pallas_fuse_rows and hp.model_type in ("deepconn", "deepconn++")
+
+
+def build_entity_tables(hp: HyperParams, dataset, device: torch.device
+                        ) -> Dict[str, torch.Tensor]:
+    """The canonical per-entity doc tables on the device, f32 embedded or
+    int ids per hp.cache_sides: the shared builder of the entity train
+    cache and the entity eval and serving paths."""
+    rows, words = _doc_layout(hp)
+    if rows > 1:
+        raise NotImplementedError(
+            f"the per-review entity store of {hp.model_type} (rows > 1) is "
+            f"not ported yet: ROADMAP.md Queue 1 item 8")
+    sides = "ids" if hp.model_type == "MPCN" else hp.cache_sides
+    ck, idk = doc_cache_keys(hp.model_type, sides)
+    # this_doc is per-example (transnet), never a table
+    ck = tuple(k for k in ck if k != "this_doc")
+    idk = tuple(k for k in idk if k != "this_doc")
+    (udocs, _), (idocs, _) = dataset._entity_spans(words)
+    return build_doc_cache({"user_doc": udocs, "item_doc": idocs},
+                           dataset.word_vectors, cache_dtype_for(hp), device,
+                           keys=ck, id_keys=idk)
+
+
+def _cache_mode(hp: HyperParams) -> Tuple[bool, bool]:
+    """(use the per-example or entity cache, use the entity cache), with
+    the JAX trainer's refusals."""
+    use_cache = hp.cache_doc_embeds
+    use_entity = use_cache and hp.cache_entity
+    if use_cache:
+        if hp.family != "review":
+            raise ValueError(
+                "cache_doc_embeds caches review doc tensors and only "
+                f"applies to the review family; {hp.model_type!r} has "
+                f"no doc tensors")
+        if hp.model_type == "MPCN" and hp.cache_sides != "ids":
+            raise ValueError(
+                "MPCN trains its word embeddings; only the ids-only "
+                "cache applies (cache_sides='ids') — pre-embedded "
+                "caches would freeze a trained table")
+        # an epochs=0 run (smoke/eval-only) never trains: skip the
+        # (device-memory-expensive) cache build entirely
+        use_cache = use_cache and hp.epochs > 0
+        use_entity = use_entity and hp.epochs > 0
+    if use_entity:
+        if not entity_supported(hp):
+            raise ValueError(
+                "cache_entity applies to the frozen-table review towers "
+                f"(deepconn/deepconn++/NARRE/transnet); "
+                f"{hp.model_type!r} has no entity doc store")
+        if hp.loss != "RAW_MSE":
+            raise ValueError(
+                "cache_entity trains pointwise (RAW_MSE); candidate-grid "
+                "ranking losses use the per-example cache")
+    return use_cache, use_entity
 
 
 def _snapshot(model: torch.nn.Module) -> Params:
@@ -179,16 +400,42 @@ def train_complete(hp: HyperParams, model: torch.nn.Module, dataset, *,
     examples/s. Ctrl-C ends training and returns the best
     params so far. `hp.scan_steps` > 1 (the JAX package's `lax.scan`
     over S batches in one dispatch) is accepted: the port runs the same
-    updates in the same order, one step at a time, as 1 does."""
+    updates in the same order, one step at a time, as 1 does.
+
+    With `hp.cache_doc_embeds` (and `hp.cache_entity`) the splits live in
+    a device cache (module docstring); validation then reads a val cache
+    that shares the train cache's entity tables."""
     check_trainable(hp)
     hp = dataset.apply_to(hp)
+    use_cache, use_entity = _cache_mode(hp)
     device = next(model.parameters()).device
     optimizer = make_optimizer(hp, model)
-    train_b = Batcher(_model_records(model, dataset.materialize(hp, "train")),
-                      hp.batch_size, shuffle=hp.shuffle_data_every_epoch,
-                      seed=hp.seed)
-    val_b = Batcher(_model_records(model, dataset.materialize(hp, "val")),
-                    hp.batch_size)
+    train_cache = val_cache = None
+    if use_entity:
+        # no per-example doc tensors at all: ids, rating and mask spans
+        train_recs = dataset.materialize_entity(hp, "train")
+        val_recs = dataset.materialize_entity(hp, "val")
+        tables = build_entity_tables(hp, dataset, device)
+        if fuse_rows_for(hp):
+            tables = _fuse_tables(tables)
+        train_cache = EntityCache(to_device(train_recs, device), tables)
+        # eval removes nothing: val shares the same doc tables
+        val_cache = EntityCache(to_device(val_recs, device), tables)
+    else:
+        train_recs = _model_records(model, dataset.materialize(hp, "train"))
+        val_recs = _model_records(model, dataset.materialize(hp, "val"))
+    if use_cache and not use_entity:
+        ck, idk = doc_cache_keys(hp.model_type, hp.cache_sides)
+        train_cache, val_cache = (
+            build_doc_cache(recs, dataset.word_vectors, cache_dtype_for(hp),
+                            device, keys=ck, id_keys=idk)
+            for recs in (train_recs, val_recs))
+    # with a cache the batcher yields row ids into it, in the same
+    # shuffled order as the record Batcher
+    train_b = Batcher({"row": np.arange(len(train_recs["rating"]))}
+                      if use_cache else train_recs, hp.batch_size,
+                      shuffle=hp.shuffle_data_every_epoch, seed=hp.seed)
+    val_b = Batcher(val_recs, hp.batch_size)
 
     start_epoch, step = 1, 0
     best_mse = float("inf")
@@ -210,12 +457,18 @@ def train_complete(hp: HyperParams, model: torch.nn.Module, dataset, *,
     try:
         for epoch in range(start_epoch, hp.epochs + 1):
             t0 = time.time()
-            train_metrics = train_epoch(
-                model, optimizer, train_b,
-                epoch_generator(hp.seed, epoch, device), device)
+            gen = epoch_generator(hp.seed, epoch, device)
+            train_metrics = train_epoch(model, optimizer, train_b, gen,
+                                        device, train_cache)
+            if use_cache:
+                metrics, _, _ = evaluate_cached(
+                    model, val_cache, val_recs, hp, dataset.user_count,
+                    dataset.item_count, device)
+            else:
+                metrics, _, _ = evaluate(model, val_b, hp,
+                                         dataset.user_count,
+                                         dataset.item_count, device)
             step += len(train_b)
-            metrics, _, _ = evaluate(model, val_b, hp, dataset.user_count,
-                                     dataset.item_count, device)
             model.train()
             metrics["examples_per_s"] = train_metrics["examples_per_s"]
             if stats is not None:

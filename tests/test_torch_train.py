@@ -258,8 +258,9 @@ def test_run_returns_the_jax_metric_keys_and_restores(dataset, port_dataset,
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(cache_doc_embeds=True), "Queue 1 item 7"),
-    (dict(cache_doc_embeds=True, cache_entity=True), "Queue 1 item 7"),
+    (dict(cache_doc_embeds=True, mesh_shape=(2, 1)), "Queue 1 item 13"),
+    (dict(cache_doc_embeds=True, cache_entity=True, loss="BPR"),
+     "Queue 1 item 11"),
     (dict(mesh_shape=(2, 1)), "Queue 1 item 13"),
     (dict(loss="BPR"), "Queue 1 item 11"),
     (dict(model_type="transnet"), "Queue 1 item 8"),
