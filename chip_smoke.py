@@ -5,12 +5,18 @@
 
 1. Builds every CUDA kernel of the package from `reviews4rec_torch/csrc`
    (one nvcc per source, all at once) and prints the build seconds.
-2. Holds each kernel against its plain PyTorch version on the card at
-   the main path's shapes and the edge cases (forward: out within 1e-4
-   absolute, idx equal; backward: dK within 1e-4 * max(1, max|dK|), db
-   within 1e-4, dx within 1e-5 absolute, all exact on integer inputs),
-   then times kernel, plain version and a PyTorch library call that
-   computes the same function, beside the kernel's bound.
+2. Counts the tensor-core instructions (`HMMA`, from `cuobjdump -sass`)
+   in each forward instantiation and fails if one has none. Holds each
+   kernel against its plain PyTorch version on the card at the main
+   path's shapes and the edge cases (forward: out within 1e-4 absolute,
+   idx equal, on integer ties and on exact ties of real-valued windows
+   too, and at E wide enough for blocks of 4, 2 and 1 warps; backward:
+   dK within 1e-4 * max(1, max|dK|), db within 1e-4, dx within 1e-5
+   absolute, all exact on integer inputs), then times kernel, plain
+   version and a PyTorch library call that computes the same function,
+   beside the kernel's bound. For the forward it also prints its 3xTF32
+   tensor-core bound and the card's `mma.sync` TF32 rate
+   (`csrc/mma_sync_rate.cu`), the ceiling of its design.
 3. Serves deepconn and deepconn++ at full width (T=1000, E=64, F=100,
    batch 256) on the committed e2e corpus with the JAX package's
    weights from `tests/torch_fixtures/e2e_ref.npz`: `predict`,
@@ -85,9 +91,10 @@ UNTRAINED_MSE = 1.524
 # the uncached check's bounds
 ENTITY_PARAMS_TOL = 1e-3
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s
-# outside the tensor cores
+# outside the tensor cores, dense TF32 FLOP/s on them
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
+PEAK_TF32_FLOP_S = 495e12
 
 
 def fail(msg: str) -> None:
@@ -128,6 +135,18 @@ def _tie_case(torch, b, t, e, f, w, seed):
     return x, k, bias
 
 
+def _real_tie_case(torch, b, t, e, f, w, seed):
+    """Words drawn from a vocabulary of 4 random float vectors: windows
+    of equal words tie exactly at values no integer grid holds, so the
+    kernel must give every start's sum bit-equal and keep the first."""
+    g = torch.Generator().manual_seed(seed)
+    words = torch.randn(4, e, generator=g)
+    x = words[torch.randint(0, 4, (b, t), generator=g)]
+    k = torch.randn(w * e, f, generator=g) / (w * e) ** 0.5
+    bias = torch.randn(f, generator=g)
+    return x, k, bias
+
+
 def _cases():
     """(name, maker, (B, T, E, F, W), skip spans) at the main path's
     shape and the edges."""
@@ -151,7 +170,16 @@ def _cases():
 def check_textcnn(torch, textcnn) -> float:
     """Forward kernel vs plain version on the card; returns the largest
     |out| error over the cases."""
-    cases = _cases()
+    s = SERVE_SHAPE
+    cases = _cases() + [
+        ("real-valued ties", _real_tie_case,
+         (8, 300, s["e"], s["f"], s["w"]), None),
+        # a wider E leaves less shared memory for the x ring: blocks of
+        # 4, 2 and 1 warps, one n8 tile of filters each, 13 chunks
+        ("E=256", _random_case, (4, 200, 256, s["f"], s["w"]), None),
+        ("E=384", _random_case, (4, 200, 384, s["f"], s["w"]), None),
+        ("E=512", _random_case, (4, 200, 512, s["f"], s["w"]), None),
+    ]
     worst = 0.0
     for j, (name, make, (b, t, e, f, w), skip) in enumerate(cases):
         x, k, bias = (a.cuda() for a in make(torch, b, t, e, f, w, seed=j))
@@ -186,6 +214,37 @@ def _median_ms(torch, fn, n: int = 30, warm: int = 3) -> float:
     return sorted(times)[n // 2]
 
 
+def _tc_bound_ms(flops, nbytes) -> float:
+    """The forward's 3xTF32 tensor-core bound: the op's own products
+    (no tile padding), three a term, at the dense TF32 rate, or its
+    bytes."""
+    return 1e3 * max(3 * flops / PEAK_TF32_FLOP_S, nbytes / PEAK_BYTES_S)
+
+
+def time_mma_sync(torch, _build) -> float:
+    """TF/s of `mma.sync` m16n8k8 TF32 on this card: one block of 8
+    warps (the forward's) on every SM, each warp a stream of independent
+    mma on register fragments; median of 30 launches, CUDA events."""
+    import ctypes
+
+    lib = _build.load("mma_sync_rate")
+    lib.mma_sync_rate_launch.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    threads, iters = 8 * 32, 16384
+    out = torch.empty(sms * threads, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        if lib.mma_sync_rate_launch(out.data_ptr(), sms, threads, iters,
+                                    stream):
+            raise RuntimeError("mma_sync_rate launch failed")
+
+    ms = _median_ms(torch, run)
+    mma = sms * threads // 32 * iters * 16
+    return 2 * 16 * 8 * 8 * mma / (ms * 1e-3) / 1e12
+
+
 def time_textcnn(torch, textcnn) -> dict:
     """Median of 30 single calls at the serving shape, CUDA events."""
     import torch.nn.functional as F
@@ -215,6 +274,7 @@ def time_textcnn(torch, textcnn) -> dict:
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_tc_ms": _tc_bound_ms(flops, nbytes),
             "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
 
 
@@ -509,7 +569,8 @@ def _rows_cases():
     """(name, maker, table rows N, (B, T, E, F, W), skip spans) of
     `check_rows`: the entity training shape (N = the e2e users), a B
     that is no tile multiple, skip spans of length 0, over the whole doc
-    and past T, forced integer ties, another E and W."""
+    and past T, forced integer ties, another E and W, exact ties of
+    real-valued windows."""
     s = SERVE_SHAPE
     t, e, f, w = s["t"], s["e"], s["f"], s["w"]
     return [
@@ -520,6 +581,7 @@ def _rows_cases():
          [[0, 0], [0, 1000], [900, 500], [10, 300], [1, 1], [999, 7]]),
         ("forced ties", _tie_case, 32, (8, 300, e, f, w), None),
         ("E=32 W=5", _random_case, 60, (16, 200, 32, f, 5), None),
+        ("real-valued ties", _real_tie_case, 32, (8, 300, e, f, w), None),
     ]
 
 
@@ -678,6 +740,7 @@ def time_rows(torch, textcnn) -> dict:
     res = {
         "fwd": dict(
             _bound(flops, fwd_bytes),
+            bound_tc_ms=_tc_bound_ms(flops, fwd_bytes),
             ms=_median_ms(torch, lambda: textcnn.textcnn_pool_fwd_rows(
                 table, rows, k, bias, w)),
             plain_ms=_median_ms(torch, lambda: textcnn
@@ -834,6 +897,18 @@ def _print_profile(torch, prof, what: str, wall: float, top: int,
         for ev in cpu[:host_top]:
             print(f"  {ev.self_cpu_time_total / 1e3:9.3f} ms  "
                   f"x{ev.count:<5d} {ev.key[:80]}")
+        # which copies: host-to-pinned staging (under aten::_pin_memory),
+        # the H2D issue (aten::_to_copy), copies on the device
+        by_caller: dict = {}
+        for ev in prof.events():
+            if ev.name == "aten::copy_" and ev.device_type == \
+                    torch.autograd.DeviceType.CPU:
+                caller = ev.cpu_parent.name if ev.cpu_parent else "(none)"
+                us, n = by_caller.get(caller, (0.0, 0))
+                by_caller[caller] = (us + ev.self_cpu_time_total, n + 1)
+        print("  aten::copy_ self time by caller: " + ", ".join(
+            f"{caller} {us / 1e3:.3f} ms x{n}" for caller, (us, n) in
+            sorted(by_caller.items(), key=lambda kv: -kv[1][0])))
     return rows
 
 
@@ -1406,6 +1481,36 @@ def _print_build(_build) -> None:
               .read_text().strip().splitlines()[-1].strip())
 
 
+def count_hmma(_build) -> None:
+    """Tensor-core instructions (`HMMA`, or `HGMMA` for wgmma) of each
+    kernel function in the forward's library, from `cuobjdump -sass`.
+    Fails if the dump is empty or a function has none: the forward has
+    no CUDA-core branch."""
+    import shutil
+
+    lib = _build.library_path("textcnn_pool_fwd")
+    tool = (shutil.which("cuobjdump")
+            or str(Path(_build._nvcc()).parent / "cuobjdump"))
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300)
+    if sass.returncode != 0:
+        raise AssertionError(f"cuobjdump failed: {sass.stderr.strip()}")
+    counts, name = {}, None
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[name] += 1
+    print(f"textcnn_pool_fwd tensor-core instructions (cuobjdump -sass): "
+          f"{sum(counts.values())} HMMA in {len(counts)} kernel functions, "
+          f"{min(counts.values(), default=0)}-"
+          f"{max(counts.values(), default=0)} each")
+    if not counts or min(counts.values()) == 0:
+        raise AssertionError("a forward kernel function has no tensor-core "
+                             "instruction")
+
+
 def _load_corpus(ReviewDataset):
     t0 = time.perf_counter()
     ds = ReviewDataset.load(str(CORPUS_DIR))
@@ -1424,7 +1529,13 @@ def _print_kernel_times(textcnn, fwd, bwd) -> None:
           f"{fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, "
           f"conv1d+relu+max {fwd['library_ms']:.4f} ms, bound "
           f"{fwd['bound_ms']:.4f} ms ({fwd['bound_by']}; "
-          f"{fwd['gflop']:.2f} GFLOP, {fwd['mbytes']:.1f} MB)")
+          f"{fwd['gflop']:.2f} GFLOP, {fwd['mbytes']:.1f} MB), 3xTF32 "
+          f"tensor-core bound {fwd['bound_tc_ms']:.4f} ms (3 x "
+          f"{fwd['gflop']:.2f} GFLOP at {PEAK_TF32_FLOP_S / 1e12:.0f} "
+          f"TFLOP/s)")
+    print(f"mma.sync m16n8k8 TF32, 8 warps on every SM: "
+          f"{fwd['mma_tflops']:.1f} TFLOP/s; the forward's 3xTF32 products "
+          f"at that rate {3 * fwd['gflop'] / fwd['mma_tflops']:.4f} ms")
     for key, name in (("dg", textcnn.BWD_DG), ("dx", textcnn.BWD_DX)):
         r = bwd[key]
         print(f"{name} at B=256 T=1000 E=64 F=100 W=3 f32 ({bwd['gated_off']}"
@@ -1453,7 +1564,9 @@ def _print_rows_times(textcnn, rows) -> None:
               f"({r['bound_by']}; {r['mflop']:.2f} MFLOP, "
               f"{r['mbytes']:.2f} MB" + (f", {r['cells']} distinct table "
                                          f"positions" if "cells" in r
-                                         else "") + ")")
+                                         else "") + ")"
+              + (f", 3xTF32 tensor-core bound {r['bound_tc_ms']:.4f} ms"
+                 if "bound_tc_ms" in r else ""))
 
 
 def main(argv=None) -> None:
@@ -1498,8 +1611,10 @@ def main(argv=None) -> None:
         return
 
     if "kernels" in want:
+        count_hmma(_build)
         fwd_err = check_textcnn(torch, textcnn)
         fwd = time_textcnn(torch, textcnn)
+        fwd["mma_tflops"] = time_mma_sync(torch, _build)
         bwd_err = check_backward(torch, textcnn)
         bwd = time_backward(torch, textcnn)
         _print_kernel_times(textcnn, fwd, bwd)

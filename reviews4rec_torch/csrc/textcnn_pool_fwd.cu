@@ -1,231 +1,487 @@
 // TextCNN forward: out[b, f] = max_s relu(sum_w x_pad[b, s + w, :] . K[w*E:(w+1)*E, f] + bias[f])
 // over the T + W - 1 window starts s of the doc zero-padded by W - 1 words
-// on both ends, and idx[b, f] = the LOWEST start that reaches the max.
+// on both ends, and idx[b, f] = the LOWEST start that reaches the max. An
+// optional per-row (start, len) word span is zeroed before the conv, as
+// `_input_mask` does; len 0 masks nothing.
 //
-// Replaces the two Pallas forwards of reviews4rec_tpu/ops/textcnn_pallas.py:
-// `_paired_kernel` (E = 64, W <= 3) and `_kernel` (any E, W). Unlike
-// `_paired_kernel`, which keeps the even start of an exact tie inside one
-// 256-start chunk, this kernel returns the true first argmax, as `_kernel`
-// does. An optional per-row (start, len) word span is zeroed before the
-// conv, as `_input_mask` does; len 0 masks nothing.
+// Replaces three Pallas kernels of reviews4rec_tpu/ops/textcnn_pallas.py:
+// `_paired_kernel` (:153, E = 64, W <= 3), `_kernel` (:47, any E and W)
+// and, as the row-gathered instantiation below, `_gathered_paired_kernel`
+// (:945). Unlike `_paired_kernel`, which keeps the even start of an exact
+// tie inside one 256-start chunk, this kernel returns the true first
+// argmax, as `_kernel` does.
 //
-// Bound. At the serving shape (B=256, T=1000, E=64, F=100, W=3, f32) one
-// call does 2*B*(T+W-1)*W*E*F = 9.85 GFLOP on 65.5 MB of input: about 20 us
-// of HBM traffic at 3.35 TB/s, but 147 us of float32 FMA at the 67 TFLOP/s
-// the H100 has outside its tensor cores. In f32 the op is bound by
-// operations. This first kernel spends them on the CUDA cores: the window
-// overlap is used in registers (each word row of a thread's 8 starts is
-// loaded once from shared memory and feeds W taps), each K value loaded
-// feeds 8 starts, and nothing but [B, F] leaves the chip. TF32 or bf16
-// tensor cores (wgmma) and TMA loads are the next step.
+// Bounds at the serving shape (B=256, T=1000, E=64, F=100, W=3, f32):
+// - bytes: x, K, bias in and out, idx out, 4*(B*T*E + W*E*F + F) +
+//   8*B*F = 65.8 MB, 0.020 ms at 3.35 TB/s;
+// - f32 on the CUDA cores: 2*B*(T+W-1)*W*E*F = 9.85 GFLOP, 0.147 ms at
+//   67 TFLOP/s, a floor no CUDA-core design passes;
+// - 3xTF32 on the tensor cores: 3 products a term of the op's own work,
+//   3 * 9.85 = 29.6 GFLOP, 0.0597 ms at the 495 TFLOP/s of dense TF32,
+//   bound by operations. This kernel pads F to 104 (13 n8 tiles) and
+//   so issues 3*2*256*1002*192*104 = 30.7 GFLOP, 4% over that.
 //
-// Layout. One block per (batch row, tile of 64 filters); blocks share no
-// state. The block stages its [W*E, 64] slice of K in shared memory once,
-// then walks over time in tiles of 64 starts: it loads the tile's
-// 64 + W - 1 padded word rows (its own halo) transposed into shared memory,
-// each warp computes 8 starts x 64 filters (2 filters and 8 starts a
-// thread), and every thread keeps its running max and first argmax in
-// registers. A last pass over shared memory merges the 8 warps' results,
-// lowest start first on equal values. The sum runs in the same order for
-// every start, so windows of equal content give bit-equal values and the
-// tie goes to the lower start.
+// Precision. One TF32 rounding keeps 11 significant bits, about 5e-4 of
+// each product: that moves `out` by 1e-3 and flips winning starts, which
+// route the gradient. So each operand is split as hi = rna_tf32(a) and
+// lo = rna_tf32(a - hi), and each k-step adds a_lo*b_hi and a_hi*b_lo,
+// then a_hi*b_hi, into one f32 accumulator (3xTF32; a_lo*b_lo, about
+// 2^-24 of the product, is dropped). The error stays near f32 rounding;
+// integer inputs are exact in TF32, their lo parts are 0, and such sums
+// stay exact (tests/test_torch_tf32_split.py emulates the split).
 //
-// Row-gathered variant, `textcnn_pool_fwd_rows_f32`: the same kernel body
-// (template flag kGather) on table[rows[b]] of a whole [N, T, E] entity doc
-// table. Replaces `_gathered_paired_kernel` (textcnn_pallas.py, launched
-// from `_gathered_call`), whose per-row DMA pipeline, semaphores and
-// double-buffered slots have no counterpart here: the block loads rows[b]
-// once and reads its doc from that row. It does exactly the plain kernel's
-// arithmetic in the same order, so the two agree bitwise on table[rows],
-// tie rule included. A row outside [0, N) writes NaN to its block's out and
-// -1 to its idx, so a bad id shows in the loss instead of reading foreign
-// memory. Bound as above: 9.85 GFLOP, 0.147 ms at 67 TFLOP/s (operations),
-// over at most 65.5 MB of table rows (the distinct rows of the batch). What
-// it saves is the [B, T, E] copy table[rows] that the plain kernel needs:
-// 65.5 MB written and read back, 131 MB, at least 39 us at 3.35 TB/s.
+// Design, and why:
+// - Tensor cores through `mma.sync.aligned.m16n8k8` TF32 (inline PTX):
+//   M = window starts, N = filters, K = W*E. The A operand of tap w for
+//   starts s..s+15 is rows s+w..s+w+15 of the x tile in shared memory:
+//   the W taps are W row offsets into one tile, so no [T, W*E] window
+//   matrix exists and each word crosses HBM once per filter chunk.
+// - A warp owns 16 starts (one m16 tile) by up to 13 n8 tiles (104
+//   filters): 52 f32 accumulators, 39 mma a k-step in one block of code
+//   (no branch inside, so the scheduler interleaves them). One block
+//   covers all F <= 104 filters of a batch row, so x is read once per
+//   row and F=100 pads to 104, not 128. Each A fragment, loaded and
+//   split once, feeds all 13 n-tiles.
+// - K is staged once per block in shared memory in B-fragment order and
+//   split once: [k-step][n-tile][lane] 16-byte slots (b0 hi, b1 hi, b0
+//   lo, b1 lo), one conflict-free 16-byte load per lane and n-tile and
+//   no split in the loop. Fixed slot offsets read past nt into the next
+//   k-step or a few spare slots; those n-tiles are never used.
+// - x tiles of 128 starts (8 warps x 16), 128 + W - 1 word rows, in a
+//   2-stage ring filled by `cp.async`: 16-byte `.cg` copies where
+//   E % 4 == 0 and x is 16-byte aligned, else 4-byte `.ca` copies. The
+//   zero-fill form (src-size 0) writes the padding words, the skip span,
+//   the E tail up to a multiple of 8 and rows outside the table without
+//   reading anything. The next tile's copies are issued before this
+//   tile's mma and waited for with `cp.async.wait_group`, so loads
+//   overlap math. Row pitch E8 + 4 floats (E8 = E padded to 8): the
+//   lanes of an A-fragment load (row g = lane/4, column lane%4) then
+//   fall in 32 distinct banks, since g * pitch mod 32 = 4 * g * odd.
+//   A fragments are split in registers (two integer operations and a
+//   subtraction per value), 16 values a k-step for 39 mma.
+// - Persistent blocks: grid (min(B, SMs / chunks), filter chunks), each
+//   block walking batch rows b, b + gridDim.x, ...
+//   as one flat sequence of (row, tile) items, so the next row's first
+//   tile loads during this row's last one and K is staged once.
+// - Epilogue per tile: bias, ReLU, the mask s < T + W - 1 and a running
+//   max per accumulator column with strict >, starts rising within a
+//   thread's registers. At the end of a row the 8 lanes that share a
+//   column merge with __shfl_xor and the warps through the tile's ring
+//   stage, the lower start winning on equal values. Every start's sum
+//   runs the same mma sequence in the same k order, so windows of equal
+//   content give bit-equal values and the tie goes to the lower start.
+// - Registers: 52 accumulators, 26 running maxima and 26 starts, the A
+//   fragments and the B slots in flight: 205-212 a thread, no spills
+//   (ptxas at sm_90a), so 8 warps fit the SM's 64K registers.
+//
+// Shared memory at the serving shape: K 24 k-steps x 13 n-tiles x 32
+// lanes x 16 B = 159,744 B; x ring 2 x 130 rows x 68 floats = 70,720 B;
+// bias 416 B: 230,880 B of the 232,448 a block may have, so one block of
+// 256 threads per SM. Waves: 132 persistent blocks for B = 256 rows, 124
+// blocks take 2 rows and 8 take 1, 97% of the row slots busy (one block
+// per row, 64 filters a block, would give 512 blocks on the 396 slots
+// of three blocks an SM: 65%). Shapes that do not
+// fit (large W*E) take fewer filters a block (more chunks in grid.y) and
+// then fewer warps: the host picks the first of 8, 4, 2, 1 warps, and for
+// it the fewest chunks, that fits (at W = 3, F = 100: 8 warps up to
+// E = 176, 4 up to 304, 2 up to 480, then 1; chip_smoke.py checks one
+// E of each).
+//
+// What bounds it. `mma.sync` TF32 does not reach the 495 TFLOP/s of
+// `wgmma`: chip_smoke.py times a stream of independent mma
+// (mma_sync_rate.cu) at this kernel's 8 warps a block and prints the
+// time the 3xTF32 products alone take at that rate; PERF.md keeps the
+// reading. The kernel spends the rest on the fragment loads, the A split
+// and the per-tile epilogue around them. `wgmma`, with K and the x tile
+// read from shared memory by descriptor, would lift that ceiling.
+//
+// Row-gathered variant, `textcnn_pool_fwd_rows_f32`: the same body
+// (template flag kGather) on table[rows[b]] of a whole [N, T, E] entity
+// doc table. The per-row DMA pipeline of `_gathered_paired_kernel` has
+// no counterpart: the tile loader reads rows[b] and copies from that
+// row. The arithmetic and launch configuration are the plain kernel's,
+// so the two agree bitwise on table[rows], tie rule included. A row
+// outside [0, N) is zero-filled and writes NaN to its out and -1 to its
+// idx, so a bad id shows in the loss instead of reading foreign memory.
+// What it saves is the [B, T, E] copy table[rows] that the plain kernel
+// needs: 65.5 MB written and read back, at least 39 us at 3.35 TB/s.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kFiltersPerThread = 2;
-constexpr int kFT = 32 * kFiltersPerThread;  // filters per block
-constexpr int kRT = 8;                        // starts per thread and tile
-constexpr int kTT = kWarps * kRT;             // starts per tile
+constexpr int kMaxWarps = 8;
+constexpr int kStartsPerWarp = 16;  // one m16 tile
+constexpr int kMaxNTiles = 13;      // n8 tiles a block: 104 filters
+constexpr int kStages = 2;
 constexpr int kMaxWindow = 8;
 
-__host__ __device__ constexpr int round_up4(int v) { return (v + 3) & ~3; }
+__host__ __device__ constexpr int pad8(int e) { return (e + 7) & ~7; }
+__host__ __device__ constexpr int row_pitch(int e) { return pad8(e) + 4; }
 
-// floats of one word column of the transposed tile: a warp reads
-// round_up4(kRT + W - 1) rows from its first start, 16-byte aligned
-__host__ __device__ constexpr int tile_pitch(int window) {
-  return kTT - kRT + round_up4(kRT + window - 1);
+// 16-byte K slots of one block: [k-step][n-tile][lane] (b0 hi, b1 hi,
+// b0 lo, b1 lo), then kMaxNTiles - nt spare n-tiles, so that the fixed
+// offsets of the last k-step's unused n-tiles stay inside K
+__host__ __device__ constexpr int k_slots(int e, int window, int nt) {
+  return (window * pad8(e) / 8 * nt + kMaxNTiles - nt) * 32;
 }
 
-size_t smem_bytes(int e, int window) {
-  return sizeof(float) * ((size_t)window * e * kFT           // K slice
-                          + (size_t)e * tile_pitch(window)   // x tile
-                          + 2 * (size_t)kWarps * kFT);        // merge scratch
+// floats of one stage of the x ring: the tile's word rows, or the merge
+// of the warps' (value, start) per filter, which it takes at a row's end
+__host__ __device__ constexpr int stage_floats(int e, int window, int nt, int warps) {
+  return (warps * kStartsPerWarp + window - 1) * row_pitch(e) > 2 * warps * nt * 8
+             ? (warps * kStartsPerWarp + window - 1) * row_pitch(e)
+             : 2 * warps * nt * 8;
 }
 
-// kGather: x is a [N, T, E] table and block row b reads x[rows[b]]
+// bytes of shared memory one block takes: K, the x ring and the bias
+size_t smem_bytes(int e, int window, int nt, int warps) {
+  return 16 * (size_t)k_slots(e, window, nt) +
+         sizeof(float) * ((size_t)kStages * stage_floats(e, window, nt, warps) + nt * 8);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// copy `bytes` (0 or the full size) and zero-fill the rest of the 16 or 4
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most `kPending` of this thread's groups are in flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// round to TF32, to nearest with ties away from zero: the bits of
+// `cvt.rna.tf32.f32` in two integer operations (the tensor cores read
+// only the 19 high bits of an operand, so the compiler may drop the mask
+// where the value only feeds an mma)
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v = hi + lo exactly in f32 before lo's own rounding
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(v - __uint_as_float(hi));
+}
+
+// d += a * b on the tensor cores: a 16x8 (row), b 8x8 (col), d 16x8 f32.
+// Not volatile: the scheduler may interleave independent accumulators;
+// the mma into one accumulator keep their order through d.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc = the sums of one warp's 16 starts (tile rows from xw) by the 13
+// n8 tiles of filters whose K slots start at kp0, in 3xTF32: per k-step
+// a_lo*b_hi, a_hi*b_lo, a_hi*b_hi
+template <int W>
+__device__ __forceinline__ void tile_mma(float (&acc)[kMaxNTiles][4], const float* xw,
+                                         const uint4* kp0, int pitch, int kcs, int nt, int g,
+                                         int tq) {
+#pragma unroll
+  for (int j = 0; j < kMaxNTiles; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    for (int kc = 0; kc < kcs; ++kc) {
+      // A: rows w + {g, g+8}, columns kc*8 + {tq, tq+4}
+      const float* ap = xw + (size_t)(w + g) * pitch + kc * 8 + tq;
+      uint32_t a_hi[4], a_lo[4];
+      split_tf32(ap[0], a_hi[0], a_lo[0]);
+      split_tf32(ap[8 * pitch], a_hi[1], a_lo[1]);
+      split_tf32(ap[4], a_hi[2], a_lo[2]);
+      split_tf32(ap[8 * pitch + 4], a_hi[3], a_lo[3]);
+      // no branch on nt, so the mma form one block for the scheduler,
+      // and fixed slot offsets: n-tiles past nt read the next k-step's
+      // slots (or the spare ones) and are never used
+      const uint4* kp = kp0 + (size_t)(w * kcs + kc) * nt * 32;
+#pragma unroll
+      for (int j = 0; j < kMaxNTiles; ++j) {
+        const uint4 bv = kp[j * 32];  // b0 hi, b1 hi, b0 lo, b1 lo
+        mma_tf32(acc[j], a_lo, bv.x, bv.y);
+        mma_tf32(acc[j], a_hi, bv.z, bv.w);
+        mma_tf32(acc[j], a_hi, bv.x, bv.y);
+      }
+    }
+  }
+}
+
+// kGather: x is a [N, T, E] table and batch row b reads x[rows[b]].
+// Block: blockDim.x / 32 warps of 16 starts each; filters
+// [blockIdx.y * nt * 8, + nt * 8).
 template <int W, bool kGather>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
 textcnn_pool_fwd_kernel(const float* __restrict__ x, const int* __restrict__ rows,
                         const float* __restrict__ k, const float* __restrict__ bias,
                         const int* __restrict__ skip, float* __restrict__ out,
-                        int* __restrict__ idx, int N, int T, int E, int F) {
-  constexpr int kPitch = tile_pitch(W);
-  constexpr int kRows = kTT + W - 1;             // padded rows a tile reads
-  constexpr int kVec = round_up4(kRT + W - 1) / 4;
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);   // [W*E][kFT]
-  float* xs = ks + (size_t)W * E * kFT;          // [E][kPitch]
-  float* merge_v = xs + (size_t)E * kPitch;      // [kWarps][kFT]
-  int* merge_i = reinterpret_cast<int*>(merge_v + kWarps * kFT);
-
-  const int b = blockIdx.x;
-  const int f0 = blockIdx.y * kFT;
+                        int* __restrict__ idx, int N, int B, int T, int E, int F, int nt,
+                        int vec16) {
   const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int g = lane >> 2;   // fragment row group
+  const int tq = lane & 3;   // fragment column in the group
+  const int e8 = pad8(E);
+  const int kcs = e8 / 8;    // k-steps per tap
+  const int pitch = row_pitch(E);
+  const int warps = nthreads / 32;
+  const int starts = warps * kStartsPerWarp;  // per tile
+  const int tile_rows = starts + W - 1;
   const int t_out = T + W - 1;
-  int src = b;
-  if constexpr (kGather) {
-    src = rows[b];
-    if (src < 0 || src >= N) {  // the whole block leaves: no barrier crossed
-      if (tid < kFT && f0 + tid < F) {
-        out[(size_t)b * F + f0 + tid] = __int_as_float(0x7fc00000);  // NaN
-        idx[(size_t)b * F + f0 + tid] = -1;
-      }
-      return;
+  const int n_tiles = (t_out + starts - 1) / starts;
+  const int nf = nt * 8;
+  const int f0 = blockIdx.y * nf;
+
+  extern __shared__ uint4 smem16[];
+  uint4* kq = smem16;  // k_slots(E, W, nt) slots
+  // the ring: kStages stages of `stage` floats, [tile_rows][pitch] each
+  float* xs = reinterpret_cast<float*>(kq + k_slots(E, W, nt));
+  const int stage = stage_floats(E, W, nt, warps);
+  float* bs = xs + (size_t)kStages * stage;  // [nf]
+
+  // K in B-fragment order, b0 = K[kc*8 + tq][8j + g] and b1 four k later
+  // (zero past E, F and in the spare n-tiles), copied into the hi words
+  // of each slot here and split in place below by the same thread
+  const int n_slots = k_slots(E, W, nt);
+  for (int i = tid; i < n_slots; i += nthreads) {
+    const int l = i & 31;
+    const int j = (i >> 5) % nt;
+    const int kstep = (i >> 5) / nt;
+    const int w = kstep / kcs;
+    const int e = (kstep - w * kcs) * 8 + (l & 3);
+    const int f = f0 + 8 * j + (l >> 2);
+    float* slot = reinterpret_cast<float*>(kq + i);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool ok = w < W && e + 4 * h < E && f < F;
+      cp_async4(slot + h, ok ? k + (size_t)(w * E + e + 4 * h) * F + f : k, ok ? 4 : 0);
     }
   }
-  const float* xb = x + (size_t)src * T * E;
+  cp_async_commit();
+  for (int i = tid; i < nf; i += nthreads) bs[i] = f0 + i < F ? bias[f0 + i] : 0.f;
 
-  int skip_lo = 0, skip_hi = 0;
-  if (skip != nullptr) {
-    skip_lo = skip[2 * b];
-    skip_hi = skip_lo + skip[2 * b + 1];
-  }
+  const int nrows = (B - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int items = nrows * n_tiles;
 
-  for (int i = tid; i < W * E * kFT; i += kThreads) {
-    const int r = i / kFT;
-    const int f = f0 + i % kFT;
-    ks[i] = f < F ? k[(size_t)r * F + f] : 0.f;
-  }
-  float bias_c[kFiltersPerThread];
-#pragma unroll
-  for (int c = 0; c < kFiltersPerThread; ++c) {
-    const int f = f0 + kFiltersPerThread * lane + c;
-    bias_c[c] = f < F ? bias[f] : 0.f;
-  }
-
-  float best[kFiltersPerThread];
-  int best_s[kFiltersPerThread];
-#pragma unroll
-  for (int c = 0; c < kFiltersPerThread; ++c) {
-    best[c] = -1.f;  // every valid start gives relu(.) >= 0
-    best_s[c] = 0;
-  }
-
-  const int tr = warp * kRT;  // this warp's first start within the tile
-  for (int s0 = 0; s0 < t_out; s0 += kTT) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = tid; i < kRows * E; i += kThreads) {
-      const int r = i / E;
-      const int e = i - r * E;
-      const int word = s0 + r - (W - 1);
-      float v = 0.f;
-      if (word >= 0 && word < T && (word < skip_lo || word >= skip_hi))
-        v = xb[(size_t)word * E + e];
-      xs[e * kPitch + r] = v;
-    }
-    __syncthreads();
-
-    float acc[kRT][kFiltersPerThread];
-#pragma unroll
-    for (int j = 0; j < kRT; ++j)
-#pragma unroll
-      for (int c = 0; c < kFiltersPerThread; ++c) acc[j][c] = 0.f;
-
-    for (int e = 0; e < E; ++e) {
-      const float4* col = reinterpret_cast<const float4*>(xs + e * kPitch + tr);
-      float xv[4 * kVec];
-#pragma unroll
-      for (int q = 0; q < kVec; ++q) {
-        const float4 v = col[q];
-        xv[4 * q] = v.x;
-        xv[4 * q + 1] = v.y;
-        xv[4 * q + 2] = v.z;
-        xv[4 * q + 3] = v.w;
+  // the loader's view of its current batch row, refreshed on a new row
+  int ld_r = -1, ld_src = 0, ld_lo = 0, ld_hi = 0;
+  bool ld_ok = true;
+  auto load_tile = [&](int it) {
+    const int r = it / n_tiles;
+    const int tile = it - r * n_tiles;
+    if (r != ld_r) {
+      ld_r = r;
+      const int b = blockIdx.x + r * gridDim.x;
+      ld_src = b;
+      if constexpr (kGather) {
+        ld_src = rows[b];
+        ld_ok = ld_src >= 0 && ld_src < N;
       }
-#pragma unroll
-      for (int w = 0; w < W; ++w) {
-        const float2 kv = *reinterpret_cast<const float2*>(
-            ks + (size_t)(w * E + e) * kFT + kFiltersPerThread * lane);
-#pragma unroll
-        for (int j = 0; j < kRT; ++j) {
-          acc[j][0] = fmaf(xv[j + w], kv.x, acc[j][0]);
-          acc[j][1] = fmaf(xv[j + w], kv.y, acc[j][1]);
-        }
+      ld_lo = skip != nullptr ? skip[2 * b] : 0;
+      ld_hi = skip != nullptr ? ld_lo + skip[2 * b + 1] : 0;
+    }
+    const float* xb = x + (size_t)(ld_ok ? ld_src : 0) * T * E;
+    float* dst = xs + (size_t)(it % kStages) * stage;
+    const int word0 = tile * starts - (W - 1);
+    if (vec16) {
+      const int per_row = e8 / 4;
+      for (int i = tid; i < tile_rows * per_row; i += nthreads) {
+        const int row = i / per_row;
+        const int c = 4 * (i - row * per_row);
+        const int word = word0 + row;
+        const bool ok = ld_ok && word >= 0 && word < T && (word < ld_lo || word >= ld_hi) &&
+                        c < E;
+        cp_async16(dst + row * pitch + c, ok ? xb + (size_t)word * E + c : x, ok ? 16 : 0);
+      }
+    } else {
+      for (int i = tid; i < tile_rows * e8; i += nthreads) {
+        const int row = i / e8;
+        const int c = i - row * e8;
+        const int word = word0 + row;
+        const bool ok = ld_ok && word >= 0 && word < T && (word < ld_lo || word >= ld_hi) &&
+                        c < E;
+        cp_async4(dst + row * pitch + c, ok ? xb + (size_t)word * E + c : x, ok ? 4 : 0);
       }
     }
+  };
 
-    // starts rise with j, so a strict > keeps the first of equal values
 #pragma unroll
-    for (int j = 0; j < kRT; ++j) {
-      const int s = s0 + tr + j;
-      if (s < t_out) {
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < items) load_tile(s);
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 1>();  // this thread's K copies have landed
+  for (int i = tid; i < n_slots; i += nthreads) {
+    uint4 v = kq[i];
+    split_tf32(__uint_as_float(v.x), v.x, v.z);
+    split_tf32(__uint_as_float(v.y), v.y, v.w);
+    kq[i] = v;
+  }
+
+  float best[kMaxNTiles][2];
+  int best_s[kMaxNTiles][2];
 #pragma unroll
-        for (int c = 0; c < kFiltersPerThread; ++c) {
-          const float v = fmaxf(acc[j][c] + bias_c[c], 0.f);
-          if (v > best[c]) {
-            best[c] = v;
-            best_s[c] = s;
+  for (int j = 0; j < kMaxNTiles; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      best[j][c] = -1.f;  // every valid start gives relu(.) >= 0
+      best_s[j][c] = 0;
+    }
+
+  const uint4* kl = kq + lane;
+  for (int it = 0; it < items; ++it) {
+    cp_async_wait<kStages - 2>();  // item it has landed, for this thread
+    __syncthreads();               // for every thread; item it-1's stage is free
+    if (it + kStages - 1 < items) load_tile(it + kStages - 1);
+    cp_async_commit();
+
+    const int r = it / n_tiles;
+    const int tile = it - r * n_tiles;
+    float* xt = xs + (size_t)(it % kStages) * stage;
+
+    float acc[kMaxNTiles][4];
+    tile_mma<W>(acc, xt + (size_t)warp * kStartsPerWarp * pitch, kl, pitch, kcs, nt, g, tq);
+
+    // running max over this thread's two starts g and g + 8, in order
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int s = tile * starts + warp * kStartsPerWarp + g + 8 * half;
+      if (s >= t_out) continue;
+#pragma unroll
+      for (int j = 0; j < kMaxNTiles; ++j) {
+        if (j >= nt) continue;
+        const float2 bj = reinterpret_cast<const float2*>(bs)[4 * j + tq];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float v = fmaxf(acc[j][2 * half + c] + (c ? bj.y : bj.x), 0.f);
+          if (v > best[j][c]) {
+            best[j][c] = v;
+            best_s[j][c] = s;
           }
         }
       }
     }
-  }
 
-  // merge the warps, which hold interleaved slabs of starts
+    if (tile != n_tiles - 1) continue;
+
+    // end of batch row: merge the 8 lanes of each column, then the warps
+    // in this tile's stage, once every warp is done reading it
+    __syncthreads();
+    float* merge_v = xt;  // [warps][nf]
+    int* merge_i = reinterpret_cast<int*>(xt + warps * nf);
 #pragma unroll
-  for (int c = 0; c < kFiltersPerThread; ++c) {
-    merge_v[warp * kFT + kFiltersPerThread * lane + c] = best[c];
-    merge_i[warp * kFT + kFiltersPerThread * lane + c] = best_s[c];
-  }
-  __syncthreads();
-  if (tid < kFT && f0 + tid < F) {
-    float v = merge_v[tid];
-    int s = merge_i[tid];
-    for (int w = 1; w < kWarps; ++w) {
-      const float ov = merge_v[w * kFT + tid];
-      const int os = merge_i[w * kFT + tid];
-      if (ov > v || (ov == v && os < s)) {
-        v = ov;
-        s = os;
+    for (int j = 0; j < kMaxNTiles; ++j) {
+      if (j < nt) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float v = best[j][c];
+          int s = best_s[j][c];
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {
+            const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+            const int os = __shfl_xor_sync(0xffffffffu, s, off);
+            if (ov > v || (ov == v && os < s)) {
+              v = ov;
+              s = os;
+            }
+          }
+          if (g == 0) {
+            merge_v[warp * nf + 8 * j + 2 * tq + c] = v;
+            merge_i[warp * nf + 8 * j + 2 * tq + c] = s;
+          }
+          best[j][c] = -1.f;
+          best_s[j][c] = 0;
+        }
       }
     }
-    out[(size_t)b * F + f0 + tid] = v;
-    idx[(size_t)b * F + f0 + tid] = s;
+    __syncthreads();
+    const int b = blockIdx.x + r * gridDim.x;
+    bool row_ok = true;
+    if constexpr (kGather) row_ok = rows[b] >= 0 && rows[b] < N;
+    for (int col = tid; col < nf; col += nthreads) {
+      const int f = f0 + col;
+      if (f >= F) continue;
+      float v = merge_v[col];
+      int s = merge_i[col];
+      for (int ow = 1; ow < warps; ++ow) {
+        const float ov = merge_v[ow * nf + col];
+        const int os = merge_i[ow * nf + col];
+        if (ov > v || (ov == v && os < s)) {
+          v = ov;
+          s = os;
+        }
+      }
+      out[(size_t)b * F + f] = row_ok ? v : __int_as_float(0x7fc00000);  // NaN
+      idx[(size_t)b * F + f] = row_ok ? s : -1;
+    }
+    // the next copies into this stage follow the next item's barrier
   }
+}
+
+struct Config {
+  int warps, nt, chunks;
+  size_t smem;
+};
+
+// the first of 8, 4, 2, 1 warps, and for it the fewest
+// filter chunks, whose block fits in `max_smem`; nt = 0 if none does
+Config choose(int E, int F, int W, int max_smem) {
+  const int total = (F + 7) / 8;
+  for (int warps = kMaxWarps; warps >= 1; warps /= 2)
+    for (int chunks = 1; chunks <= total; ++chunks) {
+      const int nt = (total + chunks - 1) / chunks;
+      if (nt > kMaxNTiles) continue;
+      const size_t smem = smem_bytes(E, W, nt, warps);
+      if (smem <= (size_t)max_smem) return {warps, nt, (total + nt - 1) / nt, smem};
+    }
+  return {1, 0, 0, smem_bytes(E, W, 1, 1)};
 }
 
 template <int W, bool kGather>
 int launch(const float* x, const int* rows, const float* k, const float* bias,
            const int* skip, float* out, int* idx, int N, int B, int T, int E, int F,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes(E, W);
-  cudaError_t err = cudaFuncSetAttribute(textcnn_pool_fwd_kernel<W, kGather>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0, max_smem = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B, (F + kFT - 1) / kFT);
-  textcnn_pool_fwd_kernel<W, kGather><<<grid, kThreads, smem, stream>>>(
-      x, rows, k, bias, skip, out, idx, N, T, E, F);
+  const Config cfg = choose(E, F, W, max_smem);
+  if (cfg.nt == 0) return (int)cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(textcnn_pool_fwd_kernel<W, kGather>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cfg.smem);
+  if (err != cudaSuccess) return (int)err;
+  // one persistent block per SM and filter chunk: at the serving shape
+  // the block's shared memory and registers fill the SM
+  int blocks = sms / cfg.chunks;
+  blocks = blocks < 1 ? 1 : (blocks > B ? B : blocks);
+  const int vec16 = E % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  textcnn_pool_fwd_kernel<W, kGather><<<dim3(blocks, cfg.chunks), cfg.warps * 32, cfg.smem,
+                                        stream>>>(x, rows, k, bias, skip, out, idx, N, B, T,
+                                                  E, F, cfg.nt, vec16);
   return (int)cudaGetLastError();
 }
 
@@ -252,8 +508,9 @@ int dispatch(const float* x, const int* rows, const float* k, const float* bias,
 
 extern "C" {
 
-// Shared memory one block needs; the caller checks it against the card.
-size_t textcnn_pool_fwd_smem_bytes(int e, int window) { return smem_bytes(e, window); }
+// The least shared memory a block needs at this E and W (one warp, one
+// n8 tile of filters); the caller reports it when a launch is refused.
+size_t textcnn_pool_fwd_smem_bytes(int e, int window) { return smem_bytes(e, window, 1, 1); }
 
 int textcnn_pool_fwd_max_window() { return kMaxWindow; }
 
