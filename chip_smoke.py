@@ -12,9 +12,13 @@
    idx equal, on integer ties and on exact ties of real-valued windows
    too, and at E wide enough for blocks of 4, 2 and 1 warps; backward:
    dK within 1e-4 * max(1, max|dK|), db within 1e-4, dx within 1e-5
-   absolute, all exact on integer inputs), then times kernel, plain
+   absolute, all exact on integer inputs, also at the NARRE tower's
+   shape, B=2560 and T=100, and at E=256 and 512; two dG launches on the
+   same inputs bitwise equal), then times kernel, plain
    version and a PyTorch library call that computes the same function,
-   beside the kernel's bound. For the forward it also prints its 3xTF32
+   beside the kernel's bound (dG also at the NARRE shape, and a launch's
+   time over 100 back-to-back calls, from CUDA events and from the
+   profiler's device time). For the forward it also prints its 3xTF32
    tensor-core bound and the card's `mma.sync` TF32 rate
    (`csrc/mma_sync_rate.cu`), the ceiling of its design.
 3. Serves deepconn and deepconn++ at full width (T=1000, E=64, F=100,
@@ -35,7 +39,12 @@
    the two row-gathered kernels (forward and dG on `table[rows]` of a
    whole [N, T, E] entity table) bitwise against the plain-x kernels on
    `table[rows]` and within the limits of 2 against their plain
-   versions, and times them; trains both heads 8 steps over the entity
+   versions (the cases of 2 and the NARRE shape, a B whose last dG
+   slice is partial; the dG also at E=256 and 512 on the forward
+   kernel's idx; two dG launches bitwise equal; a
+   row outside the table gives NaN and -1 in its forward row and NaN in
+   exactly the dK values its taps touch), and times them; trains both
+   heads 8 steps over the entity
    cache with and without `pallas_fuse_rows` against the JAX trainer's
    in `tests/torch_fixtures/entity_ref.npz` (the two variants bitwise
    equal); trains deepconn 2 epochs through `api.run` on the entity
@@ -78,6 +87,8 @@ E2E_STATE = ROOT / "data" / "e2e_state.json"
 MODELS = ("deepconn", "deepconn++")
 ENTITY = dict(cache_doc_embeds=True, cache_entity=True)
 SERVE_SHAPE = dict(b=256, t=1000, e=64, f=100, w=3)
+# NARRE's towers run the TextCNN over [B*10, 100] words of E=64
+NARRE_SHAPE = dict(b=2560, t=100)
 PHASES = ("kernels", "rows", "serve", "train", "input_grad",
           "entity_vs_jax", "entity_train", "entity_serve")
 # untrained deepconn's test MSE on the e2e corpus (e2e_ref.npz): two
@@ -455,7 +466,13 @@ def check_backward(torch, textcnn) -> dict:
     s = SERVE_SHAPE
     cases = [c + (0.0,) for c in _cases()] + [
         ("g zero on a third", _random_case,
-         (64, 300, s["e"], s["f"], s["w"]), None, 1 / 3)]
+         (64, 300, s["e"], s["f"], s["w"]), None, 1 / 3),
+        # the NARRE tower's docs ([B*10, 100] words), and spans of W*E
+        # floats wider than one pass of a warp's registers
+        ("NARRE B=2560 T=100", _random_case,
+         (2560, 100, s["e"], s["f"], s["w"]), None, 0.0),
+        ("E=256", _random_case, (64, 200, 256, s["f"], s["w"]), None, 0.0),
+        ("E=512", _random_case, (64, 200, 512, s["f"], s["w"]), None, 0.0)]
     worst = {"dg": 0.0, "dx": 0.0}
     for j, (name, make, (b, t, e, f, w), skip, zero) in enumerate(cases):
         x, k, bias = (a.cuda() for a in make(torch, b, t, e, f, w, seed=j))
@@ -482,13 +499,39 @@ def check_backward(torch, textcnn) -> dict:
         print(f"textcnn_pool backward {name}: max|dK err| {dk_err:.3e} "
               f"(limit {dk_tol:.1e}), max|dx err| {dx_err:.3e}, max|db "
               f"err| {db_err:.3e}, gated-off g {int((gated == 0).sum())} "
-              f"of {g.numel()}")
+              f"of {g.numel()}, dG slices of {textcnn.dg_slice_rows(b, f)}"
+              f" rows")
         if not (dk_err <= dk_tol and dx_err <= dx_tol and db_err <= db_tol):
             raise AssertionError(f"backward kernels disagree with the plain "
                                  f"version ({name})")
         worst["dg"] = max(worst["dg"], dk_err)
         worst["dx"] = max(worst["dx"], dx_err)
+        if j == 0:
+            _check_deterministic(torch, textcnn.BWD_DG, lambda: textcnn
+                                 .textcnn_pool_bwd_dg(x, gated, idx, w))
+            # x 4 bytes off 16-byte alignment: single-float loads
+            xu = torch.empty(x.numel() + 1, device="cuda")[1:].view_as(x)
+            xu.copy_(x)
+            same = torch.equal(textcnn.textcnn_pool_bwd_dg(xu, gated, idx, w),
+                               kr.grad)
+            print(f"{textcnn.BWD_DG}: single-float loads (x off 16-byte "
+                  f"alignment) bitwise the 16-byte loads: {same}")
+            if not same:
+                raise AssertionError("the dG's load width changes its sums")
     return worst
+
+
+def _check_deterministic(torch, name: str, fn) -> None:
+    """Two launches of a dG wrapper on the same inputs, with other work
+    on the card between them, must give the same bits."""
+    first = fn()
+    torch.randn(64 << 20, device="cuda").sum()   # stir the caches
+    second = fn()
+    torch.cuda.synchronize()
+    same = torch.equal(first, second)
+    print(f"{name}: two launches on the same inputs bitwise equal: {same}")
+    if not same:
+        raise AssertionError(f"{name} is not deterministic")
 
 
 def _bound(flops: float, nbytes: float) -> dict:
@@ -533,24 +576,17 @@ def time_backward(torch, textcnn) -> dict:
         raise AssertionError("the library yardstick computes another "
                              "backward")
 
-    # the work this run's data needs: FMAs of the non-zero g, and the
-    # distinct doc rows that the winning windows of those g cover
     nz = g != 0
-    pos = idx.long()[:, :, None] + torch.arange(w, device="cuda")
-    rows_b = torch.arange(b, device="cuda")[:, None, None].expand_as(pos)
-    sel = nz[:, :, None].expand_as(pos)
-    covered = torch.zeros(b, t + 2 * halo, dtype=torch.bool, device="cuda")
-    covered[rows_b[sel], pos[sel]] = True
-    rows = int(covered[:, halo:halo + t].sum())
     flops = 2.0 * int(nz.sum()) * w * e
     small = 4.0 * (2 * b * f + w * e * f)        # g, idx, K or dK
+    dg = lambda: textcnn.textcnn_pool_bwd_dg(x, g, idx, w)   # noqa: E731
     res = {
-        "dg": dict(_bound(flops, 4.0 * rows * e + small), rows=rows,
-                   ms=_median_ms(torch, lambda: textcnn.textcnn_pool_bwd_dg(
-                       x, g, idx, w)),
+        "dg": dict(_dg_bound(torch, g, idx, t, e, w),
+                   ms=_median_ms(torch, dg),
                    plain_ms=_median_ms(torch, lambda: textcnn._dg_reference(
                        x, g, idx, w, None)),
-                   library_ms=_median_ms(torch, lib_dg)),
+                   library_ms=_median_ms(torch, lib_dg),
+                   **_per_launch(torch, dg)),
         "dx": dict(_bound(flops, 4.0 * b * t * e + small),
                    ms=_median_ms(torch, lambda: textcnn.textcnn_pool_bwd_dx(
                        g, idx, k, t, w)),
@@ -559,7 +595,67 @@ def time_backward(torch, textcnn) -> dict:
                    library_ms=_median_ms(torch, lib_dx)),
     }
     res["gated_off"] = int((~nz).sum())
+
+    # the NARRE tower's shape: [B*10, 100] words, random weights
+    b, t = NARRE_SHAPE["b"], NARRE_SHAPE["t"]
+    x, k, bias = (a.cuda() for a in _random_case(torch, b, t, e, f, w, 1))
+    out, idx = textcnn.textcnn_pool_forward(x, k, bias, w)
+    g = torch.randn(b, f, generator=torch.Generator().manual_seed(8)).cuda()
+    g = torch.where(out > 0, g, 0.0)
+    dg = lambda: textcnn.textcnn_pool_bwd_dg(x, g, idx, w)   # noqa: E731
+    res["dg_narre"] = dict(
+        _dg_bound(torch, g, idx, t, e, w),
+        ms=_median_ms(torch, dg), **_per_launch(torch, dg))
     return res
+
+
+def _dg_bound(torch, g, idx, t: int, e: int, w: int, rows=None,
+              n: int = 0) -> dict:
+    """`_bound` of a dG call from the work this run's data needs: the
+    FMAs of the non-zero g, and the distinct (source row, doc position)
+    pairs that the winning windows of those g cover, E floats each,
+    besides g, idx, dK and, in the rows form (`rows` [B] into a table of
+    n rows), the row ids."""
+    b, f = g.shape
+    halo = w - 1
+    nz = g != 0
+    pos = idx.long()[:, :, None] + torch.arange(w, device="cuda")
+    src = (torch.arange(b, device="cuda") if rows is None
+           else rows.long())[:, None, None].expand_as(pos)
+    sel = nz[:, :, None].expand_as(pos)
+    covered = torch.zeros(b if rows is None else n, t + 2 * halo,
+                          dtype=torch.bool, device="cuda")
+    covered[src[sel], pos[sel]] = True
+    cells = int(covered[:, halo:halo + t].sum())
+    small = 4.0 * (2 * b * f + w * e * f + (0 if rows is None else b))
+    return dict(_bound(2.0 * int(nz.sum()) * w * e, 4.0 * cells * e + small),
+                cells=cells)
+
+
+def _per_launch(torch, fn, n: int = 100) -> dict:
+    """ms a launch of `fn` over n back-to-back calls, from CUDA events
+    (`launch_ms`: the host's launch rate where it is the slower), and
+    the device time a launch of the kernels it runs, from the profiler
+    over n more calls (`device_ms`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    z = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    z.record()
+    z.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows, _ = _device_rows(torch, prof)
+    return {"launch_ms": a.elapsed_time(z) / n,
+            "device_ms": sum(r[0] for r in rows) / 1e3 / n}
 
 
 # ---------------------------------------------------------------------
@@ -570,7 +666,8 @@ def _rows_cases():
     `check_rows`: the entity training shape (N = the e2e users), a B
     that is no tile multiple, skip spans of length 0, over the whole doc
     and past T, forced integer ties, another E and W, exact ties of
-    real-valued windows."""
+    real-valued windows, the NARRE tower's docs and a B whose last dG
+    slice is partial."""
     s = SERVE_SHAPE
     t, e, f, w = s["t"], s["e"], s["f"], s["w"]
     return [
@@ -582,6 +679,10 @@ def _rows_cases():
         ("forced ties", _tie_case, 32, (8, 300, e, f, w), None),
         ("E=32 W=5", _random_case, 60, (16, 200, 32, f, 5), None),
         ("real-valued ties", _real_tie_case, 32, (8, 300, e, f, w), None),
+        ("NARRE N=2560 B=2560 T=100", _random_case, 2560,
+         (2560, 100, e, f, w), None),
+        ("B=333 partial last slice", _random_case, 400, (333, t, e, f, w),
+         None),
     ]
 
 
@@ -645,18 +746,27 @@ def check_rows(torch, textcnn) -> dict:
         db_err = (grads[0][1] - gated.sum(0)).abs().max().item()
         dk_tol = 0.0 if exact else 1e-4 * max(1.0, dk_ref.abs().max().item())
         db_tol = 0.0 if exact else 1e-4
+        per_slice = textcnn.dg_slice_rows(b, f)
         print(f"rows kernels {name}: bitwise the plain-x kernels on "
               f"table[rows]: {bitwise}; vs plain: max|out err| "
               f"{out_err:.3e}, idx mismatches {bad_idx}, max|dK err| "
               f"{dk_err:.3e} (limit {dk_tol:.1e}), max|db err| "
               f"{db_err:.3e}; {len(set(rows.tolist()))} distinct of {b} "
-              f"rows")
+              f"rows; dG slices of {per_slice} rows")
         if not (bitwise and out_err <= (0.0 if exact else 1e-4)
                 and not bad_idx and dk_err <= dk_tol and db_err <= db_tol):
             raise AssertionError(f"the rows kernels disagree ({name})")
+        if "partial last slice" in name and not (b > per_slice
+                                                 and b % per_slice):
+            raise AssertionError(f"{name}: B={b} fills its slices of "
+                                 f"{per_slice} rows")
         worst["fwd"] = max(worst["fwd"], out_err)
         worst["dg"] = max(worst["dg"], dk_err)
         if j == 0:
+            _check_deterministic(torch, textcnn.BWD_DG_ROWS, lambda: textcnn
+                                 .textcnn_pool_bwd_dg_rows(table, rows,
+                                                           gated, idx_r, w))
+            _check_bad_rows_dg(torch, textcnn, table, rows, gated, idx_r, w)
             bad = rows.clone()
             bad[2], bad[3] = -1, n
             out_b, idx_b = textcnn.textcnn_pool_fwd_rows(table, bad, k, bias,
@@ -672,7 +782,79 @@ def check_rows(torch, textcnn) -> dict:
             if not ok:
                 raise AssertionError("a row outside the table is not "
                                      "flagged")
+    worst["dg"] = max(worst["dg"], _check_rows_dg_wide(torch, textcnn))
     return worst
+
+
+def _check_rows_dg_wide(torch, textcnn) -> float:
+    """The rows dG at E=256 and 512, spans of W*E floats that take a
+    warp several passes: bitwise the plain-x dG on table[rows], and
+    within 1e-4 * max(1, max|dK|) of the plain dG, all on the forward
+    kernel's own idx. The forward's idx is not held here: on these
+    random inputs at E=256 the kernel and the f32 plain forward pick
+    different starts of near-ties; the line prints how many differ, and
+    how many each differs from a float64 forward. Returns the largest
+    dK error."""
+    s = SERVE_SHAPE
+    f, w, n, b, t = s["f"], s["w"], 50, 64, 200
+    worst = 0.0
+    for j, e in enumerate((256, 512)):
+        table, k, bias = (a.cuda() for a in _random_case(
+            torch, n, t, e, f, w, seed=58 + j))
+        rows = _rows_for(torch, n, b, seed=8 + j)
+        x = table[rows.long()].contiguous()
+        out, idx = textcnn.textcnn_pool_fwd_rows(table, rows, k, bias, w)
+        g = torch.randn(b, f, generator=torch.Generator().manual_seed(208 + j))
+        gated = torch.where(out > 0, g.cuda(), 0.0)
+        dk_r = textcnn.textcnn_pool_bwd_dg_rows(table, rows, gated, idx, w)
+        dk_x = textcnn.textcnn_pool_bwd_dg(x, gated, idx, w)
+        dk_ref = textcnn._dg_reference(x, gated, idx, w, None)
+        _, idx32 = textcnn.textcnn_pool_reference(x, k, bias, w)
+        _, idx64 = textcnn.textcnn_pool_reference(x.double(), k.double(),
+                                                  bias.double(), w)
+        torch.cuda.synchronize()
+        err = (dk_r - dk_ref).abs().max().item()
+        tol = 1e-4 * max(1.0, dk_ref.abs().max().item())
+        same = torch.equal(dk_r, dk_x)
+        print(f"{textcnn.BWD_DG_ROWS} E={e} N={n} B={b} T={t}: bitwise the "
+              f"plain-x dG on table[rows]: {same}; max|dK err| {err:.3e} "
+              f"(limit {tol:.1e}); dG slices of "
+              f"{textcnn.dg_slice_rows(b, f)} rows; forward idx: kernel vs "
+              f"f32 plain {int((idx != idx32).sum())}, vs float64 "
+              f"{int((idx != idx64).sum())}, f32 plain vs float64 "
+              f"{int((idx32 != idx64).sum())} of {idx.numel()}")
+        if not (same and err <= tol):
+            raise AssertionError(f"the rows dG disagrees at E={e}")
+        worst = max(worst, err)
+    return worst
+
+
+def _check_bad_rows_dg(torch, textcnn, table, rows, gated, idx, w) -> None:
+    """Rows -1 and N in batch rows 2 and 3: NaN in exactly the dK values
+    that their in-doc taps of a non-zero g touch, and elsewhere the bits
+    of the same launch with those two rows' g set to 0."""
+    n, t, e = table.shape
+    bad = rows.clone()
+    bad[2], bad[3] = -1, n
+    dk_bad = textcnn.textcnn_pool_bwd_dg_rows(table, bad, gated, idx, w)
+    quiet = gated.clone()
+    quiet[2:4] = 0.0
+    dk_quiet = textcnn.textcnn_pool_bwd_dg_rows(table, rows, quiet, idx, w)
+    # [W, F]: some tap of a bad row's non-zero g lies in the doc
+    pos = (idx[2:4].long()[:, None, :] - (w - 1)
+           + torch.arange(w, device="cuda")[None, :, None])
+    hit = ((gated[2:4] != 0)[:, None, :] & (pos >= 0) & (pos < t)).any(0)
+    want = hit[:, None, :].expand(w, e, -1).reshape(w * e, -1)
+    torch.cuda.synchronize()
+    nan = torch.isnan(dk_bad)
+    ok = (torch.equal(nan, want) and bool(want.any())
+          and torch.equal(dk_bad[~want], dk_quiet[~want]))
+    print(f"{textcnn.BWD_DG_ROWS}, rows -1 and N: NaN in the {int(want.sum())}"
+          f" dK values their taps touch and nowhere else, the rest the "
+          f"bits of those rows' g at 0: {ok}")
+    if not ok:
+        raise AssertionError("a row outside the table does not give NaN in "
+                             "exactly its dK values")
 
 
 def time_rows(torch, textcnn) -> dict:
@@ -728,15 +910,9 @@ def time_rows(torch, textcnn) -> dict:
     flops = 2.0 * b * (t + halo) * w * e * f
     fwd_bytes = 4.0 * (distinct * t * e + w * e * f + f + b) + 8.0 * b * f
     nz = g != 0
-    pos = idx.long()[:, :, None] + torch.arange(w, device="cuda")
-    src = rows_l[:, None, None].expand_as(pos)
-    sel = nz[:, :, None].expand_as(pos)
-    covered = torch.zeros(n, t + 2 * halo, dtype=torch.bool, device="cuda")
-    covered[src[sel], pos[sel]] = True
-    cells = int(covered[:, halo:halo + t].sum())
-    dg_flops = 2.0 * int(nz.sum()) * w * e
-    dg_bytes = 4.0 * cells * e + 4.0 * (2 * b * f + w * e * f + b)
     gather = lambda: table.index_select(0, rows_l)       # noqa: E731
+    dg = lambda: textcnn.textcnn_pool_bwd_dg_rows(       # noqa: E731
+        table, rows, g, idx, w)
     res = {
         "fwd": dict(
             _bound(flops, fwd_bytes),
@@ -750,18 +926,32 @@ def time_rows(torch, textcnn) -> dict:
                 gather(), k, bias, w)),
             library_ms=_median_ms(torch, lib_fwd)),
         "dg": dict(
-            _bound(dg_flops, dg_bytes), cells=cells,
-            ms=_median_ms(torch, lambda: textcnn.textcnn_pool_bwd_dg_rows(
-                table, rows, g, idx, w)),
+            _dg_bound(torch, g, idx, t, e, w, rows, n),
+            ms=_median_ms(torch, dg),
             plain_ms=_median_ms(torch, lambda: textcnn._dg_reference(
                 textcnn.take_rows(table, rows), g, idx, w, None)),
             take_ms=_median_ms(torch, lambda: textcnn.textcnn_pool_bwd_dg(
                 gather(), g, idx, w)),
-            library_ms=_median_ms(torch, lib_dg)),
+            library_ms=_median_ms(torch, lib_dg), **_per_launch(torch, dg)),
         "gather_ms": _median_ms(torch, gather),
         # the [B, T, E] copy the rows kernels do without: read and written
         "gather_bound_ms": 1e3 * 8.0 * b * t * e / PEAK_BYTES_S,
         "distinct": distinct, "gated_off": int((~nz).sum())}
+
+    # the NARRE tower's shape over a table of as many rows as the batch
+    n = b = NARRE_SHAPE["b"]
+    t = NARRE_SHAPE["t"]
+    table = torch.randn(n, t, e, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(1))
+    rows = torch.randint(0, n, (b,), generator=torch.Generator()
+                         .manual_seed(12)).to(torch.int32).cuda()
+    out, idx = textcnn.textcnn_pool_fwd_rows(table, rows, k, bias, w)
+    g = torch.randn(b, f, generator=torch.Generator().manual_seed(8)).cuda()
+    g = torch.where(out > 0, g, 0.0)
+    dg = lambda: textcnn.textcnn_pool_bwd_dg_rows(       # noqa: E731
+        table, rows, g, idx, w)
+    res["dg_narre"] = dict(_dg_bound(torch, g, idx, t, e, w, rows, n),
+                           ms=_median_ms(torch, dg), **_per_launch(torch, dg))
     return res
 
 
@@ -1476,9 +1666,17 @@ def _print_build(_build) -> None:
     seconds = _build.build(_build.sources())
     print(f"build: {time.perf_counter() - t0:.2f} s wall; per source "
           + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
+    import re
+
     for name in _build.sources():
-        print(f"  {name}: " + _build.library_path(name).with_suffix(".log")
-              .read_text().strip().splitlines()[-1].strip())
+        log = _build.library_path(name).with_suffix(".log").read_text()
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(r) for r in re.findall(r"(\d+) bytes spill stores",
+                                             log)]
+        print(f"  {name}: {len(regs)} kernel functions, registers "
+              f"{min(regs, default=0)}-{max(regs, default=0)}, spill stores "
+              f"{min(spills, default=0)}-{max(spills, default=0)} bytes; "
+              + log.strip().splitlines()[-1].strip())
 
 
 def count_hmma(_build) -> None:
@@ -1539,12 +1737,31 @@ def _print_kernel_times(textcnn, fwd, bwd) -> None:
     for key, name in (("dg", textcnn.BWD_DG), ("dx", textcnn.BWD_DX)):
         r = bwd[key]
         print(f"{name} at B=256 T=1000 E=64 F=100 W=3 f32 ({bwd['gated_off']}"
-              f" of 25600 g gated off): kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, autograd of conv1d+relu+max "
-              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}; {r['mflop']:.2f} MFLOP, "
-              f"{r['mbytes']:.2f} MB" + (f", {r['rows']} distinct doc rows"
-                                         if "rows" in r else "") + ")")
+              f" of 25600 g gated off): kernel {r['ms']:.4f} ms"
+              + _launch_text(r) + f", plain {r['plain_ms']:.4f} ms, autograd "
+              f"of conv1d+relu+max {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {r['mflop']:.2f} "
+              f"MFLOP, {r['mbytes']:.2f} MB" + (f", {r['cells']} distinct doc "
+                                               f"rows" if "cells" in r
+                                               else "") + ")")
+    _print_narre_dg(textcnn.BWD_DG, bwd["dg_narre"], "doc rows")
+
+
+def _launch_text(r) -> str:
+    """The single-call median's companions on a dG timing line."""
+    if "launch_ms" not in r:
+        return ""
+    return (f" a single call (median), {r['launch_ms']:.4f} ms a launch over "
+            f"100 back-to-back, {r['device_ms']:.4f} ms of device time a "
+            f"launch (profiler)")
+
+
+def _print_narre_dg(name, r, what) -> None:
+    print(f"{name} at NARRE B={NARRE_SHAPE['b']} T={NARRE_SHAPE['t']} E=64 "
+          f"F=100 W=3 f32: kernel {r['ms']:.4f} ms" + _launch_text(r)
+          + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+          f"{r['mflop']:.2f} MFLOP, {r['mbytes']:.2f} MB, {r['cells']} "
+          f"distinct {what})")
 
 
 def _print_rows_times(textcnn, rows) -> None:
@@ -1558,7 +1775,8 @@ def _print_rows_times(textcnn, rows) -> None:
                            ("dg", textcnn.BWD_DG_ROWS,
                             "autograd of index_select+conv1d+relu+max")):
         r = rows[key]
-        print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+        print(f"{name}: kernel {r['ms']:.4f} ms" + _launch_text(r)
+              + f", plain {r['plain_ms']:.4f} "
               f"ms, plain-x kernel on the gather {r['take_ms']:.4f} ms, {lib}"
               f" {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}; {r['mflop']:.2f} MFLOP, "
@@ -1567,6 +1785,8 @@ def _print_rows_times(textcnn, rows) -> None:
                                          else "") + ")"
               + (f", 3xTF32 tensor-core bound {r['bound_tc_ms']:.4f} ms"
                  if "bound_tc_ms" in r else ""))
+    _print_narre_dg(textcnn.BWD_DG_ROWS, rows["dg_narre"],
+                    f"table positions of {NARRE_SHAPE['b']} rows")
 
 
 def main(argv=None) -> None:

@@ -42,6 +42,7 @@ inside the skip span.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -57,11 +58,15 @@ KERNELS = (FWD, BWD_DG, BWD_DX, FWD_ROWS, BWD_DG_ROWS)
 SOURCE = {FWD: FWD, BWD_DG: BWD_DG, BWD_DX: BWD_DX, FWD_ROWS: FWD,
           BWD_DG_ROWS: BWD_DG}
 # (pointer, int) argument counts of each `<name>_f32`, before its stream
-_ARGS = {FWD: (6, 5), BWD_DG: (5, 5), BWD_DX: (5, 5), FWD_ROWS: (7, 6),
-         BWD_DG_ROWS: (6, 6)}
+_ARGS = {FWD: (6, 5), BWD_DG: (7, 5), BWD_DX: (5, 5), FWD_ROWS: (7, 6),
+         BWD_DG_ROWS: (8, 6)}
 
 # kernel launches since the counts were last set to 0
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
+# the dG kernel's workspace by (device, stream): f32 sums of the batch
+# slices and int32 per-filter counters, zeroed once, which every launch
+# leaves 0 again; launches on one stream run in turn, so they share it
+_dg_workspaces: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _span_mask(skip: torch.Tensor, t: int) -> torch.Tensor:
@@ -192,6 +197,9 @@ def _library(name: str) -> ctypes.CDLL:
         if src == FWD:
             lib.textcnn_pool_fwd_max_window.argtypes = []
             lib.textcnn_pool_fwd_max_window.restype = i
+        if src == BWD_DG:
+            lib.textcnn_pool_bwd_dg_slice_rows.argtypes = [i, i]
+            lib.textcnn_pool_bwd_dg_slice_rows.restype = i
         lib._typed = typed | {name}
     return lib
 
@@ -219,6 +227,34 @@ def _launch(name: str, ref: torch.Tensor, pointers,
 
 def _ptr(ten: Optional[torch.Tensor]):
     return ten.data_ptr() if ten is not None else None
+
+
+@functools.lru_cache(maxsize=256)
+def dg_slice_rows(b: int, f: int) -> int:
+    """Batch rows per slice of the dG kernel at B rows and F filters: a
+    block per filter and slice, the slices' sums added in slice order."""
+    return _library(BWD_DG).textcnn_pool_bwd_dg_slice_rows(b, f)
+
+
+def _dg_workspace(ref: torch.Tensor, b: int, f: int, span: int
+                  ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """(partial, counter) of a dG launch on the current stream: room for
+    f32 [slices, F, W*E] slice sums and int32 [F] counters, or (None,
+    None) when one slice covers the batch."""
+    rows = dg_slice_rows(b, f)
+    slices = -(-b // rows) if rows > 0 else 1
+    if slices == 1:
+        return None, None
+    dev = ref.device
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    partial, counter = _dg_workspaces.get(key, (None, None))
+    if partial is None or partial.numel() < slices * f * span:
+        partial = torch.empty(slices * f * span, dtype=torch.float32,
+                              device=dev)
+    if counter is None or counter.numel() < f:
+        counter = torch.zeros(f, dtype=torch.int32, device=dev)
+    _dg_workspaces[key] = partial, counter
+    return partial, counter
 
 
 def _check_cuda(what: str, tensors, dtypes) -> None:
@@ -320,8 +356,10 @@ def textcnn_pool_bwd_dg(x: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
     b, t, e = x.shape
     f = g.shape[1]
     dk = torch.empty((window * e, f), dtype=torch.float32, device=x.device)
+    partial, counter = _dg_workspace(x, b, f, window * e)
     _launch(BWD_DG, x, (x.data_ptr(), g.data_ptr(), idx.data_ptr(),
-                        _ptr(skip), dk.data_ptr()),
+                        _ptr(skip), dk.data_ptr(), _ptr(partial),
+                        _ptr(counter)),
             dict(B=b, T=t, E=e, F=f, W=window))
     return dk
 
@@ -399,9 +437,11 @@ def textcnn_pool_bwd_dg_rows(table: torch.Tensor, rows: torch.Tensor,
     n, t, e = table.shape
     b, f = g.shape
     dk = torch.empty((window * e, f), dtype=torch.float32, device=g.device)
+    partial, counter = _dg_workspace(table, b, f, window * e)
     _launch(BWD_DG_ROWS, table, (table.data_ptr(), rows.data_ptr(),
                                  g.data_ptr(), idx.data_ptr(), _ptr(skip),
-                                 dk.data_ptr()),
+                                 dk.data_ptr(), _ptr(partial),
+                                 _ptr(counter)),
             dict(N=n, B=b, T=t, E=e, F=f, W=window))
     return dk
 

@@ -86,10 +86,13 @@ def _close(got, want, exact=False, atol=1e-4, what=""):
 
 
 @pytest.mark.parametrize("need_dx", [True, False])
-@pytest.mark.parametrize("shape", [(4, 130, 3), (37, 40, 3), (3, 100, 2)])
+@pytest.mark.parametrize("shape", [(4, 130, 3), (37, 40, 3), (3, 100, 2),
+                                   (40, 100, 3)])
 def test_paired_backward_matches_jax(shape, need_dx):
     """E=64, W<=3: JAX runs `_backward_paired` (need_dx) or
-    `_dg_only_from_xp` (not), both Pallas kernels in interpret mode."""
+    `_dg_only_from_xp` (not), both Pallas kernels in interpret mode. The
+    last shape is the NARRE tower's docs ([B*10, 100] words) scaled
+    down."""
     b, t, w = shape
     x, k, bias, g = _inputs(b, t, 64, 100, w, seed=b + t)
     dx, dk, db = _port_grads(x, k, bias, g, w, need_dx=need_dx)
@@ -104,10 +107,11 @@ def test_paired_backward_matches_jax(shape, need_dx):
 
 
 @pytest.mark.parametrize("shape", [(3, 90, 32, 5), (5, 57, 16, 3),
-                                   (2, 33, 5, 8)])
+                                   (2, 33, 5, 8), (3, 40, 256, 3)])
 def test_generic_backward_matches_jax(shape):
     """E != 64 or W > 3: JAX runs `_kernel` and the XLA gather/scatter
-    backward (`textcnn_pallas.py:702-718`)."""
+    backward (`textcnn_pallas.py:702-718`). E=256 spans several passes of
+    the dG kernel's warp."""
     b, t, e, w = shape
     x, k, bias, g = _inputs(b, t, e, 24, w, seed=t)
     dx, dk, db = _port_grads(x, k, bias, g, w)

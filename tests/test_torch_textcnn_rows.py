@@ -36,19 +36,31 @@ ROWS = np.asarray([3, 0, 10, 7, 3], np.int32)
 SPANS = np.asarray([[0, 0], [3, 7], [0, 70], [65, 20], [10, 1]], np.int32)
 
 
-def _inputs(seed=3):
+# (N, rows, T, E, F, skip) of test_rows_op_matches_jax: the module's
+# geometry, and the NARRE tower's docs scaled down (40 rows of 100 words,
+# as [B*10, 100]). JAX's rows op takes E=64 only (`paired_operand`); wide
+# E is held against JAX by test_torch_textcnn_grad.py
+ROWS_CASES = {
+    "no-skip": (N, ROWS, T, E, F, None),
+    "skip": (N, ROWS, T, E, F, SPANS),
+    "narre": (48, (np.arange(40, dtype=np.int32) * 7) % 48, 100, 64, 9,
+              None),
+}
+
+
+def _inputs(seed=3, n=N, b=B, t=T, e=E, f=F):
     rng = np.random.default_rng(seed)
-    docs = rng.normal(size=(N, T, E)).astype(np.float32)
-    kern = rng.normal(size=(W * E, F)).astype(np.float32)
-    bias = rng.normal(size=(F,)).astype(np.float32)
-    g = rng.normal(size=(B, F)).astype(np.float32)
+    docs = rng.normal(size=(n, t, e)).astype(np.float32)
+    kern = rng.normal(size=(W * e, f)).astype(np.float32)
+    bias = rng.normal(size=(f,)).astype(np.float32)
+    g = rng.normal(size=(b, f)).astype(np.float32)
     return docs, kern, bias, g
 
 
-def _port(docs, kern, bias, g, skip, op="rows"):
+def _port(docs, kern, bias, g, skip, op="rows", rows=ROWS):
     """(out, idx, dK, db) of the port's op on the CPU, cotangent g."""
     table = torch.from_numpy(docs)
-    rows = torch.from_numpy(ROWS)
+    rows = torch.from_numpy(rows)
     k = torch.from_numpy(kern).requires_grad_()
     b = torch.from_numpy(bias).requires_grad_()
     sk = None if skip is None else torch.from_numpy(skip)
@@ -60,21 +72,22 @@ def _port(docs, kern, bias, g, skip, op="rows"):
     return out.detach(), idx, k.grad, b.grad
 
 
-@pytest.mark.parametrize("skip", [None, SPANS], ids=["no-skip", "skip"])
-def test_rows_op_matches_jax(skip):
-    docs, kern, bias, g = _inputs()
+@pytest.mark.parametrize("case", list(ROWS_CASES))
+def test_rows_op_matches_jax(case):
+    n, rows_np, t, e, f, skip = ROWS_CASES[case]
+    docs, kern, bias, g = _inputs(n=n, b=len(rows_np), t=t, e=e, f=f)
     table = paired_operand(jnp.asarray(docs), W, jnp.float32)
-    rows = jnp.asarray(ROWS)
+    rows = jnp.asarray(rows_np)
     sk = None if skip is None else jnp.asarray(skip)
     want_out, want_idx = _forward_rows(table, rows, jnp.asarray(kern),
-                                       jnp.asarray(bias), T, W, True,
+                                       jnp.asarray(bias), t, W, True,
                                        jnp.float32, sk)
-    _, vjp = jax.vjp(lambda k, b: jax_pool_rows(table, rows, k, b, T, W, True,
+    _, vjp = jax.vjp(lambda k, b: jax_pool_rows(table, rows, k, b, t, W, True,
                                                 jnp.float32, sk),
                      jnp.asarray(kern), jnp.asarray(bias))
     want_dk, want_db = (np.asarray(a) for a in vjp(jnp.asarray(g)))
 
-    out, idx, dk, db = _port(docs, kern, bias, g, skip)
+    out, idx, dk, db = _port(docs, kern, bias, g, skip, rows=rows_np)
     np.testing.assert_allclose(out.numpy(), np.asarray(want_out), atol=1e-5,
                                rtol=0)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
