@@ -13,14 +13,15 @@
    too, and at E wide enough for blocks of 4, 2 and 1 warps; backward:
    dK within 1e-4 * max(1, max|dK|), db within 1e-4, dx within 1e-5
    absolute, all exact on integer inputs, also at the NARRE tower's
-   shape, B=2560 and T=100, and at E=256 and 512; two dG launches on the
-   same inputs bitwise equal), then times kernel, plain
-   version and a PyTorch library call that computes the same function,
-   beside the kernel's bound (dG also at the NARRE shape, and a launch's
-   time over 100 back-to-back calls, from CUDA events and from the
-   profiler's device time). For the forward it also prints its 3xTF32
-   tensor-core bound and the card's `mma.sync` TF32 rate
-   (`csrc/mma_sync_rate.cu`), the ceiling of its design.
+   shape, B=2560 and T=100, at E=256, 512 and 255, at E=5 and with a
+   skip span inside winning windows; two dG and two dx launches on the
+   same inputs bitwise equal; each case's dx digest printed), then times
+   kernel, plain version and a PyTorch library call that computes the
+   same function, beside the kernel's bound (dG and dx also at the NARRE
+   shape, and a launch's time over 100 back-to-back calls, from CUDA
+   events and from the profiler's device time). For the forward it also
+   prints its 3xTF32 tensor-core bound and the card's `mma.sync` TF32
+   rate (`csrc/mma_sync_rate.cu`), the ceiling of its design.
 3. Serves deepconn and deepconn++ at full width (T=1000, E=64, F=100,
    batch 256) on the committed e2e corpus with the JAX package's
    weights from `tests/torch_fixtures/e2e_ref.npz`: `predict`,
@@ -60,11 +61,14 @@ training through `api.run` and entity serving, 7) and read just after.
 Without CUDA or the checkout around it, the script exits with an error
 and prints no result.
 
-    python3 chip_smoke.py --e2e-full
+    python3 chip_smoke.py --e2e-full [--seeds N]
 
 is opt-in: it trains deepconn and deepconn++ with the reference's own
 flags (60 epochs, early stop 5, the entity cache) and prints their test
-metrics beside the JAX package's rows in `data/e2e_state.json`.
+metrics beside the JAX package's rows in `data/e2e_state.json`. With
+N > 1 each head runs over seeds 0..N-1 from the port's own init and once
+from the JAX trainer's own initial params
+(`tests/torch_fixtures/e2e_init.npz`), and the script prints the spread.
 `--only PHASE,...` runs only the named phases (see `PHASES`) and
 prints no result line.
 """
@@ -72,6 +76,7 @@ prints no result line.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -83,6 +88,8 @@ CORPUS_DIR = ROOT / "data" / "e2e" / "5_core"
 FIXTURE = ROOT / "tests" / "torch_fixtures" / "e2e_ref.npz"
 TRAIN_FIXTURE = ROOT / "tests" / "torch_fixtures" / "train_ref.npz"
 ENTITY_FIXTURE = ROOT / "tests" / "torch_fixtures" / "entity_ref.npz"
+# the JAX trainer's own initial params of its --e2e-full runs
+INIT_FIXTURE = ROOT / "tests" / "torch_fixtures" / "e2e_init.npz"
 E2E_STATE = ROOT / "data" / "e2e_state.json"
 MODELS = ("deepconn", "deepconn++")
 ENTITY = dict(cache_doc_embeds=True, cache_entity=True)
@@ -174,6 +181,7 @@ def _cases():
         # tiling edges: one word and one filter; odd E, a third filter
         # tile holding one filter, the widest window
         ("T=1 F=1", _random_case, (3, 1, s["e"], 1, s["w"]), None),
+        # E % 4 != 0: the dx kernel's single-float path
         ("E=5 F=129 W=8", _random_case, (7, 130, 5, 129, 8), None),
     ]
 
@@ -468,11 +476,17 @@ def check_backward(torch, textcnn) -> dict:
         ("g zero on a third", _random_case,
          (64, 300, s["e"], s["f"], s["w"]), None, 1 / 3),
         # the NARRE tower's docs ([B*10, 100] words), and spans of W*E
-        # floats wider than one pass of a warp's registers
+        # floats wider than one pass of a warp's registers; past E=64 the
+        # dx kernel reads K from global memory, at E=255 one float at a
+        # time
         ("NARRE B=2560 T=100", _random_case,
          (2560, 100, s["e"], s["f"], s["w"]), None, 0.0),
         ("E=256", _random_case, (64, 200, 256, s["f"], s["w"]), None, 0.0),
-        ("E=512", _random_case, (64, 200, 512, s["f"], s["w"]), None, 0.0)]
+        ("E=512", _random_case, (64, 200, 512, s["f"], s["w"]), None, 0.0),
+        ("E=255", _random_case, (16, 200, 255, s["f"], s["w"]), None, 0.0),
+        # a one-word span inside a winning window of each row
+        ("skip spans over winners", _random_case,
+         (32, 600, s["e"], s["f"], s["w"]), "winners", 0.0)]
     worst = {"dg": 0.0, "dx": 0.0}
     for j, (name, make, (b, t, e, f, w), skip, zero) in enumerate(cases):
         x, k, bias = (a.cuda() for a in make(torch, b, t, e, f, w, seed=j))
@@ -482,8 +496,11 @@ def check_backward(torch, textcnn) -> dict:
              else torch.randn(b, f, generator=gen))
         g[torch.rand(b, f, generator=gen) < zero] = 0.0
         g = g.cuda()
-        sk = (torch.tensor(skip, dtype=torch.int32, device="cuda")
-              if skip is not None else None)
+        if skip == "winners":
+            sk = _spans_over_winners(torch, textcnn, x, k, bias, w)
+        else:
+            sk = (torch.tensor(skip, dtype=torch.int32, device="cuda")
+                  if skip is not None else None)
         xr, kr, br = (a.clone().requires_grad_() for a in (x, k, bias))
         out, idx = textcnn.textcnn_pool(xr, kr, br, w, sk)
         out.backward(g)
@@ -496,19 +513,25 @@ def check_backward(torch, textcnn) -> dict:
         db_err = (br.grad - db).abs().max().item()
         dk_tol = 0.0 if exact else 1e-4 * max(1.0, dk.abs().max().item())
         dx_tol, db_tol = (0.0, 0.0) if exact else (1e-5, 1e-4)
+        # the dx's bits, to compare between two trees' runs
+        digest = hashlib.sha256(xr.grad.cpu().numpy().tobytes()).hexdigest()
         print(f"textcnn_pool backward {name}: max|dK err| {dk_err:.3e} "
               f"(limit {dk_tol:.1e}), max|dx err| {dx_err:.3e}, max|db "
               f"err| {db_err:.3e}, gated-off g {int((gated == 0).sum())} "
               f"of {g.numel()}, dG slices of {textcnn.dg_slice_rows(b, f)}"
-              f" rows")
+              f" rows; dx sha256 {digest[:16]}")
         if not (dk_err <= dk_tol and dx_err <= dx_tol and db_err <= db_tol):
             raise AssertionError(f"backward kernels disagree with the plain "
                                  f"version ({name})")
         worst["dg"] = max(worst["dg"], dk_err)
         worst["dx"] = max(worst["dx"], dx_err)
+        if skip == "winners":
+            _check_spans_cover_winners(torch, sk, gated, idx, w)
         if j == 0:
             _check_deterministic(torch, textcnn.BWD_DG, lambda: textcnn
                                  .textcnn_pool_bwd_dg(x, gated, idx, w))
+            _check_deterministic(torch, textcnn.BWD_DX, lambda: textcnn
+                                 .textcnn_pool_bwd_dx(gated, idx, k, t, w))
             # x 4 bytes off 16-byte alignment: single-float loads
             xu = torch.empty(x.numel() + 1, device="cuda")[1:].view_as(x)
             xu.copy_(x)
@@ -521,9 +544,33 @@ def check_backward(torch, textcnn) -> dict:
     return worst
 
 
+def _spans_over_winners(torch, textcnn, x, k, bias, w):
+    """[B, 2] int32 skip spans on the card: one word in the middle of
+    each row's winning window of filter b % F, found without a span."""
+    b, t = x.shape[:2]
+    _, idx = textcnn.textcnn_pool_reference(x, k, bias, w)
+    rows = torch.arange(b, device="cuda")
+    first = idx[rows, rows % k.shape[1]].long() - (w - 1)
+    start = (first + w // 2).clamp(0, t - 1)
+    return torch.stack([start, torch.ones_like(start)], 1).to(torch.int32)
+
+
+def _check_spans_cover_winners(torch, skip, gated, idx, w) -> None:
+    """The case must hold winning windows of a non-zero g with a tap
+    inside a span: the taps the dx drops there."""
+    taps = idx.long()[:, :, None] - (w - 1) + torch.arange(w, device="cuda")
+    lo = skip[:, :1, None].long()
+    inside = ((taps >= lo) & (taps < lo + skip[:, 1:2, None].long())).any(-1)
+    live = int((inside & (gated != 0)).sum())
+    print(f"  winning windows of a non-zero g with a tap inside a skip span: "
+          f"{live}")
+    if not live:
+        raise AssertionError("no skip span covers a winning window")
+
+
 def _check_deterministic(torch, name: str, fn) -> None:
-    """Two launches of a dG wrapper on the same inputs, with other work
-    on the card between them, must give the same bits."""
+    """Two launches of a backward wrapper on the same inputs, with other
+    work on the card between them, must give the same bits."""
     first = fn()
     torch.randn(64 << 20, device="cuda").sum()   # stir the caches
     second = fn()
@@ -580,6 +627,7 @@ def time_backward(torch, textcnn) -> dict:
     flops = 2.0 * int(nz.sum()) * w * e
     small = 4.0 * (2 * b * f + w * e * f)        # g, idx, K or dK
     dg = lambda: textcnn.textcnn_pool_bwd_dg(x, g, idx, w)   # noqa: E731
+    dx = lambda: textcnn.textcnn_pool_bwd_dx(g, idx, k, t, w)  # noqa: E731
     res = {
         "dg": dict(_dg_bound(torch, g, idx, t, e, w),
                    ms=_median_ms(torch, dg),
@@ -588,11 +636,12 @@ def time_backward(torch, textcnn) -> dict:
                    library_ms=_median_ms(torch, lib_dg),
                    **_per_launch(torch, dg)),
         "dx": dict(_bound(flops, 4.0 * b * t * e + small),
-                   ms=_median_ms(torch, lambda: textcnn.textcnn_pool_bwd_dx(
-                       g, idx, k, t, w)),
+                   ms=_median_ms(torch, dx),
                    plain_ms=_median_ms(torch, lambda: textcnn._dx_reference(
                        g, idx, k, t, w, None)),
-                   library_ms=_median_ms(torch, lib_dx)),
+                   library_ms=_median_ms(torch, lib_dx),
+                   zero_ms=_zero_ms(torch, (b, t, e)),
+                   **_per_launch(torch, dx)),
     }
     res["gated_off"] = int((~nz).sum())
 
@@ -603,10 +652,25 @@ def time_backward(torch, textcnn) -> dict:
     g = torch.randn(b, f, generator=torch.Generator().manual_seed(8)).cuda()
     g = torch.where(out > 0, g, 0.0)
     dg = lambda: textcnn.textcnn_pool_bwd_dg(x, g, idx, w)   # noqa: E731
+    dx = lambda: textcnn.textcnn_pool_bwd_dx(g, idx, k, t, w)  # noqa: E731
     res["dg_narre"] = dict(
         _dg_bound(torch, g, idx, t, e, w),
         ms=_median_ms(torch, dg), **_per_launch(torch, dg))
+    nz = g != 0
+    res["dx_narre"] = dict(
+        _bound(2.0 * int(nz.sum()) * w * e,
+               4.0 * (b * t * e + 2 * b * f + w * e * f)),
+        ms=_median_ms(torch, dx), zero_ms=_zero_ms(torch, (b, t, e)),
+        **_per_launch(torch, dx))
     return res
+
+
+def _zero_ms(torch, shape) -> float:
+    """The card's practical floor for writing dx: the device time a launch
+    of `zero_()` of a tensor of its shape, a memset-like kernel (the
+    profiler over 100 back-to-back calls)."""
+    out = torch.empty(shape, device="cuda")
+    return _per_launch(torch, out.zero_)["device_ms"]
 
 
 def _dg_bound(torch, g, idx, t: int, e: int, w: int, rows=None,
@@ -1254,6 +1318,8 @@ def train_input_grad(torch, textcnn, ds, device, steps: int = 3) -> dict:
     tower, table = make(device)
     opt = torch.optim.Adam([table, *tower.parameters()], lr=hp.lr)
     _reset(textcnn)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     losses = []
     for s in range(steps):
         loss, grads = step(tower, table, s, device)
@@ -1263,13 +1329,15 @@ def train_input_grad(torch, textcnn, ds, device, steps: int = 3) -> dict:
         opt.step()
         opt.zero_grad(set_to_none=True)
     torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches = dict(textcnn.launches)
     losses = torch.stack(losses).cpu()
     errs = {n: (got[n].cpu() - want[n]).abs().max().item()
             / max(want[n].abs().max().item(), 1e-30) for n in want}
     worst = max(errs, key=errs.get)
     print(f"input-gradient path: TextCNN over a trainable word table, "
-          f"{steps} steps at B=256 T=1000: launches {launches}; losses "
+          f"{steps} steps at B=256 T=1000 in {wall:.3f} s (host clock, "
+          f"batch copies included): launches {launches}; losses "
           f"{[round(v, 5) for v in losses.tolist()]}; step-1 grad err vs "
           f"CPU {errs[worst]:.2e} of the max ({worst})")
     if not torch.isfinite(losses).all() or errs[worst] > 1e-4:
@@ -1592,49 +1660,105 @@ def serve_entity(torch, textcnn, ds, device) -> dict:
     return launches
 
 
-def e2e_full(torch, ds, device) -> None:
-    """deepconn and deepconn++ trained with the reference's own flags
-    (`examples/e2e_realistic.py`: batch 256, eval_num_negs 99, 60
-    epochs, early stop 5, scan_steps 10, the entity cache without
-    `pallas_fuse_rows`), their test metrics printed beside the JAX
-    package's rows in `data/e2e_state.json`."""
+def _e2e_run(torch, ds, device, mt: str, seed: int, init=None) -> dict:
+    """One run of `mt` with the reference's own flags
+    (`examples/e2e_realistic.py`: batch 256, eval_num_negs 99, 60 epochs,
+    early stop 5, scan_steps 10, the entity cache without
+    `pallas_fuse_rows`) at `hp.seed = seed`: through `api.run` from the
+    port's own init or, with `init` (a flax params tree), from those
+    params through `train_complete` and `finalize`. Returns its test
+    metrics, best and early-stop epochs and gap to the JAX row."""
     import re
     import tempfile
 
     import numpy as np
 
-    from reviews4rec_torch.api import run
+    from reviews4rec_torch.api import finalize, run
     from reviews4rec_torch.config import HyperParams
+    from reviews4rec_torch.models import build_model
+    from reviews4rec_torch.train.loop import train_complete
+    from reviews4rec_torch.weights import load_flax_params
 
-    jax_rows = json.loads(E2E_STATE.read_text())["results"]
+    jax_row = json.loads(E2E_STATE.read_text())["results"][mt]
+    with tempfile.TemporaryDirectory() as tmp:
+        hp = ds.apply_to(HyperParams(
+            model_type=mt, dataset="e2e", batch_size=256, eval_num_negs=99,
+            epochs=60, early_stop=5, use_pallas=True, scan_steps=10,
+            seed=seed, log_dir=tmp, model_dir=tmp, **ENTITY))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if init is None:
+            metrics, _, _ = run(hp, ds, device=device)
+        else:
+            model = build_model(hp, ds.word_vectors, device=device)
+            load_flax_params(model, init)
+            stats: dict = {}
+            best, _ = train_complete(hp, model, ds, stats=stats)
+            model.load_state_dict(best)
+            metrics, _, _ = finalize(hp, model, ds, device=device)
+            metrics["train_examples_per_s"] = stats["train_examples_per_s"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log = open(hp.log_file()).read()
+    vals = [float(m) for m in re.findall(
+        r"end of epoch \d+ \|[^\n]*?\| MSE = ([\d.]+)", log)]
+    stop = re.search(r"early stop at epoch (\d+)", log)
+    row = {k: metrics[k] for k in ("MSE", "HR@1", "HR@10", "NDCG@10",
+                                   "train_examples_per_s")}
+    row.update(wall_s=round(wall, 1), epochs_run=len(vals),
+               best_epoch=int(np.argmin(vals)) + 1,
+               early_stop_at=int(stop.group(1)) if stop else None,
+               jax=jax_row, mse_gap=round(metrics["MSE"] - jax_row["MSE"], 4))
+    if not np.isfinite([row[k] for k in ("MSE", "HR@1", "HR@10",
+                                         "NDCG@10")]).all():
+        raise AssertionError(f"{mt}: non-finite test metrics")
+    return row
+
+
+def e2e_full(torch, ds, device, seeds: int = 1) -> None:
+    """deepconn and deepconn++ trained with the reference's own flags,
+    their test metrics printed beside the JAX package's rows in
+    `data/e2e_state.json`. With `seeds` > 1 each head runs at
+    `hp.seed = 0..seeds-1` from the port's own init and once at seed 0
+    from the JAX trainer's own initial params (`e2e_init.npz`); a line
+    per run (test MSE, HR@1, best and early-stop epoch), then the mean,
+    std (n - 1), min and max of the seeds' test MSE, the mean's gap to
+    the JAX row and the bridged run's gap."""
+    import numpy as np
+
+    from reviews4rec_torch.utils.io import load_npz
+
+    init = load_npz(str(INIT_FIXTURE)) if seeds > 1 else None
     out = {}
     for mt in MODELS:
-        with tempfile.TemporaryDirectory() as tmp:
-            hp = ds.apply_to(HyperParams(
-                model_type=mt, dataset="e2e", batch_size=256,
-                eval_num_negs=99, epochs=60, early_stop=5, use_pallas=True,
-                scan_steps=10, log_dir=tmp, model_dir=tmp, **ENTITY))
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            metrics, _, _ = run(hp, ds, device=device)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            log = open(hp.log_file()).read()
-        vals = [float(m) for m in re.findall(
-            r"end of epoch \d+ \|[^\n]*?\| MSE = ([\d.]+)", log)]
-        stop = re.search(r"early stop at epoch (\d+)", log)
-        row = {k: metrics[k] for k in ("MSE", "HR@1", "HR@10", "NDCG@10",
-                                       "train_examples_per_s")}
-        row.update(wall_s=round(wall, 1), epochs_run=len(vals),
-                   best_epoch=int(np.argmin(vals)) + 1,
-                   early_stop_at=int(stop.group(1)) if stop else None,
-                   jax=jax_rows[mt],
-                   mse_gap=round(metrics["MSE"] - jax_rows[mt]["MSE"], 4))
-        out[mt] = row
-        print(f"e2e-full {mt}: {row}", flush=True)
-        if not np.isfinite([row[k] for k in ("MSE", "HR@1", "HR@10",
-                                             "NDCG@10")]).all():
-            raise AssertionError(f"{mt}: non-finite test metrics")
+        if seeds == 1:
+            out[mt] = _e2e_run(torch, ds, device, mt, 0)
+            print(f"e2e-full {mt}: {out[mt]}", flush=True)
+            continue
+        runs = []
+        for seed in range(seeds):
+            runs.append(_e2e_run(torch, ds, device, mt, seed))
+            runs[-1]["seed"] = seed
+        bridged = _e2e_run(torch, ds, device, mt, 0,
+                           init=_subtree(init, f"{mt}/params/"))
+        for label, r in [(f"seed {r['seed']}, port init", r) for r in runs] \
+                + [("seed 0, JAX init (e2e_init.npz)", bridged)]:
+            print(f"e2e-full {mt} {label}: test MSE {r['MSE']}, HR@1 "
+                  f"{r['HR@1']}, best epoch {r['best_epoch']}, early stop at "
+                  f"{r['early_stop_at']} ({r['wall_s']} s)", flush=True)
+        mse = np.array([r["MSE"] for r in runs])
+        jax_mse = runs[0]["jax"]["MSE"]
+        summary = dict(n=seeds, mean=float(mse.mean()),
+                       std=float(mse.std(ddof=1)), min=float(mse.min()),
+                       max=float(mse.max()),
+                       mean_gap=float(mse.mean() - jax_mse),
+                       bridged_gap=bridged["mse_gap"], jax_mse=jax_mse)
+        print(f"e2e-full {mt} over seeds 0..{seeds - 1}: test MSE mean "
+              f"{summary['mean']:.5f}, std {summary['std']:.5f}, min "
+              f"{summary['min']}, max {summary['max']}; mean - JAX "
+              f"{summary['mean_gap']:+.5f}; bridged run - JAX "
+              f"{summary['bridged_gap']:+.4f}", flush=True)
+        out[mt] = dict(runs=runs, bridged=bridged, summary=summary)
     print(json.dumps({"e2e_full": out}))
 
 
@@ -1745,10 +1869,18 @@ def _print_kernel_times(textcnn, fwd, bwd) -> None:
                                                f"rows" if "cells" in r
                                                else "") + ")")
     _print_narre_dg(textcnn.BWD_DG, bwd["dg_narre"], "doc rows")
+    r = bwd["dx_narre"]
+    print(f"{textcnn.BWD_DX} at NARRE B={NARRE_SHAPE['b']} "
+          f"T={NARRE_SHAPE['t']} E=64 F=100 W=3 f32: kernel {r['ms']:.4f} ms"
+          + _launch_text(r) + f", bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}; {r['mflop']:.2f} MFLOP, {r['mbytes']:.2f} MB)")
+    print(f"  zero_() of a tensor of dx's shape (the card's store floor, "
+          f"device time a launch): {bwd['dx']['zero_ms']:.4f} ms at B=256 "
+          f"T=1000, {r['zero_ms']:.4f} ms at NARRE")
 
 
 def _launch_text(r) -> str:
-    """The single-call median's companions on a dG timing line."""
+    """The single-call median's companions on a backward timing line."""
     if "launch_ms" not in r:
         return ""
     return (f" a single call (median), {r['launch_ms']:.4f} ms a launch over "
@@ -1794,12 +1926,17 @@ def main(argv=None) -> None:
     parser.add_argument("--e2e-full", action="store_true",
                         help="train both heads with the reference's flags "
                              "and compare with data/e2e_state.json")
+    parser.add_argument("--seeds", type=int, default=1,
+                        help="with --e2e-full: runs per head over seeds "
+                             "0..N-1, plus one from the JAX init when N > 1")
     parser.add_argument("--only", default=None,
                         help="comma-separated phases of " + ",".join(PHASES))
     args = parser.parse_args(argv)
     want = set(PHASES if args.only is None else args.only.split(","))
     if not want <= set(PHASES):
         parser.error(f"unknown phases {sorted(want - set(PHASES))}")
+    if args.seeds < 1 or (args.seeds > 1 and not args.e2e_full):
+        parser.error("--seeds takes N >= 1, and N > 1 only with --e2e-full")
     try:
         import torch
     except ImportError:
@@ -1814,7 +1951,7 @@ def main(argv=None) -> None:
         fail(f"the reviews4rec_torch package is not beside this script "
              f"({exc})")
     for need in (CORPUS_DIR / "corpus.npz", FIXTURE, TRAIN_FIXTURE,
-                 ENTITY_FIXTURE, E2E_STATE):
+                 ENTITY_FIXTURE, INIT_FIXTURE, E2E_STATE):
         if not need.exists():
             fail(f"missing {need.relative_to(ROOT)}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1826,7 +1963,7 @@ def main(argv=None) -> None:
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     _print_build(_build)
     if args.e2e_full:
-        e2e_full(torch, _load_corpus(ReviewDataset), device)
+        e2e_full(torch, _load_corpus(ReviewDataset), device, args.seeds)
         print(card)
         return
 

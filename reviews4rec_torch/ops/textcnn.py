@@ -58,8 +58,10 @@ KERNELS = (FWD, BWD_DG, BWD_DX, FWD_ROWS, BWD_DG_ROWS)
 SOURCE = {FWD: FWD, BWD_DG: BWD_DG, BWD_DX: BWD_DX, FWD_ROWS: FWD,
           BWD_DG_ROWS: BWD_DG}
 # (pointer, int) argument counts of each `<name>_f32`, before its stream
-_ARGS = {FWD: (6, 5), BWD_DG: (7, 5), BWD_DX: (5, 5), FWD_ROWS: (7, 6),
+_ARGS = {FWD: (6, 5), BWD_DG: (7, 5), BWD_DX: (6, 5), FWD_ROWS: (7, 6),
          BWD_DG_ROWS: (8, 6)}
+# the sizes each source's `<source>_smem_bytes` takes, in order
+_SMEM_ARGS = {FWD: ("E", "W"), BWD_DG: ("E", "W"), BWD_DX: ("W", "F")}
 
 # kernel launches since the counts were last set to 0
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -179,7 +181,7 @@ def textcnn_pool_rows_reference(table: torch.Tensor, rows: torch.Tensor,
 def _library(name: str) -> ctypes.CDLL:
     """The built library of kernel `name`'s source, its entry points
     typed: `<name>_f32(pointers, [N,] B, T, E, F, W, stream)` and the
-    source's `<source>_smem_bytes(E, W)` and
+    source's `<source>_smem_bytes(*_SMEM_ARGS[source])` and
     `<source>_error_string(code)`."""
     src = SOURCE[name]
     lib = _build.load(src)
@@ -190,7 +192,8 @@ def _library(name: str) -> ctypes.CDLL:
         pointers, ints = _ARGS[name]
         fn.argtypes = [p] * pointers + [i] * ints + [p]
         fn.restype = i
-        getattr(lib, f"{src}_smem_bytes").argtypes = [i, i]
+        getattr(lib, f"{src}_smem_bytes").argtypes = [i] * len(
+            _SMEM_ARGS[src])
         getattr(lib, f"{src}_smem_bytes").restype = ctypes.c_size_t
         getattr(lib, f"{src}_error_string").argtypes = [i]
         getattr(lib, f"{src}_error_string").restype = ctypes.c_char_p
@@ -216,7 +219,8 @@ def _launch(name: str, ref: torch.Tensor, pointers,
         stream = torch.cuda.current_stream(ref.device).cuda_stream
         err = getattr(lib, f"{name}_f32")(*pointers, *dims.values(), stream)
     if err != 0:
-        smem = getattr(lib, f"{src}_smem_bytes")(dims["E"], dims["W"])
+        smem = getattr(lib, f"{src}_smem_bytes")(
+            *(dims[k] for k in _SMEM_ARGS[src]))
         shape = ", ".join(f"{k}={v}" for k, v in dims.items())
         raise RuntimeError(
             f"{name} launch failed at {shape} ({smem} bytes of shared "
@@ -382,8 +386,10 @@ def textcnn_pool_bwd_dx(g: torch.Tensor, idx: torch.Tensor,
     if min(t, e) < 1:
         raise ValueError(f"empty operand: T={t}, E={e}")
     dx = torch.empty((b, t, e), dtype=torch.float32, device=g.device)
+    # scratch the launch fills with K transposed, [F, W*E]
+    kt = torch.empty(kernel.numel(), dtype=torch.float32, device=g.device)
     _launch(BWD_DX, g, (g.data_ptr(), idx.data_ptr(), kernel.data_ptr(),
-                        _ptr(skip), dx.data_ptr()),
+                        _ptr(skip), dx.data_ptr(), kt.data_ptr()),
             dict(B=b, T=t, E=e, F=f, W=window))
     return dx
 
