@@ -1,16 +1,19 @@
 """Top-level runner of the port.
 
 - `run` trains `hp.model_type` and reports the full metric set, as the
-  JAX package's `api.run` does: deepconn and deepconn++ so far (other
-  families raise `NotImplementedError` naming their ROADMAP.md item).
+  JAX package's `api.run` does: deepconn, deepconn++, NARRE, transnet
+  and transnet++ so far (other families raise `NotImplementedError`
+  naming their ROADMAP.md item); transnet adds `MSE_right` and
+  `MSE_transform`.
 - `finalize` scores a model the way the JAX package's `api._finalize`
   does: test MSE with the count-vs-MSE maps, HR@1 on the stored 1+5
   candidate sets and, with `hp.eval_num_negs > 0`, the k > num_negs
   cutoffs on the wide 1+eval_num_negs sets. With the entity cache on
   (`hp.cache_doc_embeds` and `hp.cache_entity`) it runs from the entity
   doc tables on the device: the test MSE through an entity example
-  cache and the ranking over id-only grids, with the same metrics as
-  the host path (eval removes nothing).
+  cache and the ranking over id-only grids (transnet's `this_doc` zeros
+  of `input_length` words), with the same metrics as the host path
+  (eval removes nothing).
 """
 
 from __future__ import annotations

@@ -15,16 +15,16 @@ The records are byte-identical to the JAX package's
   per review (NARRE, MPCN).
 - neighbor-id lists padded to exactly 10 slots with the sentinel id
   `total + 1`.
-- the entity doc store (`hp.cache_entity`): one canonical concatenated
-  doc per user and per item (`_entity_spans`) and per-example records of
-  ids, rating and, on train, the (start, len) span of the pair's own
-  review inside each doc (`materialize_entity`), which the model masks
-  in place instead of removing it.
+- the entity doc store (`hp.cache_entity`): one canonical doc per user
+  and per item, concatenated (`_entity_spans`) or per review with the
+  neighbor-id lists in the same slot order (`_entity_rows_docs`, NARRE),
+  and per-example records of ids, rating, transnet's `this_doc` and, on
+  train, where the pair's own review sits in each doc: its (start, len)
+  word span or its review row (`materialize_entity`), which the model
+  masks in place instead of removing it.
 
 Only the in-memory numpy materializer is here; the native (C++)
-materializer, the out-of-core record store and the entity store's
-per-review (rows > 1, NARRE) and `this_doc` (transnet) forms are still to
-be ported.
+materializer and the out-of-core record store are still to be ported.
 """
 
 from __future__ import annotations
@@ -552,28 +552,92 @@ class ReviewDataset:
         self._cache[key] = out
         return out
 
+    def _entity_rows_docs(self, rows: int, words: int, slots: int,
+                          user_pad: int, item_pad: int):
+        """The per-review (rows > 1, NARRE) entity store: canonical
+        [U|I, rows, words] docs, review j in row j, and the canonical
+        neighbor-id lists [U, slots] items_reviewed and [I, slots]
+        users_who_gave in the same slot order as the doc rows, which
+        NARRE's attention relies on. Returns (user_docs, item_docs,
+        who_gave, reviewed), cached. Leakage removal in this layout
+        masks the pair's own review ROW where the per-example records
+        remove it and move later reviews up a slot."""
+        key = ("entity_rows", rows, words, slots, user_pad, item_pad)
+        if key in self._cache:
+            return self._cache[key]
+        flat = self._flat()
+        tokens, rev_off = flat["tokens"], flat["rev_off"]
+
+        def slot_of(seg_off: np.ndarray, n: int):
+            counts = np.diff(seg_off).astype(np.int64)
+            owner = np.repeat(np.arange(len(counts)), counts)
+            return owner, np.arange(n) - np.repeat(seg_off[:-1], counts)
+
+        def side(rids: np.ndarray, seg_off: np.ndarray, n_ent: int):
+            docs = np.zeros((n_ent, rows, words), np.int32)
+            owner, pos = slot_of(seg_off, len(rids))
+            for j in range(len(rids)):
+                p = int(pos[j])
+                if p < rows:
+                    r = int(rids[j])
+                    m = min(int(rev_off[r + 1] - rev_off[r]), words)
+                    docs[owner[j], p, :m] = tokens[rev_off[r]:rev_off[r] + m]
+            return docs
+
+        def neighbors(other: np.ndarray, seg_off: np.ndarray, n_ent: int,
+                      pad: int):
+            out = np.full((n_ent, slots), pad, np.int32)
+            owner, pos = slot_of(seg_off, len(other))
+            keep = pos < slots
+            out[owner[keep], pos[keep]] = other[keep]
+            return out
+
+        n_train = int(flat["u_revs"].shape[0])
+        out = (side(np.arange(n_train), flat["u_off"], self.num_users),
+               side(flat["i_revs"], flat["i_off"], self.num_items),
+               neighbors(flat["i_other"], flat["i_off"], self.num_items,
+                         user_pad),
+               neighbors(flat["u_other"], flat["u_off"], self.num_users,
+                         item_pad))
+        self._cache[key] = out
+        return out
+
     def materialize_entity(self, hp, split: str) -> Dict[str, np.ndarray]:
         """Per-example records for the entity doc cache: user, item,
-        rating and, on the train split only, 'user_skip' / 'item_skip'
-        [N, 2] int32 (start, len) word spans into the canonical docs of
-        `_entity_spans`. No doc tensors: those live once per entity."""
+        rating; transnet's `this_doc` [N, words] int32 (the pair's own
+        review, per example by nature); and, on the train split only,
+        'user_skip' / 'item_skip': [N, 2] int32 (start, len) word spans
+        into the concatenated docs of `_entity_spans` (rows == 1), or [N]
+        int32 review rows of `_entity_rows_docs` (rows > 1, -1 = none).
+        No other doc tensors: those live once per entity."""
         rows, words = _doc_layout(hp)
-        if hp.model_type in ("transnet", "transnet++"):
-            raise NotImplementedError(
-                "the entity store's per-example this_doc (transnet) is not "
-                "ported yet: ROADMAP.md Queue 1 item 8")
-        if rows > 1:
-            raise NotImplementedError(
-                f"the per-review entity store of {hp.model_type} (rows > 1) "
-                f"is not ported yet: ROADMAP.md Queue 1 item 8")
         sp = self.splits[split]
         recs = {"user": sp.user.astype(np.int32),
                 "item": sp.item.astype(np.int32),
                 "rating": sp.rating.astype(np.float32)}
+        if hp.model_type in ("transnet", "transnet++"):
+            # stays int ids in the example cache, embedded in the step
+            flat = self._flat()
+            _, _, _, _, this_rev = self._examples(split)
+            tokens, rev_off = flat["tokens"], flat["rev_off"]
+            tdoc = np.zeros((len(sp), words), np.int32)
+            for x in range(len(sp)):
+                r = int(this_rev[x])
+                if r >= 0:
+                    m = min(int(rev_off[r + 1] - rev_off[r]), words)
+                    tdoc[x, :m] = tokens[rev_off[r]:rev_off[r] + m]
+            recs["this_doc"] = tdoc
         if split != "train":
             return recs
         flat = self._flat()
         user, item, ui_idx, iu_idx, _ = self._examples(split)
+        if rows > 1:
+            # reviews past `rows` never entered the tables: nothing to mask
+            recs["user_skip"] = np.where(ui_idx < rows, ui_idx,
+                                         -1).astype(np.int32)
+            recs["item_skip"] = np.where(iu_idx < rows, iu_idx,
+                                         -1).astype(np.int32)
+            return recs
         (_, u_span), (_, i_span) = self._entity_spans(words)
         zero = np.zeros(2, np.int32)
 

@@ -7,11 +7,11 @@ import torch
 from ..config import ALL_MODELS, HyperParams
 from ..utils.device import DeviceLike, resolve_device
 
+# the models the port has: TextCNN towers over the frozen word table
+_TEXTCNN_MODELS = ("deepconn", "deepconn++", "NARRE", "transnet",
+                   "transnet++")
 # where each model family still waits in ROADMAP.md
 _QUEUE = {
-    "NARRE": "Queue 1 item 8 (other TextCNN towers)",
-    "transnet": "Queue 1 item 8 (other TextCNN towers)",
-    "transnet++": "Queue 1 item 8 (other TextCNN towers)",
     "MPCN": "Queue 1 item 11 (MPCN and the co-attention lib)",
     "bias_only": "Queue 1 item 9 (MF family)",
     "MF_dot": "Queue 1 item 9 (MF family)",
@@ -28,14 +28,21 @@ def build_model(hp: HyperParams, word_vectors=None,
     moved to `device` (None = the GPU)."""
     dev = resolve_device(device)
     mt = hp.model_type
-    if mt in ("deepconn", "deepconn++"):
-        from .deepconn import DeepCoNN
+    if mt in _TEXTCNN_MODELS:
         if word_vectors is None:
             raise ValueError(f"{mt} needs the corpus word vectors")
         gen = torch.Generator().manual_seed(hp.seed)
-        model = DeepCoNN(hp.num_user_rows, hp.num_item_rows, hp.latent_size,
-                         word_vectors, hp.dropout, use_fm=(mt == "deepconn"),
-                         generator=gen)
+        rows = (hp.num_user_rows, hp.num_item_rows, hp.latent_size,
+                word_vectors, hp.dropout)
+        if mt == "NARRE":
+            from .narre import NARRE
+            model = NARRE(*rows, generator=gen)
+        elif mt.startswith("transnet"):
+            from .transnet import TransNet
+            model = TransNet(*rows, plus=(mt == "transnet++"), generator=gen)
+        else:
+            from .deepconn import DeepCoNN
+            model = DeepCoNN(*rows, use_fm=(mt == "deepconn"), generator=gen)
         return model.to(dev)
     if mt not in ALL_MODELS:
         raise ValueError(f"unknown model_type {mt!r}")

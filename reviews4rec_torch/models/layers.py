@@ -1,4 +1,5 @@
-"""Shared neural blocks: factorization machine, text CNN, scorer MLP.
+"""Shared neural blocks: factorization machine, text CNN, scorer MLP,
+MLP tower.
 
 PyTorch counterparts of `reviews4rec_tpu/models/layers.py`, with the
 same parameter layouts so that `weights.params_from_flax` maps one onto
@@ -12,7 +13,7 @@ keyed by its own seed and not by torch's global RNG.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -126,6 +127,35 @@ class ScorerMLP(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.dropout(torch.relu(self.fc0(x)), generator)
         return self.fc1(x)[..., 0]
+
+
+class MLPTower(nn.Module):
+    """Dropout (when `dropout_first`), then Dense layers `fc{j}` of
+    `sizes` with ReLU between them, then `final_activation` if given."""
+
+    def __init__(self, n_in: int, sizes: Sequence[int], dropout: float = 0.6,
+                 dropout_first: bool = True,
+                 final_activation: Optional[Callable] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dropout = Dropout(dropout) if dropout_first else None
+        self.final_activation = final_activation
+        self.depth = len(sizes)
+        for j, size in enumerate(sizes):
+            self.add_module(f"fc{j}", _linear(n_in, size, generator))
+            n_in = size
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.dropout is not None:
+            x = self.dropout(x, generator)
+        for j in range(self.depth):
+            x = getattr(self, f"fc{j}")(x)
+            if j < self.depth - 1:
+                x = torch.relu(x)
+        if self.final_activation is not None:
+            x = self.final_activation(x)
+        return x
 
 
 def doc_shape(doc: torch.Tensor, ndims: int) -> Tuple[tuple, tuple]:

@@ -1,7 +1,8 @@
 """Serving: predictions for a split and top-k retrieval per user.
 
 Counterpart of `reviews4rec_tpu/serve.py` for the models the port has
-(deepconn, deepconn++):
+(deepconn, deepconn++, NARRE, transnet, transnet++; transnet serves and
+ranks by its source net):
 
 - `predict()` / `save_predictions()`: per-example predictions of a
   rating split, and the reference's `<tag>_{split}_results` files. With
@@ -13,7 +14,7 @@ Counterpart of `reviews4rec_tpu/serve.py` for the models the port has
   device from the entity tables.
 - `FactorizedRecommender`: runs the item tower once over the catalog at
   construction; a query encodes only its users and scores the catalog
-  with the head split per side, exactly.
+  with the head split per side, exactly (deepconn and deepconn++).
 
 Every entry point takes the model to serve or, without one, restores
 the best-validation params of the checkpoint `api.run` saved
@@ -33,7 +34,8 @@ from .data.batcher import Batcher
 from .data.corpus import ReviewDataset
 from .models import build_model
 from .train import checkpoint as ckpt
-from .train.evaluate import assemble_entity_grid
+from .train.evaluate import (assemble_entity_grid, grid_this_doc_words,
+                             source_pred)
 from .train.loop import (EntityCache, build_entity_tables, entity_serving,
                          gather_cached_batch)
 from .utils.device import DeviceLike, module_device, to_device
@@ -96,12 +98,12 @@ def predict(hp: HyperParams, dataset: ReviewDataset, split: str = "test",
         for batch in Batcher({"row": np.arange(len(recs["rating"]))},
                              hp.batch_size):
             placed = to_device(batch, dev)
-            outs.append(model(gather_cached_batch(cache, placed["row"],
-                                                  placed["weight"])))
+            outs.append(source_pred(model(gather_cached_batch(
+                cache, placed["row"], placed["weight"]))))
             weights.append(batch["weight"].astype(bool))
     else:
         for batch in Batcher(dataset.materialize(hp, split), hp.batch_size):
-            outs.append(model(to_device(batch, dev)))
+            outs.append(source_pred(model(to_device(batch, dev))))
             weights.append(batch["weight"].astype(bool))
     if not outs:
         return np.zeros(0, np.float32)
@@ -197,8 +199,9 @@ class Recommender:
                 hp, users, chunk,
                 include_text=False if tables is not None else None), dev)
             if tables is not None:
-                batch = assemble_entity_grid(batch, tables)
-            scores = self.model(batch)
+                batch = assemble_entity_grid(batch, tables,
+                                             grid_this_doc_words(hp))
+            scores = source_pred(self.model(batch))
             if exclude_seen:
                 mask = dataset.train_pair_mask(users[:, None], chunk[None])
                 scores = scores.masked_fill(

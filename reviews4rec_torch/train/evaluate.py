@@ -8,6 +8,10 @@ them:
 - Ranking: per stored set, the positive sits in column 0; its rank is
   the number of candidates scoring strictly higher, so a tie goes to
   the positive.
+- transnet's forward gives (source, target, trans_loss): the source net
+  is its prediction, in eval, ranking and serving alike (`source_pred`),
+  and eval also reports the target net's `MSE_right` and the transform
+  loss `MSE_transform`, each a mean over batches.
 - Over the device caches (`train.loop`): `evaluate_cached` gathers each
   batch on the device from [B] row ids, and `assemble_entity_grid` builds
   an id-only candidate grid's docs from the entity tables. Eval removes
@@ -27,11 +31,23 @@ from ..data.batcher import Batcher
 from ..utils.device import to_device
 
 
+def source_pred(preds):
+    """The prediction of a forward's output: transnet's source net, the
+    output itself for every other model."""
+    return preds[0] if isinstance(preds, tuple) else preds
+
+
 def eval_step(model: torch.nn.Module, batch: Dict[str, torch.Tensor]
               ) -> Dict[str, torch.Tensor]:
-    """Per-example squared errors and predictions of one batch."""
+    """Per-example squared errors and predictions of one batch (and
+    transnet's target-net errors and transform loss)."""
     preds = model(batch)
-    return {"sq": (preds - batch["rating"]) ** 2, "pred": preds}
+    y = batch["rating"]
+    if isinstance(preds, tuple):
+        source, target, trans_loss = preds
+        return {"sq": (source - y) ** 2, "pred": source,
+                "sq_right": (target - y) ** 2, "trans": trans_loss}
+    return {"sq": (preds - y) ** 2, "pred": preds}
 
 
 def _count_mse_maps(counts: np.ndarray, sq: np.ndarray
@@ -55,16 +71,24 @@ def _reduce_eval(outs, weights, users_l, items_l, user_count,
                  item_count) -> Tuple[Dict, Dict, Dict]:
     """Host-side reduction of the per-batch outputs."""
     total_sq, total_n = 0.0, 0.0
+    right_sq, trans_sum, batches = 0.0, 0.0, 0.0
     all_sq = []
     for out, w in zip(outs, weights):
         sq = out["sq"][w]
         total_sq += float(sq.sum())
         total_n += float(w.sum())
+        if "sq_right" in out:
+            right_sq += float(out["sq_right"][w].mean())
+            trans_sum += float(out["trans"])
+            batches += 1.0
         all_sq.append(sq)
     sq = np.concatenate(all_sq) if all_sq else np.zeros(0)
     users = np.concatenate(users_l) if users_l else np.zeros(0, int)
     items = np.concatenate(items_l) if items_l else np.zeros(0, int)
     metrics = {"MSE": round(total_sq / max(total_n, 1.0), 4)}
+    if batches:
+        metrics["MSE_right"] = round(right_sq / batches, 4)
+        metrics["MSE_transform"] = round(trans_sum / batches, 4)
     return (metrics, _count_mse_maps(user_count[users], sq),
             _count_mse_maps(item_count[items], sq))
 
@@ -126,29 +150,39 @@ def _to_host(outs: List[Dict[str, torch.Tensor]]
 
 
 def assemble_entity_grid(batch: Dict[str, torch.Tensor],
-                         tables: Dict[str, torch.Tensor]
-                         ) -> Dict[str, torch.Tensor]:
+                         tables: Dict[str, torch.Tensor],
+                         this_doc_words: int = 0) -> Dict[str, torch.Tensor]:
     """The docs of an id-only [B, C] candidate grid from the entity
-    tables (`train.loop.build_entity_tables`): the user's row once per
+    tables (`train.loop.build_entity_tables`): the user's rows once per
     grid row at [B, 1, ...], the models' broadcast layout, and the item
-    rows per candidate. Shared by the entity ranking pass and
+    rows per candidate; NARRE's neighbor lists alike. transnet's
+    `this_doc` (`this_doc_words` > 0) is zeros, as a grid's records hold
+    no held-out review. Shared by the entity ranking pass and
     `serve.Recommender(entity=True)`."""
     b = dict(batch)
-    if "user_doc" in tables:
-        b["user_doc"] = tables["user_doc"].index_select(
-            0, b["user"][:, 0])[:, None]
-    if "item_doc" in tables:
-        t = tables["item_doc"]
-        b["item_doc"] = t.index_select(0, b["item"].reshape(-1)).reshape(
-            tuple(b["item"].shape) + tuple(t.shape[1:]))
+    users, items = b["user"][:, 0], b["item"]
+    for key, user_side in (("user_doc", True), ("item_doc", False),
+                           ("items_reviewed", True),
+                           ("users_who_gave", False)):
+        if key not in tables:
+            continue
+        t = tables[key]
+        if user_side:
+            b[key] = t.index_select(0, users)[:, None]
+        else:
+            b[key] = t.index_select(0, items.reshape(-1)).reshape(
+                tuple(items.shape) + tuple(t.shape[1:]))
+    if this_doc_words:
+        b["this_doc"] = torch.zeros(tuple(items.shape) + (this_doc_words,),
+                                    dtype=torch.int32, device=items.device)
     return b
 
 
 @torch.inference_mode()
 def score_grid(model: torch.nn.Module, records: Dict[str, np.ndarray],
                batch_size: int, device: torch.device,
-               entity_tables: Optional[Dict[str, torch.Tensor]] = None
-               ) -> np.ndarray:
+               entity_tables: Optional[Dict[str, torch.Tensor]] = None,
+               this_doc_words: int = 0) -> np.ndarray:
     """Scores [M, C] of a candidate grid (positive in column 0). With
     `entity_tables` the records are id-only and each batch's docs are
     gathered on the device (`assemble_entity_grid`)."""
@@ -157,8 +191,9 @@ def score_grid(model: torch.nn.Module, records: Dict[str, np.ndarray],
     for batch in Batcher(records, batch_size):
         placed = to_device(batch, device)
         if entity_tables is not None:
-            placed = assemble_entity_grid(placed, entity_tables)
-        scores.append(model(placed))
+            placed = assemble_entity_grid(placed, entity_tables,
+                                          this_doc_words)
+        scores.append(source_pred(model(placed)))
         weights.append(batch["weight"].astype(bool))
     if not scores:
         return np.zeros((0,) + records["item"].shape[1:], np.float32)
@@ -203,6 +238,12 @@ def split_eval_ks(hp: HyperParams) -> Tuple[Tuple[int, ...],
     return tuple(k for k in hp.eval_ks if k <= hp.num_negs), wide
 
 
+def grid_this_doc_words(hp: HyperParams) -> int:
+    """The length of the zero `this_doc` an id-only grid gives the
+    model: transnet's doc length, 0 (none) for the other models."""
+    return hp.input_length if hp.model_type.startswith("transnet") else 0
+
+
 def eval_ranking(model: torch.nn.Module, neg_records: Dict[str, np.ndarray],
                  hp: HyperParams, batch_size: int, device: torch.device,
                  entity_tables: Optional[Dict[str, torch.Tensor]] = None
@@ -210,5 +251,5 @@ def eval_ranking(model: torch.nn.Module, neg_records: Dict[str, np.ndarray],
     """HR@k / NDCG@k at `hp.eval_ks` over per-user candidate sets; with
     `entity_tables`, over id-only grids whose docs come from them."""
     scores = score_grid(model, neg_records, batch_size, device,
-                        entity_tables)
+                        entity_tables, grid_this_doc_words(hp))
     return ranks_to_metrics(positive_ranks(scores), hp.eval_ks)

@@ -1,14 +1,20 @@
 """Training loop of the port, for the pointwise review towers (deepconn,
-deepconn++). Counterpart of `reviews4rec_tpu/train/loop.py`
-(`make_optimizer`, `_batch_loss`, `train_epoch` and `train_epoch_cached`
-as one `train_epoch`, the device doc caches, `train_complete`), with the
-same dynamics:
+deepconn++, NARRE, transnet, transnet++). Counterpart of
+`reviews4rec_tpu/train/loop.py` (`make_optimizer`, `_batch_loss`,
+`train_epoch` and `train_epoch_cached` as one `train_epoch`, the device
+doc caches, `train_complete`), with the same dynamics:
 
 - Adam with additive (not decoupled) L2 weight decay: torch's
   `Adam(weight_decay=...)` is optax's `add_decayed_weights` then `adam`.
   The frozen word table is a buffer, so it never reaches the optimizer.
 - per-batch loss: the mean squared error over the real rows of the
-  padded batch.
+  padded batch. transnet's is routed: source MSE + target MSE +
+  the transform loss, with `.detach()` inside the model sending each
+  term to its own parameters. The reference steps three Adam optimizers
+  on disjoint parameter groups from three backward passes of one
+  forward; all three gradients are taken at the same point, each group
+  gets only its own loss's gradient, and Adam is elementwise, so one
+  Adam step on the routed sum makes the same updates.
 - per-epoch validation MSE, a best-validation snapshot of the params,
   `early_stop` patience, a checkpoint each epoch and `hp.resume`.
 
@@ -32,8 +38,8 @@ device, so a step moves only [B] row ids from the host:
   example's row themselves; without it the step gathers `table[rows]`.
 
 Not ported here, each raising `NotImplementedError` with its ROADMAP.md
-item: ranking losses (item 11), transnet's routed loss (item 8) and
-meshes (item 13), with or without a cache.
+item: ranking losses (item 11) and meshes (item 13), with or without a
+cache.
 """
 
 from __future__ import annotations
@@ -49,7 +55,7 @@ import torch
 
 from ..config import HyperParams
 from ..data.batcher import Batcher
-from ..data.corpus import _doc_layout
+from ..data.corpus import NEIGHBOR_SLOTS, _doc_layout
 from ..utils.device import to_device
 from ..utils.logging import file_write, log_end_epoch
 from .checkpoint import load_checkpoint, save_checkpoint
@@ -69,10 +75,6 @@ def check_trainable(hp: HyperParams) -> None:
         raise NotImplementedError(
             f"loss {hp.loss!r}: ranking losses are not ported yet: "
             f"ROADMAP.md Queue 1 item 11")
-    if hp.model_type in ("transnet", "transnet++"):
-        raise NotImplementedError(
-            f"{hp.model_type}'s routed loss is not ported yet: ROADMAP.md "
-            f"Queue 1 item 8")
 
 
 def make_optimizer(hp: HyperParams, model: torch.nn.Module
@@ -81,14 +83,23 @@ def make_optimizer(hp: HyperParams, model: torch.nn.Module
                             weight_decay=hp.weight_decay)
 
 
-def _batch_loss(preds: torch.Tensor, batch: Dict[str, torch.Tensor]
+def _batch_loss(preds, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """RAW_MSE over the real rows: (loss, (sum(sq * w), sum(w)))."""
+    """RAW_MSE over the real rows: (loss, (sum(sq * w), sum(w))). For
+    transnet's (source, target, trans_loss) the loss is the routed sum
+    (module docstring) and the sums are the source net's."""
     w = batch["weight"]
-    sq = (preds - batch["rating"]) ** 2
-    sq_sum = torch.sum(sq * w)
+    y = batch["rating"]
     n = torch.sum(w)
-    return sq_sum / torch.clamp(n, min=1.0), (sq_sum, n)
+    denom = torch.clamp(n, min=1.0)
+    if isinstance(preds, tuple):
+        source, target, trans_loss = preds
+        sq_sum = torch.sum((source - y) ** 2 * w)
+        loss = (sq_sum / denom + torch.sum((target - y) ** 2 * w) / denom
+                + trans_loss)
+        return loss, (sq_sum, n)
+    sq_sum = torch.sum((preds - y) ** 2 * w)
+    return sq_sum / denom, (sq_sum, n)
 
 
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
@@ -253,8 +264,11 @@ class EntityCache(NamedTuple):
     tables: Dict[str, torch.Tensor]
 
 
-# the example key holding the entity id of each table
-ENTITY_ID_KEY = {"user_doc": "user", "item_doc": "item"}
+# the example key holding the entity id of each table; NARRE's neighbor
+# id lists are the users who reviewed the ITEM and the items the USER
+# reviewed
+ENTITY_ID_KEY = {"user_doc": "user", "item_doc": "item",
+                 "users_who_gave": "item", "items_reviewed": "user"}
 
 
 def gather_cached_batch(cache, rows: torch.Tensor, weight: torch.Tensor
@@ -322,22 +336,27 @@ def fuse_rows_for(hp: HyperParams) -> bool:
 def build_entity_tables(hp: HyperParams, dataset, device: torch.device
                         ) -> Dict[str, torch.Tensor]:
     """The canonical per-entity doc tables on the device, f32 embedded or
-    int ids per hp.cache_sides: the shared builder of the entity train
-    cache and the entity eval and serving paths."""
+    int ids per hp.cache_sides, and NARRE's neighbor id tables: the
+    shared builder of the entity train cache and the entity eval and
+    serving paths."""
     rows, words = _doc_layout(hp)
-    if rows > 1:
-        raise NotImplementedError(
-            f"the per-review entity store of {hp.model_type} (rows > 1) is "
-            f"not ported yet: ROADMAP.md Queue 1 item 8")
     sides = "ids" if hp.model_type == "MPCN" else hp.cache_sides
     ck, idk = doc_cache_keys(hp.model_type, sides)
     # this_doc is per-example (transnet), never a table
     ck = tuple(k for k in ck if k != "this_doc")
     idk = tuple(k for k in idk if k != "this_doc")
-    (udocs, _), (idocs, _) = dataset._entity_spans(words)
-    return build_doc_cache({"user_doc": udocs, "item_doc": idocs},
-                           dataset.word_vectors, cache_dtype_for(hp), device,
-                           keys=ck, id_keys=idk)
+    if rows > 1:
+        udocs, idocs, who_gave, reviewed = dataset._entity_rows_docs(
+            rows, words, NEIGHBOR_SLOTS, hp.user_pad_id, hp.item_pad_id)
+        entity_docs = {"user_doc": udocs, "item_doc": idocs}
+        if hp.model_type == "NARRE":
+            entity_docs.update(users_who_gave=who_gave,
+                               items_reviewed=reviewed)
+    else:
+        (udocs, _), (idocs, _) = dataset._entity_spans(words)
+        entity_docs = {"user_doc": udocs, "item_doc": idocs}
+    return build_doc_cache(entity_docs, dataset.word_vectors,
+                           cache_dtype_for(hp), device, keys=ck, id_keys=idk)
 
 
 def _cache_mode(hp: HyperParams) -> Tuple[bool, bool]:

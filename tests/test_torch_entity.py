@@ -325,16 +325,6 @@ def test_entity_serving_equals_host(mt, dataset, port_dataset, tmp_path):
         np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("mt", ["NARRE", "transnet"])
-def test_unported_entity_layouts_raise(mt, port_dataset):
-    hp = port_dataset.apply_to(PortHP(model_type=mt, **GEOM))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
-        port_dataset.materialize_entity(hp, "train")
-    if mt == "NARRE":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            loop.build_entity_tables(hp, port_dataset, CPU)
-
-
 @pytest.mark.parametrize("option,match", [
     (dict(model_type="MF_dot"), "only applies to the review family"),
     (dict(model_type="MPCN"), "only the ids-only cache applies"),
