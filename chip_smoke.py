@@ -65,21 +65,36 @@
    records', and a profile of 50 NARRE and 50 transnet++ entity steps
    with the forward's and dG's device time a launch at NARRE's shape
    beside their bounds (`review_entity`).
-9. Prints the card, one JSON line of kernel numbers and, last, the
+9. The id models bias_only, MF_dot, MF, GMF, MLP and NeuMF from the JAX
+   package's weights in `tests/torch_fixtures/mf_ref.npz`: `predict`,
+   `finalize` and the grid top-k against the JAX outputs (predictions
+   within 1e-5) and NeuMF's warm start bitwise JAX's (`mf_serve`); 8
+   training steps of each at dropout 0 against the fixture, `api.run` of
+   MF_dot and of NeuMF's three phases (2 epochs a phase), and a profile
+   of 50 MF_dot steps (`mf_train`). They launch no TextCNN kernel.
+10. `FactorizedRecommender` of the seven models it supports (bias_only,
+   MF_dot, deepconn, deepconn++, NARRE, transnet, transnet++) against
+   JAX's factorized top-k in `factorized_ref.npz` and the port's grid
+   top-k (scores within 1e-4); the forward kernel checked and timed on
+   the inputs of NARRE's item tower (B=10240 docs of T=100) and
+   transnet's (B=1024, T=1000) there (`factorized`).
+11. Prints the card, one JSON line of kernel numbers and, last, the
    result line. Any failed check raises and the exit code is not 0.
 
 The kernel launch counts are set to 0 just before each path (serving,
 3; training, 5; input gradient, 6; entity training against JAX, entity
 training through `api.run` and entity serving, 7; review serving,
-review training and the review entity cache, 8) and read just after.
+review training and the review entity cache, 8; id-model serving and
+training, 9; the factorized index, 10) and read just after.
 Without CUDA or the checkout around it, the script exits with an error
 and prints no result.
 
     python3 chip_smoke.py --e2e-full [--seeds N] [--models M,...]
 
 is opt-in: it trains `--models` (default deepconn,deepconn++; also
-NARRE, transnet, transnet++) with the reference's own flags (60 epochs,
-40 for transnet(++), early stop 5, the entity cache) and prints their
+NARRE, transnet, transnet++, bias_only, MF_dot, NeuMF) with the
+reference's own flags (60 epochs, 40 for transnet(++) and 30 for the id
+models, early stop 5, the entity cache for the review models) and prints their
 test metrics (transnet's MSE_right too) beside the JAX package's rows in
 `data/e2e_state.json`. With N > 1 each model runs over seeds 0..N-1 from
 the port's own init and, for the deepconn heads, once from the JAX
@@ -113,12 +128,28 @@ REVIEW_TRAIN_FIXTURE = ROOT / "tests" / "torch_fixtures" / \
     "review_train_ref.npz"
 REVIEW_ENTITY_FIXTURE = ROOT / "tests" / "torch_fixtures" / \
     "review_entity_ref.npz"
+# the id models: JAX's serving outputs, 8 training steps and NeuMF's warm
+# start (make_mf_ref.py); JAX's factorized top-10 of the seven models it
+# factorizes (make_factorized_ref.py)
+MF_FIXTURE = ROOT / "tests" / "torch_fixtures" / "mf_ref.npz"
+FACTORIZED_FIXTURE = ROOT / "tests" / "torch_fixtures" / \
+    "factorized_ref.npz"
 E2E_STATE = ROOT / "data" / "e2e_state.json"
 MODELS = ("deepconn", "deepconn++")
 REVIEW_MODELS = ("NARRE", "transnet", "transnet++")
+MF_MODELS = ("bias_only", "MF_dot", "MF", "GMF", "MLP", "NeuMF")
+# the id models `--e2e-full` trains (the JAX rows of data/e2e_state.json)
+MF_E2E_MODELS = ("bias_only", "MF_dot", "NeuMF")
 # `--e2e-full` epochs where the reference's flags differ from 60
 # (`examples/e2e_realistic.py`)
-E2E_EPOCHS = {"transnet": 40, "transnet++": 40}
+E2E_EPOCHS = {"transnet": 40, "transnet++": 40, "bias_only": 30,
+              "MF_dot": 30, "NeuMF": 30}
+# the models FactorizedRecommender factorizes, with the fixture that
+# holds each one's params
+FACTORIZED = {"bias_only": MF_FIXTURE, "MF_dot": MF_FIXTURE,
+              "deepconn": FIXTURE, "deepconn++": FIXTURE,
+              "NARRE": REVIEW_FIXTURE, "transnet": REVIEW_FIXTURE,
+              "transnet++": REVIEW_FIXTURE}
 # TextCNN towers a training step runs, each one forward and one dG launch
 TOWERS = {"NARRE": 2, "transnet": 3, "transnet++": 3}
 # NARRE's attention scorers' biases. A softmax over the reviews is blind
@@ -155,7 +186,8 @@ SERVE_SHAPE = dict(b=256, t=1000, e=64, f=100, w=3)
 NARRE_SHAPE = dict(b=2560, t=100)
 PHASES = ("kernels", "rows", "serve", "train", "input_grad",
           "entity_vs_jax", "entity_train", "entity_serve", "review_serve",
-          "review_train", "review_entity")
+          "review_train", "review_entity", "mf_serve", "mf_train",
+          "factorized")
 # untrained deepconn's test MSE on the e2e corpus (e2e_ref.npz): two
 # epochs of training must land below it
 UNTRAINED_MSE = 1.524
@@ -166,6 +198,9 @@ UNTRAINED_MSE = 1.524
 # summation order into a fraction of lr; losses and step-1 gradients keep
 # the uncached check's bounds
 ENTITY_PARAMS_TOL = 1e-3
+# an epoch banner of the training log: epoch, seconds, val MSE, examples/s
+_BANNER = (r"end of epoch (\d+) \| time: *([\d.]+)s \| MSE = ([\d.]+) "
+           r"\| examples_per_s = ([\d.]+)")
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s
 # outside the tensor cores, dense TF32 FLOP/s on them
 PEAK_BYTES_S = 3.35e12
@@ -381,14 +416,16 @@ def _check_ranks(name, got_scores, ref_scores):
     return int(moved.sum())
 
 
-def _check_topk(name, ids, scores, ref_ids, ref_scores, tol=1e-4):
-    """Top-k lists must agree in score at every position; an id may
-    differ only where the reference scores tie within `tol`."""
+def _check_topk(name, ids, scores, ref_ids, ref_scores, tol=1e-4,
+                score_tol=1e-3):
+    """Top-k lists must agree in score at every position, within
+    `score_tol`; an id may differ only where the reference scores tie
+    within `tol`."""
     import numpy as np
     if not (np.isfinite(scores).all() and ids.shape == ref_ids.shape):
         raise AssertionError(f"{name}: bad top-k output")
     err = float(np.max(np.abs(scores - ref_scores)))
-    if not err <= 1e-3:
+    if not err <= score_tol:
         raise AssertionError(f"{name}: top-k scores off by {err}")
     swaps = 0
     k = ids.shape[1]
@@ -1301,9 +1338,7 @@ def train_product(torch, textcnn, ds, device) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(textcnn.launches)
-        banners = re.findall(
-            r"end of epoch (\d+) \| time: *([\d.]+)s \| MSE = ([\d.]+) "
-            r"\| examples_per_s = ([\d.]+)", open(hp.log_file()).read())
+        banners = re.findall(_BANNER, open(hp.log_file()).read())
         print(f"training path: api.run deepconn, {hp.epochs} epochs of "
               f"{steps // hp.epochs} steps, {wall:.1f} s: launches "
               f"{launches}")
@@ -1581,9 +1616,7 @@ def train_entity_product(torch, textcnn, ds, device) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(textcnn.launches)
-        banners = re.findall(
-            r"end of epoch (\d+) \| time: *([\d.]+)s \| MSE = ([\d.]+) "
-            r"\| examples_per_s = ([\d.]+)", open(hp.log_file()).read())
+        banners = re.findall(_BANNER, open(hp.log_file()).read())
     print(f"entity training path: api.run deepconn, pallas_fuse_rows, "
           f"{hp.epochs} epochs of {steps // hp.epochs} steps, {wall:.1f} s, "
           f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
@@ -1780,8 +1813,8 @@ def _review_models(ds, device, ref, **flags) -> dict:
 
 
 def _check_review_serving(mt, hp, model, ds, device, ref, pred, scored,
-                          tables=None) -> None:
-    """Predictions within 1e-3 of the fixture's, test MSE (and
+                          tables=None, pred_tol=1e-3) -> None:
+    """Predictions within `pred_tol` of the fixture's, test MSE (and
     transnet's MSE_right and MSE_transform) within 1e-4, count-map keys
     equal, ranks on the 1+5 and 1+eval_num_negs grids equal off the
     fixture's near-ties, and HR / NDCG equal where no rank moved."""
@@ -1804,7 +1837,7 @@ def _check_review_serving(mt, hp, model, ds, device, ref, pred, scored,
         if key.startswith("MSE") and not (
                 abs(metrics[key] - ref_metrics[key]) <= 1e-4 + 1e-9):
             raise AssertionError(f"{mt}: {key} differs")
-    if not perr <= 1e-3:
+    if not perr <= pred_tol:
         raise AssertionError(f"{mt}: predictions off by {perr}")
     if (sorted(ucm) != ref[f"{mt}/user_count_keys"].tolist()
             or sorted(icm) != ref[f"{mt}/item_count_keys"].tolist()):
@@ -2170,11 +2203,353 @@ def profile_review_entity(torch, textcnn, ds, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------
+# the id models (bias_only, MF_dot, MF, GMF, MLP, NeuMF) and the
+# factorized index
+# ---------------------------------------------------------------------
+def _mf_models(ds, device, ref, **flags) -> dict:
+    """{model: (hp, model)} of MF_MODELS at mf_ref.npz's geometry with its
+    stored params."""
+    from reviews4rec_torch.config import HyperParams
+    from reviews4rec_torch.models import build_model
+
+    geom = json.loads(str(ref["geometry"]))
+    geom.pop("steps")
+    out = {}
+    for mt in MF_MODELS:
+        hp = ds.apply_to(HyperParams(model_type=mt, **dict(geom, **flags)))
+        model = build_model(hp, device=device)
+        load_flax_params_from(model, ref, mt)
+        out[mt] = (hp, model)
+    return out
+
+
+def _no_launches(textcnn, what: str) -> dict:
+    """The launches since the last `_reset`, which must all be 0: the id
+    models run no TextCNN."""
+    launches = dict(textcnn.launches)
+    if any(launches.values()):
+        raise AssertionError(f"{what} launched a TextCNN kernel: {launches}")
+    return launches
+
+
+def mf_serve(torch, textcnn, ds, device) -> dict:
+    """The six id models from mf_ref.npz's weights: `predict`, `finalize`
+    and the grid top-10 held against JAX's outputs
+    (`_check_review_serving` with predictions within 1e-5; the top-10 as
+    `serve` holds it), and NeuMF's warm start of the stored NeuMF, GMF
+    and MLP params bitwise JAX's. Returns the path's launches (all 0)."""
+    from reviews4rec_torch.api import finalize
+    from reviews4rec_torch.models.mf import neumf_warm_start
+    from reviews4rec_torch.serve import Recommender, predict
+    from reviews4rec_torch.utils.io import load_npz
+    from reviews4rec_torch.weights import params_from_flax
+
+    ref = load_npz(str(MF_FIXTURE))
+    users = ref["serve_users"]
+    models = _mf_models(ds, device, ref)
+    hp = models["MF_dot"][0]        # the id records, shared by all six
+    ds.materialize(hp, "test")
+    ds.materialize_negs(hp)
+    ds.materialize_wide_negs(hp, hp.eval_num_negs, seed=hp.seed)
+
+    _reset(textcnn)
+    results = {}
+    for mt, (hp, model) in models.items():
+        r = results[mt] = {}
+        r["predict"], r["predict_s"] = _timed(torch, lambda: predict(
+            hp, ds, "test", model=model, device=device))
+        r["finalize"], r["finalize_s"] = _timed(torch, lambda: finalize(
+            hp, model, ds, device=device))
+        r["topk"], r["topk_s"] = _timed(torch, lambda: Recommender(
+            hp, ds, model=model, device=device).topk(users, k=10))
+    launches = _no_launches(textcnn, "id-model serving")
+    for mt, (hp, model) in models.items():
+        r = results[mt]
+        print(f"{mt}: predict {r['predict_s']:.3f} s, finalize "
+              f"{r['finalize_s']:.3f} s, grid top-10 of {len(users)} users "
+              f"{r['topk_s']:.3f} s")
+        _check_review_serving(mt, hp, model, ds, device, ref, r["predict"],
+                              r["finalize"], pred_tol=1e-5)
+        _check_topk(f"{mt} grid top-10 vs JAX", *r["topk"],
+                    ref[f"{mt}/topk_ids"], ref[f"{mt}/topk_scores"])
+
+    got = neumf_warm_start(*(models[mt][1].state_dict()
+                             for mt in ("NeuMF", "GMF", "MLP")))
+    want = params_from_flax(_subtree(ref, "warm/params/"))
+    if set(got) != set(want) or not all(torch.equal(got[k].cpu(), want[k])
+                                        for k in want):
+        raise AssertionError("NeuMF's warm start differs from JAX's")
+    models["NeuMF"][1].load_state_dict(got, strict=True)
+    print(f"NeuMF warm start of the stored NeuMF, GMF and MLP params: "
+          f"bitwise JAX's, {len(want)} tensors")
+    return launches
+
+
+def mf_train(torch, textcnn, ds, device) -> dict:
+    """8 steps of each id model from mf_ref.npz's weights at dropout 0,
+    held against its `steps/` within `_steps_vs_ref`'s bounds; then
+    `api.run` of MF_dot and of NeuMF (its GMF, MLP and NeuMF phases) for
+    2 epochs a phase at dropout 0.6: ms per step from each phase's epoch
+    banners, test MSE below the untrained model's, a checkpoint per
+    phase, and the restored model serving the run's test MSE; then a
+    profile of 50 MF_dot steps. Returns the path's launches (all 0)."""
+    import math
+    import os
+    import re
+    import tempfile
+
+    import numpy as np
+
+    from reviews4rec_torch.api import run
+    from reviews4rec_torch.config import HyperParams
+    from reviews4rec_torch.data import Batcher
+    from reviews4rec_torch.models import build_model
+    from reviews4rec_torch.serve import predict
+    from reviews4rec_torch.train.checkpoint import checkpoint_path
+    from reviews4rec_torch.train.loop import make_optimizer
+    from reviews4rec_torch.utils.device import to_device
+    from reviews4rec_torch.utils.io import load_npz
+
+    ref = load_npz(str(MF_FIXTURE))
+    steps = json.loads(str(ref["geometry"]))["steps"]
+    models = _mf_models(ds, device, ref, dropout=0.0)
+    records = ds.materialize(models["MF_dot"][0], "train")
+    _reset(textcnn)
+    for mt, (hp, model) in models.items():
+        batches = [lambda b=batch: to_device(b, device) for batch, _ in zip(
+            Batcher(records, hp.batch_size), range(steps))]
+        _steps_vs_ref(torch, model, make_optimizer(hp, model), batches, ref,
+                      f"steps/{mt}", "training steps")
+    y = ds.splits["test"].rating
+    n_train = len(ds.splits["train"])
+    for mt in ("MF_dot", "NeuMF"):
+        with tempfile.TemporaryDirectory() as tmp:
+            hp = ds.apply_to(HyperParams(
+                model_type=mt, dataset="e2e", latent_size=10,
+                batch_size=256, eval_num_negs=99, epochs=2, log_dir=tmp,
+                model_dir=tmp))
+            untrained = float(np.mean((predict(
+                hp, ds, "test", model=build_model(hp, device=device),
+                device=device) - y) ** 2))
+            (metrics, _, _), wall = _timed(torch, lambda: run(
+                hp, ds, device=device))
+            print(f"{mt} api.run, 2 epochs a phase: {wall:.1f} s; test "
+                  f"{metrics}; untrained test MSE {untrained:.4f}")
+            per_epoch = math.ceil(n_train / hp.batch_size)
+            phases = ("GMF", "MLP", mt) if mt == "NeuMF" else (mt,)
+            for ph in phases:
+                php = hp.replace(model_type=ph)
+                banners = re.findall(_BANNER, open(php.log_file()).read())
+                if len(banners) != hp.epochs or not os.path.exists(
+                        checkpoint_path(php)):
+                    raise AssertionError(f"{mt}: phase {ph} left no "
+                                         f"checkpoint or epoch banners")
+                for ep, secs, mse, eps in banners:
+                    ms = 1e3 * n_train / float(eps) / per_epoch
+                    print(f"  {ph} epoch {ep}: {float(eps):.1f} train "
+                          f"examples/s, {ms:.3f} ms per step, val MSE "
+                          f"{mse}, epoch {secs} s with val")
+            numbers = [v for k, v in metrics.items() if k != "dataset"]
+            if not np.isfinite(numbers).all():
+                raise AssertionError(f"{mt}: non-finite metrics")
+            if not metrics["MSE"] < untrained:
+                raise AssertionError(f"{mt}: test MSE {metrics['MSE']} after "
+                                     f"training is not below the untrained "
+                                     f"{untrained}")
+            served = float(np.mean((predict(hp, ds, "test", device=device)
+                                    - y) ** 2))    # restores the checkpoint
+            if not abs(served - metrics["MSE"]) <= 5e-5:
+                raise AssertionError(f"{mt}: the restored checkpoint serves "
+                                     f"test MSE {served}, the run "
+                                     f"{metrics['MSE']}")
+    launches = _no_launches(textcnn, "id-model training")
+    profile_mf(torch, ds, device)
+    return launches
+
+
+def profile_mf(torch, ds, device) -> None:
+    """Device time by kernel and the device's busy share over 50 warm
+    MF_dot training steps (B=256, dropout 0.6), through the port's own
+    `trace`."""
+    import tempfile
+
+    from reviews4rec_torch.config import HyperParams
+    from reviews4rec_torch.data import Batcher
+    from reviews4rec_torch.models import build_model
+    from reviews4rec_torch.train.loop import (epoch_generator,
+                                              make_optimizer, train_epoch)
+    from reviews4rec_torch.train.profiler import trace
+
+    hp = ds.apply_to(HyperParams(model_type="MF_dot", dataset="e2e",
+                                 latent_size=10, batch_size=256))
+    recs = ds.materialize(hp, "train")
+    model = build_model(hp, device=device)
+    opt = make_optimizer(hp, model)
+    gen = epoch_generator(hp.seed, 1, device)
+
+    def batches(lo, hi):
+        return Batcher({k: recs[k][lo * 256:hi * 256]
+                        for k in ("user", "item", "rating")}, 256)
+
+    train_epoch(model, opt, batches(0, 5), gen, device)      # warm
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp) as prof:
+            t0 = time.perf_counter()
+            train_epoch(model, opt, batches(5, 55), gen, device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    _print_profile(torch, prof, "50 MF_dot training steps (B=256)", wall,
+                   top=8, host_top=8)
+    print(f"  MF_dot: {1e3 * wall / 50:.3f} ms per step")
+
+
+def _window_f64(torch, x, k, bias, w, rows, cols, starts):
+    """relu(window . K[:, f] + b[f]) in float64 at (rows, cols) for the
+    windows starting at `starts` (padded positions)."""
+    import torch.nn.functional as F
+
+    xp = F.pad(x, (0, 0, w - 1, w - 1))
+    pos = starts.long()[:, None] + torch.arange(w, device=x.device)
+    win = xp[rows[:, None], pos].reshape(len(rows), -1).double()
+    return torch.relu((win * k.double()[:, cols].T).sum(1)
+                      + bias.double()[cols])
+
+
+def _check_time_fwd(torch, textcnn, what: str, x, conv) -> dict:
+    """The forward kernel against its plain version on the inputs of one
+    of the path's launches: out within 1e-4, idx equal except where the
+    two starts' windows lie within 1e-5 of each other in float64 (a
+    near-tie the f32 plain version may break the other way; ROADMAP Queue
+    3, wide E). Then the kernel's device time a launch over 100 launches
+    (profiler) and the plain version's median of 10 calls, beside
+    `_bound` and the 3xTF32 bound."""
+    k, bias = conv.conv_kernel.detach(), conv.conv_bias.detach()
+    w = conv.window
+    out, idx = textcnn.textcnn_pool_forward(x, k, bias, w)
+    ref_out, ref_idx = textcnn.textcnn_pool_reference(x, k, bias, w)
+    err = (out - ref_out).abs().max().item()
+    moved = (idx != ref_idx).nonzero()
+    gap = 0.0
+    if len(moved):
+        rows, cols = moved[:, 0], moved[:, 1]
+        a, b = (_window_f64(torch, x, k, bias, w, rows, cols, s[rows, cols])
+                for s in (idx, ref_idx))
+        gap = (a - b).abs().max().item()
+    print(f"textcnn_pool_fwd {what}: max|out err| {err:.3e}, idx differs "
+          f"from the plain f32 version's at {len(moved)} of {idx.numel()} "
+          f"(windows within {gap:.1e} of each other in float64)")
+    if not (err <= 1e-4 and gap <= 1e-5):
+        raise AssertionError(f"kernel disagrees with the plain version "
+                             f"({what})")
+    n, t, e = x.shape
+    f = k.shape[1]
+    flops = 2.0 * n * (t + w - 1) * w * e * f
+    fwd = lambda: textcnn.textcnn_pool_forward(x, k, bias, w)  # noqa: E731
+    res = dict(_bound(flops, 4.0 * (n * t * e + w * e * f + f) + 8.0 * n * f),
+               tf32x3_ms=1e3 * 3 * flops / PEAK_TF32_FLOP_S,
+               max_abs_err=err, idx_near_ties=len(moved),
+               plain_ms=_median_ms(torch, lambda: textcnn
+                                   .textcnn_pool_reference(x, k, bias, w),
+                                   n=10),
+               **_per_launch(torch, fwd))
+    print(f"  {what}: {res['device_ms']:.4f} ms of device time a launch "
+          f"over 100 launches ({res['launch_ms']:.4f} ms a launch "
+          f"back-to-back), plain {res['plain_ms']:.4f} ms; bound "
+          f"{res['bound_ms']:.4f} ms ({res['bound_by']}; {res['mflop']:.0f} "
+          f"MFLOP, {res['mbytes']:.1f} MB), 3xTF32 {res['tf32x3_ms']:.4f} "
+          f"ms")
+    return res
+
+
+def factorized(torch, textcnn, ds, device):
+    """`FactorizedRecommender` of the seven models it supports, at the
+    weights of mf_ref.npz, e2e_ref.npz and review_ref.npz (item_chunk
+    1024): the index build and a top-10 of `serve_users`, held against
+    JAX's factorized top-10 (factorized_ref.npz) and the port's own grid
+    `Recommender` (scores within 1e-4, ids equal off near-ties). Each
+    TextCNN tower launches the forward kernel once per item chunk and
+    once per query: NARRE's item tower at B=10240 docs of T=100,
+    transnet's at B=1024, T=1000. Then holds the kernel against its plain
+    version on those two launches' inputs and times it there. Returns
+    (the path's launches, {shape: numbers})."""
+    import math
+
+    import numpy as np
+
+    from reviews4rec_torch.config import HyperParams
+    from reviews4rec_torch.models import build_model
+    from reviews4rec_torch.serve import FactorizedRecommender, Recommender
+    from reviews4rec_torch.utils.io import load_npz
+
+    ref = load_npz(str(FACTORIZED_FIXTURE))
+    geom = json.loads(str(ref["geometry"]))
+    chunk = geom.pop("item_chunk")
+    users = ref["serve_users"]
+    fixtures, models = {}, {}
+    for mt, src in FACTORIZED.items():
+        hp = ds.apply_to(HyperParams(model_type=mt, **geom))
+        model = build_model(hp, ds.word_vectors, device=device)
+        if src not in fixtures:
+            fixtures[src] = load_npz(str(src))
+        load_flax_params_from(model, fixtures[src], mt)
+        models[mt] = (hp, model)
+
+    _reset(textcnn)
+    results = {}
+    for mt, (hp, model) in models.items():
+        before = textcnn.launches[textcnn.FWD]
+        index, build_s = _timed(torch, lambda: FactorizedRecommender(
+            hp, ds, model=model, item_chunk=chunk, device=device))
+        top, query_s = _timed(torch, lambda: index.topk(users, k=10))
+        results[mt] = dict(top=top, build_s=build_s, query_s=query_s,
+                           launches=textcnn.launches[textcnn.FWD] - before)
+    launches = dict(textcnn.launches)
+    print(f"factorized path: launches {launches}")
+    if launches[textcnn.FWD] == 0 or any(
+            launches[k] for k in textcnn.KERNELS if k != textcnn.FWD):
+        raise AssertionError("the factorized path must run the forward "
+                             "kernel alone")
+    towers = math.ceil(ds.num_items / chunk) + 1
+    for mt, r in results.items():
+        want = 0 if mt in MF_MODELS else towers
+        print(f"{mt}: index build {r['build_s']:.3f} s, top-10 of "
+              f"{len(users)} users {r['query_s']:.3f} s, forward launches "
+              f"{r['launches']}")
+        if r["launches"] != want:
+            raise AssertionError(f"{mt}: expected {want} forward launches")
+        hp, model = models[mt]
+        _check_topk(f"{mt} factorized vs JAX's factorized top-10", *r["top"],
+                    ref[f"{mt}/topk_ids"], ref[f"{mt}/topk_scores"],
+                    score_tol=1e-4)
+        grid = Recommender(hp, ds, model=model, item_chunk=128,
+                           device=device).topk(users, k=10)
+        _check_topk(f"{mt} factorized vs grid top-10", *r["top"], *grid,
+                    score_tol=1e-4)
+
+    shapes = {}
+    for mt, conv in (("NARRE", "item_conv"), ("transnet", "source_item_conv")):
+        hp, model = models[mt]
+        docs = ds.candidate_grid_records(
+            hp, users[:1], np.arange(chunk, dtype=np.int32))["item_doc"][0]
+        ids = torch.from_numpy(docs.reshape(-1, docs.shape[-1])).to(device)
+        with torch.no_grad():
+            x = model.word_vectors[ids.long()]
+            n, t = x.shape[:2]
+            shapes[f"B={n} T={t}"] = _check_time_fwd(
+                torch, textcnn, f"{mt}'s factorized item tower (B={n}, "
+                f"T={t})", x, getattr(model, conv))
+        del x
+    return launches, shapes
+
+
 def _e2e_run(torch, ds, device, mt: str, seed: int, init=None) -> dict:
     """One run of `mt` with the reference's own flags
     (`examples/e2e_realistic.py`: batch 256, eval_num_negs 99, 60 epochs
-    for deepconn(++) and NARRE and 40 for transnet(++), early stop 5,
-    scan_steps 10, the entity cache without `pallas_fuse_rows`) at
+    for deepconn(++) and NARRE, 40 for transnet(++) and 30 for the id
+    models, early stop 5, scan_steps 10; the review models on the entity
+    cache without `pallas_fuse_rows`) at
     `hp.seed = seed`: through `api.run` from the
     port's own init or, with `init` (a flax params tree), from those
     params through `train_complete` and `finalize`. Returns its test
@@ -2191,12 +2566,12 @@ def _e2e_run(torch, ds, device, mt: str, seed: int, init=None) -> dict:
     from reviews4rec_torch.weights import load_flax_params
 
     jax_row = json.loads(E2E_STATE.read_text())["results"][mt]
+    review = {} if mt in MF_E2E_MODELS else dict(use_pallas=True, **ENTITY)
     with tempfile.TemporaryDirectory() as tmp:
         hp = ds.apply_to(HyperParams(
             model_type=mt, dataset="e2e", batch_size=256, eval_num_negs=99,
-            epochs=E2E_EPOCHS.get(mt, 60), early_stop=5, use_pallas=True,
-            scan_steps=10,
-            seed=seed, log_dir=tmp, model_dir=tmp, **ENTITY))
+            epochs=E2E_EPOCHS.get(mt, 60), early_stop=5, scan_steps=10,
+            seed=seed, log_dir=tmp, model_dir=tmp, **review))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if init is None:
@@ -2458,13 +2833,14 @@ def main(argv=None) -> None:
                              "0..N-1, plus one from the JAX init when N > 1")
     parser.add_argument("--only", default=None,
                         help="comma-separated phases of " + ",".join(PHASES))
+    e2e_choices = MODELS + REVIEW_MODELS + MF_E2E_MODELS
     parser.add_argument("--models", default=",".join(MODELS),
                         help="with --e2e-full: comma-separated models of "
-                             + ",".join(MODELS + REVIEW_MODELS))
+                             + ",".join(e2e_choices))
     args = parser.parse_args(argv)
     e2e_models = tuple(args.models.split(","))
-    if not set(e2e_models) <= set(MODELS + REVIEW_MODELS):
-        unknown = set(e2e_models) - set(MODELS + REVIEW_MODELS)
+    if not set(e2e_models) <= set(e2e_choices):
+        unknown = set(e2e_models) - set(e2e_choices)
         parser.error(f"unknown models {sorted(unknown)}")
     want = set(PHASES if args.only is None else args.only.split(","))
     if not want <= set(PHASES):
@@ -2486,7 +2862,8 @@ def main(argv=None) -> None:
              f"({exc})")
     for need in (CORPUS_DIR / "corpus.npz", FIXTURE, TRAIN_FIXTURE,
                  ENTITY_FIXTURE, INIT_FIXTURE, REVIEW_FIXTURE,
-                 REVIEW_TRAIN_FIXTURE, REVIEW_ENTITY_FIXTURE, E2E_STATE):
+                 REVIEW_TRAIN_FIXTURE, REVIEW_ENTITY_FIXTURE, MF_FIXTURE,
+                 FACTORIZED_FIXTURE, E2E_STATE):
         if not need.exists():
             fail(f"missing {need.relative_to(ROOT)}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2550,6 +2927,15 @@ def main(argv=None) -> None:
     if "review_entity" in want:
         paths["review_entity"] = review_entity(torch, textcnn, ds, device)
         narre = profile_review_entity(torch, textcnn, ds, device)
+    # the id models run no TextCNN kernel; the factorized index of the
+    # TextCNN models runs the plain-x forward alone
+    if "mf_serve" in want:
+        paths["mf_serve"] = mf_serve(torch, textcnn, ds, device)
+    if "mf_train" in want:
+        paths["mf_train"] = mf_train(torch, textcnn, ds, device)
+    if "factorized" in want:
+        paths["factorized"], fac_shapes = factorized(torch, textcnn, ds,
+                                                     device)
     if want != set(PHASES):
         print(f"partial run of {sorted(want)}: no result line")
         return
@@ -2581,6 +2967,11 @@ def main(argv=None) -> None:
         entry["narre_device_ms"] = narre[key]["device_ms"]
         entry["narre_bound_ms"] = narre[key]["bound_ms"]
     kernels[0]["also_replaces"] = pallas.format(47)
+    # device time a launch at the factorized towers' shapes
+    kernels[0]["factorized_shapes"] = {
+        shape: {k: r[k] for k in ("device_ms", "bound_ms", "bound_by",
+                                  "tf32x3_ms", "plain_ms", "max_abs_err")}
+        for shape, r in fac_shapes.items()}
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """Top-level runner of the port.
 
 - `run` trains `hp.model_type` and reports the full metric set, as the
-  JAX package's `api.run` does: deepconn, deepconn++, NARRE, transnet
-  and transnet++ so far (other families raise `NotImplementedError`
-  naming their ROADMAP.md item); transnet adds `MSE_right` and
-  `MSE_transform`.
+  JAX package's `api.run` does: the id models (bias_only, MF_dot, MF,
+  GMF, MLP, NeuMF, the last in its three phases), deepconn, deepconn++,
+  NARRE, transnet and transnet++ so far (other families raise
+  `NotImplementedError` naming their ROADMAP.md item); transnet adds
+  `MSE_right` and `MSE_transform`.
 - `finalize` scores a model the way the JAX package's `api._finalize`
   does: test MSE with the count-vs-MSE maps, HR@1 on the stored 1+5
   candidate sets and, with `hp.eval_num_negs > 0`, the k > num_negs
@@ -27,6 +28,7 @@ from .config import HyperParams
 from .data.batcher import Batcher
 from .data.corpus import ReviewDataset
 from .models import build_model
+from .models.mf import neumf_warm_start
 from .train.checkpoint import checkpoint_path
 from .train.evaluate import (eval_ranking, evaluate, evaluate_cached,
                              split_eval_ks)
@@ -83,6 +85,31 @@ def finalize(hp: HyperParams, model: torch.nn.Module,
     return metrics, ucm, icm
 
 
+def _train_neumf(hp: HyperParams, dataset: ReviewDataset, quiet: bool,
+                 device: DeviceLike) -> torch.nn.Module:
+    """NeuMF's three phases (the JAX package's `api._run_neumf`): GMF,
+    then MLP, each trained to its best-validation params with a
+    checkpoint of its own (the run tag names the model type), then NeuMF
+    initialized from `hp.seed`, warm-started from the two
+    (`neumf_warm_start`) and trained. Returns NeuMF with its
+    best-validation params."""
+    best = {}
+    for mt in ("GMF", "MLP"):
+        php = hp.replace(model_type=mt)
+        model = build_model(php, device=device)
+        best[mt], _ = train_complete(
+            php, model, dataset, quiet=quiet,
+            checkpoint_path=checkpoint_path(php) if hp.save_model else None)
+    model = build_model(hp, device=device)
+    model.load_state_dict(neumf_warm_start(model.state_dict(), best["GMF"],
+                                           best["MLP"]))
+    params, _ = train_complete(
+        hp, model, dataset, quiet=quiet,
+        checkpoint_path=checkpoint_path(hp) if hp.save_model else None)
+    model.load_state_dict(params)
+    return model
+
+
 def run(hp: HyperParams, dataset: Optional[ReviewDataset] = None,
         quiet: bool = True, device: DeviceLike = None
         ) -> Tuple[Dict, Dict, Dict]:
@@ -90,7 +117,8 @@ def run(hp: HyperParams, dataset: Optional[ReviewDataset] = None,
     Returns (metrics, user_count_mse_map, item_count_mse_map). With
     `hp.save_model` (the default) the run's checkpoint, best-validation
     params included, is `train.checkpoint.checkpoint_path(hp)`, which
-    `serve.restore_model` reads."""
+    `serve.restore_model` reads; NeuMF's GMF and MLP phases save theirs
+    under their own model types."""
     if dataset is None:
         dataset = ReviewDataset.load(hp.data_dir())
     hp = dataset.apply_to(hp)
@@ -98,13 +126,16 @@ def run(hp: HyperParams, dataset: Optional[ReviewDataset] = None,
         # RateBeer overall ratings are N/20 (reference data.py:101-102)
         hp = hp.replace(rating_max=20.0)
     start = time.time()
-    model = build_model(hp, dataset.word_vectors, device=device)
     stats: Dict = {}
-    best, _ = train_complete(
-        hp, model, dataset, quiet=quiet,
-        checkpoint_path=checkpoint_path(hp) if hp.save_model else None,
-        stats=stats)
-    model.load_state_dict(best)
+    if hp.model_type == "NeuMF":
+        model = _train_neumf(hp, dataset, quiet, device)
+    else:
+        model = build_model(hp, dataset.word_vectors, device=device)
+        best, _ = train_complete(
+            hp, model, dataset, quiet=quiet,
+            checkpoint_path=checkpoint_path(hp) if hp.save_model else None,
+            stats=stats)
+        model.load_state_dict(best)
     metrics, ucm, icm = finalize(hp, model, dataset, device=device)
     if "train_examples_per_s" in stats:
         metrics["train_examples_per_s"] = stats["train_examples_per_s"]

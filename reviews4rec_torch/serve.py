@@ -1,8 +1,9 @@
 """Serving: predictions for a split and top-k retrieval per user.
 
 Counterpart of `reviews4rec_tpu/serve.py` for the models the port has
-(deepconn, deepconn++, NARRE, transnet, transnet++; transnet serves and
-ranks by its source net):
+(the id models bias_only, MF_dot, MF, GMF, MLP and NeuMF; deepconn,
+deepconn++, NARRE, transnet, transnet++; transnet serves and ranks by
+its source net):
 
 - `predict()` / `save_predictions()`: per-example predictions of a
   rating split, and the reference's `<tag>_{split}_results` files. With
@@ -14,7 +15,9 @@ ranks by its source net):
   device from the entity tables.
 - `FactorizedRecommender`: runs the item tower once over the catalog at
   construction; a query encodes only its users and scores the catalog
-  with the head split per side, exactly (deepconn and deepconn++).
+  with the head split per side, exactly (the JAX package's seven
+  models: bias_only, MF_dot, deepconn, deepconn++, NARRE, transnet,
+  transnet++).
 
 Every entry point takes the model to serve or, without one, restores
 the best-validation params of the checkpoint `api.run` saved
@@ -212,9 +215,10 @@ class Recommender:
 
 
 class FactorizedRecommender:
-    """Two-tower serving index for the models whose head splits exactly
+    """Two-tower serving index for the models whose score splits exactly
     into per-user and per-item terms:
 
+    - bias_only / MF_dot: us(u) + is(i) (+ u.i).
     - deepconn (FM head): the FM over cat(u, i) is
       0.5*sum[(au+bi)^2 - cu - di] + w.cat + b = su + si + au.bi with
       au = u V_u, bi = i V_i and su, si the per-side halves, so a query
@@ -222,25 +226,34 @@ class FactorizedRecommender:
     - deepconn++ (MLP head plus id biases): the head's first layer
       splits as cat(u, i) @ W0 = u @ W0[:L] + i @ W0[L:], so the index
       keeps the item half and a query runs relu(add) @ w1 per pair.
+    - NARRE: each side's per-review towers and its attention over its
+      own reviews, with its own neighbor ids as context, are per entity,
+      so u = u_att + ue[u] and i = i_att + ie[i] are encoded once; per
+      pair only relu((u*i) @ W0 + b0) @ w1 + b1 and the biases run.
+    - transnet / transnet++ (ranked by the source net): the transform's
+      first layer splits like deepconn++'s head, so each side keeps its
+      half of `project_fc0` (and, in '++', its id embedding); per pair
+      relu(uh + ih + b0) @ W1 + b1 and the source FM run.
 
     The item tower runs once over the catalog at construction
-    (`item_chunk` docs at a time); `topk` encodes only the query users.
-    Scores equal the joint forward's up to float reassociation."""
+    (`item_chunk` items at a time; NARRE's towers then encode
+    `item_chunk` x `narre_num_reviews` docs a launch); `topk` encodes
+    only the query users. Scores equal the joint forward's up to float
+    reassociation. Every other gradient model raises the JAX package's
+    `ValueError` (MPCN's co-attention is intrinsically pairwise)."""
 
-    SUPPORTED = ("deepconn", "deepconn++")
+    SUPPORTED = ("bias_only", "MF_dot", "deepconn", "deepconn++", "NARRE",
+                 "transnet", "transnet++")
 
     def __init__(self, hp: HyperParams, dataset: ReviewDataset,
                  model: Optional[torch.nn.Module] = None,
                  item_chunk: int = 1024, items: Optional[np.ndarray] = None,
                  device: DeviceLike = None):
         _check_servable(hp, "FactorizedRecommender")
-        if hp.model_type == "MPCN":
-            raise ValueError("MPCN has no exact two-tower factorization; "
-                             "use Recommender")
         if hp.model_type not in self.SUPPORTED:
-            raise NotImplementedError(
-                f"factorized serving of {hp.model_type!r} is not ported "
-                f"yet (ROADMAP.md, Queue 1 item 10)")
+            raise ValueError(
+                f"{hp.model_type!r} has no exact two-tower factorization "
+                f"(supported: {self.SUPPORTED}); use Recommender")
         if model is None:
             model = restore_model(hp, dataset, device=device)
         self.hp = hp = dataset.apply_to(hp)
@@ -252,15 +265,74 @@ class FactorizedRecommender:
         self.items = np.asarray(items, np.int32)
         self._build(item_chunk)
 
-    def _docs(self, users: np.ndarray, items: np.ndarray, side: str
-              ) -> torch.Tensor:
-        recs = self.dataset.candidate_grid_records(self.hp, users, items)
-        docs = recs["user_doc"][:, 0] if side == "user" \
-            else recs["item_doc"][0]
-        return torch.from_numpy(docs).to(self.device)
+    def _side(self, ids: np.ndarray, side: str) -> Dict[str, torch.Tensor]:
+        """The records of `ids` on one side of a candidate grid, on the
+        device: `ids` and, for review models, the docs (and NARRE's
+        neighbor ids) of the [U, 1] user side or the [1, C] item side,
+        their grid axes dropped."""
+        zero = np.zeros(1, np.int32)
+        if side == "user":
+            recs = self.dataset.candidate_grid_records(self.hp, ids, zero)
+            out = {k: recs[k][:, 0] for k in ("user_doc", "items_reviewed")
+                   if k in recs}
+        else:
+            recs = self.dataset.candidate_grid_records(self.hp, zero, ids)
+            out = {k: recs[k][0] for k in ("item_doc", "users_who_gave")
+                   if k in recs}
+        out["ids"] = ids
+        return to_device(out, self.device)
 
     @torch.inference_mode()
     def _build(self, item_chunk: int) -> None:
+        mt = self.hp.model_type
+        if mt in ("bias_only", "MF_dot"):
+            enc = self._mf()
+        elif mt == "NARRE":
+            enc = self._narre()
+        elif mt.startswith("transnet"):
+            enc = self._transnet()
+        else:
+            enc = self._deepconn()
+        item_enc, user_enc, score = enc
+        vecs, scals = [], []
+        for s in range(0, len(self.items), item_chunk):
+            iv, isc = item_enc(self._side(self.items[s:s + item_chunk],
+                                          "item"))
+            vecs.append(iv)
+            scals.append(isc)
+        self.item_vec = None if vecs[0] is None else torch.cat(vecs)
+        self.item_scal = torch.cat(scals)
+        self._user_enc = lambda users: user_enc(self._side(users, "user"))
+        self._score_chunk = score
+
+    @staticmethod
+    def _dot_score(uv, us, iv, isc):
+        """us + is (+ u.i): the score of the MF models and deepconn."""
+        s = us[:, None] + isc[None, :]
+        return s if uv is None else s + uv @ iv.T
+
+    # `_mf`, `_deepconn`, `_narre` and `_transnet` return (item_enc,
+    # user_enc, score): the encoders map a side's records (`_side`) to
+    # (vectors [N, D] or None, scalars [N]), and `score` maps a query's
+    # and a catalog chunk's to [U, C].
+    def _mf(self):
+        m = self.model
+        gb = m.global_bias[0]
+        dot = self.hp.model_type == "MF_dot"
+
+        def item_enc(rec):
+            ids = rec["ids"]
+            return (m.item_embedding[ids] if dot else None,
+                    m.item_bias[ids] + gb)
+
+        def user_enc(rec):
+            ids = rec["ids"]
+            return (m.user_embedding[ids] if dot else None,
+                    m.user_bias[ids])
+
+        return item_enc, user_enc, self._dot_score
+
+    def _deepconn(self):
         m, L = self.model, self.hp.latent_size
         wv = m.word_vectors
         gb = m.global_bias[0]
@@ -270,52 +342,105 @@ class FactorizedRecommender:
             w1 = m.final.fc1.weight[0]
             b1 = m.final.fc1.bias[0]
 
-            def item_enc(f, ids):
-                return f @ w0[L:] + b0, m.item_bias[ids] + gb
+            def item_enc(rec):
+                f = m.item_conv(rec["item_doc"], table=wv)
+                return f @ w0[L:] + b0, m.item_bias[rec["ids"]] + gb
 
-            def user_enc(f, ids):
-                return f @ w0[:L], m.user_bias[ids]
+            def user_enc(rec):
+                f = m.user_conv(rec["user_doc"], table=wv)
+                return f @ w0[:L], m.user_bias[rec["ids"]]
 
             def score(uv, us, iv, isc):
                 hidden = torch.relu(uv[:, None, :] + iv[None, :, :])
                 return hidden @ w1 + b1 + us[:, None] + isc[None, :]
-        else:
-            v = m.fm.V                                 # [2L, k]
-            w = m.fm.lin.weight[0]
-            b = m.fm.lin.bias[0]
 
-            def half(f, vs, ws):
-                a = f @ vs
-                s = 0.5 * torch.sum(a * a - (f * f) @ (vs * vs), dim=-1)
-                return a, s + f @ ws
+            return item_enc, user_enc, score
 
-            def item_enc(f, ids):
-                bi, si = half(f, v[L:], w[L:])
-                return bi, si + b + gb
+        v = m.fm.V                                     # [2L, k]
+        w = m.fm.lin.weight[0]
+        b = m.fm.lin.bias[0]
 
-            def user_enc(f, ids):
-                return half(f, v[:L], w[:L])
+        def half(f, vs, ws):
+            a = f @ vs
+            s = 0.5 * torch.sum(a * a - (f * f) @ (vs * vs), dim=-1)
+            return a, s + f @ ws
 
-            def score(uv, us, iv, isc):
-                return us[:, None] + isc[None, :] + uv @ iv.T
+        def item_enc(rec):
+            bi, si = half(m.item_conv(rec["item_doc"], table=wv), v[L:],
+                          w[L:])
+            return bi, si + b + gb
 
-        vecs, scals = [], []
-        zero = np.zeros(1, np.int32)
-        for s in range(0, len(self.items), item_chunk):
-            chunk = self.items[s:s + item_chunk]
-            f = m.item_conv(self._docs(zero, chunk, "item"), table=wv)
-            iv, isc = item_enc(f, torch.from_numpy(chunk).to(self.device))
-            vecs.append(iv)
-            scals.append(isc)
-        self.item_vec = torch.cat(vecs)
-        self.item_scal = torch.cat(scals)
+        def user_enc(rec):
+            return half(m.user_conv(rec["user_doc"], table=wv), v[:L], w[:L])
 
-        def encode_users(users: np.ndarray):
-            f = m.user_conv(self._docs(users, zero, "user"), table=wv)
-            return user_enc(f, torch.from_numpy(users).to(self.device))
+        return item_enc, user_enc, self._dot_score
 
-        self._user_enc = encode_users
-        self._score_chunk = score
+    def _narre(self):
+        m, r = self.model, self.hp.narre_num_reviews
+        wv = m.word_vectors
+        gb = m.global_bias[0]
+        w0 = m.final.fc0.weight.T                      # [L, L]
+        b0 = m.final.fc0.bias
+        w1 = m.final.fc1.weight[0]
+        b1 = m.final.fc1.bias[0]
+
+        def attended(conv, docs, ctx, scorer):
+            # the per-review docs [N, R, W] folded into the batch axis
+            n, rr, words = docs.shape
+            f = conv(docs.reshape(n * rr, words), table=wv).reshape(n, rr, -1)
+            return m._attend(f, ctx, scorer, None)
+
+        def item_enc(rec):
+            ids = rec["ids"]
+            i_att = attended(m.item_conv, rec["item_doc"], m.user_embedding[
+                rec["users_who_gave"][:, :r]], m.att_item)
+            return i_att + m.item_embedding[ids], m.item_bias[ids] + gb
+
+        def user_enc(rec):
+            ids = rec["ids"]
+            u_att = attended(m.user_conv, rec["user_doc"], m.item_embedding[
+                rec["items_reviewed"][:, :r]], m.att_user)
+            return u_att + m.user_embedding[ids], m.user_bias[ids]
+
+        def score(uv, us, iv, isc):
+            hidden = torch.relu((uv[:, None, :] * iv[None, :, :]) @ w0 + b0)
+            return hidden @ w1 + b1 + us[:, None] + isc[None, :]
+
+        return item_enc, user_enc, score
+
+    def _transnet(self):
+        m, L = self.model, self.hp.latent_size
+        wv = m.word_vectors
+        w0 = m.project_fc0.weight.T                    # [2L, L]
+        b0 = m.project_fc0.bias
+        w1 = m.project_fc1.weight.T                    # [L, L]
+        b1 = m.project_fc1.bias
+
+        def enc(conv, docs, w0_half, emb, ids):
+            h = conv(docs, table=wv) @ w0_half
+            if m.plus:
+                h = torch.cat([h, emb[ids]], dim=-1)
+            return h, torch.zeros(h.shape[0], device=h.device)
+
+        def item_enc(rec):
+            return enc(m.source_item_conv, rec["item_doc"], w0[L:],
+                       getattr(m, "item_embedding", None), rec["ids"])
+
+        def user_enc(rec):
+            return enc(m.source_user_conv, rec["user_doc"], w0[:L],
+                       getattr(m, "user_embedding", None), rec["ids"])
+
+        def score(uv, us, iv, isc):
+            hidden = torch.relu(uv[:, None, :L] + iv[None, :, :L] + b0)
+            x = hidden @ w1 + b1                       # [U, C, L]
+            if m.plus:
+                lead = x.shape[:2]
+                x = torch.cat([uv[:, None, L:].expand(lead + (-1,)),
+                               iv[None, :, L:].expand(lead + (-1,)), x],
+                              dim=-1)
+            return m.source_fm(x) + us[:, None] + isc[None, :]
+
+        return item_enc, user_enc, score
 
     @torch.inference_mode()
     def topk(self, users: np.ndarray, k: int = 10,
@@ -331,8 +456,8 @@ class FactorizedRecommender:
         for start in range(0, len(self.items), score_items):
             end = min(start + score_items, len(self.items))
             chunk_ids = self.items[start:end]
-            scores = self._score_chunk(uv, us, self.item_vec[start:end],
-                                       self.item_scal[start:end])
+            iv = None if self.item_vec is None else self.item_vec[start:end]
+            scores = self._score_chunk(uv, us, iv, self.item_scal[start:end])
             if exclude_seen:
                 mask = self.dataset.train_pair_mask(users[:, None],
                                                     chunk_ids[None])

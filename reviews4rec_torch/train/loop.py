@@ -1,4 +1,5 @@
-"""Training loop of the port, for the pointwise review towers (deepconn,
+"""Training loop of the port, for the pointwise models (the id models
+bias_only, MF_dot, MF, GMF, MLP, NeuMF; the review towers deepconn,
 deepconn++, NARRE, transnet, transnet++). Counterpart of
 `reviews4rec_tpu/train/loop.py` (`make_optimizer`, `_batch_loss`,
 `train_epoch` and `train_epoch_cached` as one `train_epoch`, the device

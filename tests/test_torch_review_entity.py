@@ -30,7 +30,8 @@ from reviews4rec_torch.api import finalize
 from reviews4rec_torch.config import HyperParams as PortHP
 from reviews4rec_torch.data import ReviewDataset as PortDataset
 from reviews4rec_torch.models import build_model as port_build
-from reviews4rec_torch.serve import Recommender, predict
+from reviews4rec_torch.serve import (FactorizedRecommender, Recommender,
+                                     predict)
 from reviews4rec_torch.train import loop
 from reviews4rec_torch.utils.device import to_device
 from reviews4rec_torch.weights import load_flax_params, params_from_flax
@@ -242,9 +243,7 @@ def test_entity_serving_equals_host(mt, dataset, port_dataset, tmp_path):
 def test_entry_points_default_to_cuda_and_factorized_waits(mt,
                                                            port_dataset):
     """`build_model` runs on CUDA unless asked for the CPU, and the
-    factorized index of these models is still Queue 1 item 10."""
-    from reviews4rec_torch.serve import FactorizedRecommender
-
+    factorized index of these models equals the grid top-k."""
     hp = port_dataset.apply_to(PortHP(model_type=mt, **GEOM))
     if torch.cuda.is_available():
         assert next(port_build(hp, port_dataset.word_vectors)
@@ -253,9 +252,13 @@ def test_entry_points_default_to_cuda_and_factorized_waits(mt,
         with pytest.raises(RuntimeError, match="device='cpu'"):
             port_build(hp, port_dataset.word_vectors)
     model = port_build(hp, port_dataset.word_vectors, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, Queue 1 item 10"):
-        FactorizedRecommender(hp, port_dataset, model=model, device=CPU)
+    users = np.array([1, 4, 17])
+    fi, fs = FactorizedRecommender(hp, port_dataset, model=model,
+                                   item_chunk=8, device=CPU).topk(users, k=5)
+    gi, gs = Recommender(hp, port_dataset, model=model, item_chunk=16,
+                         device=CPU).topk(users, k=5)
+    np.testing.assert_allclose(fs, gs, atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(fi, gi)
 
 
 @pytest.mark.parametrize("mt", MODELS)

@@ -263,7 +263,7 @@ def test_run_returns_the_jax_metric_keys_and_restores(dataset, port_dataset,
      "Queue 1 item 11"),
     (dict(mesh_shape=(2, 1)), "Queue 1 item 13"),
     (dict(loss="BPR"), "Queue 1 item 11"),
-    (dict(model_type="MF_dot"), "Queue 1 item 9"),
+    (dict(model_type="MPCN"), "Queue 1 item 11"),
 ])
 def test_unported_options_raise(option, item, port_dataset, tmp_path):
     hp = port_dataset.apply_to(PortHP(
