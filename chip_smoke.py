@@ -78,14 +78,36 @@
    top-k (scores within 1e-4); the forward kernel checked and timed on
    the inputs of NARRE's item tower (B=10240 docs of T=100) and
    transnet's (B=1024, T=1000) there (`factorized`).
-11. Prints the card, one JSON line of kernel numbers and, last, the
+11. The fused word gather (`use_pallas` + `pallas_fuse_gather`): the two
+   ids kernels (forward and dG on `table[ids]` of the word table)
+   bitwise against the plain-x kernels on `table[ids]` and within the
+   limits of 2 against their plain versions, on the corpus table with
+   real ids (B=256, T=1000 and NARRE's B=2560, T=100), B=250, integer
+   and real-valued ties, E=32, E=64 with W=5, E=256, ids 0 and V-1, and
+   an id outside the table (NaN and -1 in its row, NaN in exactly the dK
+   values its tap touches); two dG launches bitwise equal; timed beside
+   their bounds, plain versions and `F.embedding` + cuDNN conv1d + ReLU
+   + max (`embed`). The five review models with the flags serve and
+   train 8 steps against the JAX fixtures of 3, 4 and 8, bitwise their
+   unfused runs; the peak device memory of a deepconn step with and
+   without; `api.run` of deepconn with the flags at `scan_steps` 10, 2
+   epochs, restored and served (`embed_train`).
+12. `scan_steps` 10, one CUDA-graph replay a group, against 1 from the
+   same init at dropout 0.6: MF_dot, NeuMF (its three phases), deepconn
+   on the fused entity path, uncached, and uncached with the fused
+   gather, NARRE and transnet++ on the entity cache; params and epoch
+   MSE bitwise equal; ms per step in 5 alternating pairs of epochs and
+   a 50-step profile each way (`scan`).
+13. Prints the card, one JSON line of kernel numbers and, last, the
    result line. Any failed check raises and the exit code is not 0.
 
 The kernel launch counts are set to 0 just before each path (serving,
 3; training, 5; input gradient, 6; entity training against JAX, entity
 training through `api.run` and entity serving, 7; review serving,
 review training and the review entity cache, 8; id-model serving and
-training, 9; the factorized index, 10) and read just after.
+training, 9; the factorized index, 10; the fused gather's serving and
+training, 11; the scan groups, 12) and read just after. A CUDA-graph
+replay adds the launches counted while its group was captured.
 Without CUDA or the checkout around it, the script exits with an error
 and prints no result.
 
@@ -94,7 +116,8 @@ and prints no result.
 is opt-in: it trains `--models` (default deepconn,deepconn++; also
 NARRE, transnet, transnet++, bias_only, MF_dot, NeuMF) with the
 reference's own flags (60 epochs, 40 for transnet(++) and 30 for the id
-models, early stop 5, the entity cache for the review models) and prints their
+models, early stop 5, the entity cache for the review models,
+`scan_steps` 10: CUDA-graph groups) and prints their
 test metrics (transnet's MSE_right too) beside the JAX package's rows in
 `data/e2e_state.json`. With N > 1 each model runs over seeds 0..N-1 from
 the port's own init and, for the deepconn heads, once from the JAX
@@ -187,7 +210,7 @@ NARRE_SHAPE = dict(b=2560, t=100)
 PHASES = ("kernels", "rows", "serve", "train", "input_grad",
           "entity_vs_jax", "entity_train", "entity_serve", "review_serve",
           "review_train", "review_entity", "mf_serve", "mf_train",
-          "factorized")
+          "factorized", "embed", "embed_train", "scan")
 # untrained deepconn's test MSE on the e2e corpus (e2e_ref.npz): two
 # epochs of training must land below it
 UNTRAINED_MSE = 1.524
@@ -1229,11 +1252,13 @@ def _steps_vs_ref(torch, model, opt, batches, ref, mt: str, what: str,
 
 def train_vs_jax(torch, ds, device) -> None:
     """8 steps of both heads from the e2e_ref.npz weights at dropout 0,
-    against train_ref.npz, within `_steps_vs_ref`'s bounds."""
+    against train_ref.npz, within `_steps_vs_ref`'s bounds; and how far
+    the port's `capturable` Adam ends from one that takes its bias
+    corrections as host floats."""
     from reviews4rec_torch.config import HyperParams
     from reviews4rec_torch.data import Batcher
     from reviews4rec_torch.models import build_model
-    from reviews4rec_torch.train.loop import make_optimizer
+    from reviews4rec_torch.train.loop import make_optimizer, train_step
     from reviews4rec_torch.utils.device import to_device
     from reviews4rec_torch.utils.io import load_npz
     from reviews4rec_torch.weights import load_flax_params
@@ -1249,8 +1274,24 @@ def train_vs_jax(torch, ds, device) -> None:
         batches = [lambda b=batch: to_device(b, device) for batch, _ in zip(
             Batcher(ds.materialize(hp, "train"), hp.batch_size),
             range(steps))]
-        _steps_vs_ref(torch, model, make_optimizer(hp, model), batches, ref,
-                      mt, "training steps")
+        losses, _, params = _steps_vs_ref(
+            torch, model, make_optimizer(hp, model), batches, ref, mt,
+            "training steps")
+        # the same steps with Adam's bias corrections as host floats (not
+        # `capturable`, the optimizer of the port before CUDA graphs)
+        eager = build_model(hp, ds.word_vectors, device=device)
+        load_flax_params(eager, _subtree(init, f"{mt}/params/"))
+        opt = torch.optim.Adam(eager.parameters(), lr=hp.lr,
+                               weight_decay=hp.weight_decay)
+        eager.train()
+        eager_losses = torch.stack([train_step(eager, opt, batch())[0]
+                                    for batch in batches])
+        state = eager.state_dict()
+        gap = max((params[k] - state[k]).abs().max().item() for k in state)
+        loss_gap = ((losses - eager_losses) / eager_losses).abs().max()
+        print(f"  {mt}: capturable Adam against host-float Adam after "
+              f"{steps} steps: max|param diff| {gap:.2e}, max loss diff "
+              f"{loss_gap.item():.2e} (relative)")
 
 
 # ---------------------------------------------------------------------
@@ -2664,6 +2705,685 @@ def e2e_full(torch, ds, device, seeds: int = 1,
     print(json.dumps({"e2e_full": out}))
 
 
+# ---------------------------------------------------------------------
+# the fused word gather (hp.pallas_fuse_gather): the ids kernels
+# ---------------------------------------------------------------------
+FUSED = dict(use_pallas=True, pallas_fuse_gather=True)
+
+
+def _corpus_ids(torch, ds, b: int, t: int):
+    """[B, T] int32 word ids of real docs on the card: the e2e users'
+    concatenated review docs at 1000 words, cut into docs of T."""
+    (udocs, _), _ = ds._entity_spans(1000)
+    return torch.from_numpy(udocs.reshape(-1, t)[:b].astype("int32")).cuda()
+
+
+def _embed_cases(torch, ds):
+    """(name, table [V, E], ids [B, T], F, W, exact) on the card: the
+    corpus table with real ids at the deepconn and NARRE tower shapes,
+    a B that is no tile multiple, integer ties and exact ties of
+    real-valued windows, JAX's generic branch (E=32; E=64 with W=5) and
+    a wide E. Every case holds ids 0 and V-1."""
+    g = torch.Generator().manual_seed(70)
+    wv = torch.from_numpy(ds.word_vectors).float().cuda()
+    v = wv.shape[0]
+
+    def rand_ids(n, b, t):
+        return torch.randint(0, n, (b, t), generator=g,
+                             dtype=torch.int32).cuda()
+
+    ints = torch.randint(-2, 3, (6, 64), generator=g).float()
+    ints[0] = 0.0
+    cases = [
+        ("corpus B=256 T=1000 real ids", wv, _corpus_ids(torch, ds, 256,
+                                                         1000), 100, 3, False),
+        ("corpus NARRE B=2560 T=100 real ids", wv,
+         _corpus_ids(torch, ds, 2560, 100), 100, 3, False),
+        ("corpus B=250 random ids", wv, rand_ids(v, 250, 1000), 100, 3,
+         False),
+        ("integer ties", ints.cuda(), rand_ids(6, 8, 300), 100, 3, True),
+        ("real-valued ties", torch.randn(4, 64, generator=g).cuda(),
+         rand_ids(4, 8, 300), 100, 3, False),
+        ("E=32 W=5", torch.randn(500, 32, generator=g).cuda(),
+         rand_ids(500, 16, 200), 100, 5, False),
+        ("E=64 W=5", torch.randn(500, 64, generator=g).cuda(),
+         rand_ids(500, 16, 200), 100, 5, False),
+        ("E=256", torch.randn(300, 256, generator=g).cuda(),
+         rand_ids(300, 4, 200), 100, 3, False),
+    ]
+    for _, table, ids, _, _, _ in cases:
+        ids[0, 0], ids[0, 1] = 0, table.shape[0] - 1
+    return cases
+
+
+def _weights(torch, e, f, w, exact, seed):
+    g = torch.Generator().manual_seed(seed)
+    if exact:
+        return (torch.randint(-1, 2, (w * e, f), generator=g).float().cuda(),
+                torch.randint(-3, 4, (f,), generator=g).float().cuda())
+    return ((torch.randn(w * e, f, generator=g) / (w * e) ** 0.5).cuda(),
+            torch.randn(f, generator=g).cuda())
+
+
+def check_embed(torch, textcnn, ds) -> dict:
+    """Both ids kernels against the plain-x kernels on table[ids]
+    (bitwise: out, idx, dK, and dK and db through the two autograd
+    functions) and against their plain versions (out within 1e-4, idx
+    equal except where the two starts' windows lie within 1e-5 in
+    float64, dK within 1e-4 * max(1, max|dK|), db within 1e-4; exact on
+    integer inputs); two dG launches bitwise equal; an id outside
+    [0, V) gives NaN and -1 in its batch row and NaN in exactly the dK
+    values its tap touches. Returns the largest errors against the
+    plain versions."""
+    worst = {"fwd": 0.0, "dg": 0.0}
+    for j, (name, table, ids, f, w, exact) in enumerate(
+            _embed_cases(torch, ds)):
+        b, t = ids.shape
+        e = table.shape[1]
+        k, bias = _weights(torch, e, f, w, exact, 300 + j)
+        gen = torch.Generator().manual_seed(400 + j)
+        g = (torch.randint(-3, 4, (b, f), generator=gen).float() if exact
+             else torch.randn(b, f, generator=gen)).cuda()
+        x = table[ids.long()].contiguous()
+        out_i, idx_i = textcnn.textcnn_pool_fwd_ids(ids, table, k, bias, w)
+        out_x, idx_x = textcnn.textcnn_pool_forward(x, k, bias, w)
+        ref_out, ref_idx = textcnn.textcnn_pool_embed_reference(
+            ids, table, k, bias, w)
+        gated = torch.where(out_i > 0, g, 0.0)
+        dk_i = textcnn.textcnn_pool_bwd_dg_ids(ids, table, gated, idx_i, w)
+        dk_x = textcnn.textcnn_pool_bwd_dg(x, gated, idx_x, w)
+        dk_ref, db_ref = textcnn.textcnn_pool_embed_backward_reference(
+            ids, table, gated, idx_i, w)
+        grads = []
+        for op, src in ((textcnn.textcnn_pool_embed, (ids, table)),
+                        (textcnn.textcnn_pool, (x,))):
+            kr, br = (a.clone().requires_grad_() for a in (k, bias))
+            op(*src, kr, br, w)[0].backward(g)
+            grads.append((kr.grad, br.grad))
+        torch.cuda.synchronize()
+        bitwise = (torch.equal(out_i, out_x) and torch.equal(idx_i, idx_x)
+                   and torch.equal(dk_i, dk_x)
+                   and torch.equal(grads[0][0], grads[1][0])
+                   and torch.equal(grads[0][1], grads[1][1]))
+        out_err = (out_i - ref_out).abs().max().item()
+        moved = (idx_i != ref_idx).nonzero()
+        gap = 0.0
+        if len(moved):
+            rows, cols = moved[:, 0], moved[:, 1]
+            a, c = (_window_f64(torch, x, k, bias, w, rows, cols,
+                                s[rows, cols]) for s in (idx_i, ref_idx))
+            gap = (a - c).abs().max().item()
+        dk_err = (dk_i - dk_ref).abs().max().item()
+        db_err = (grads[0][1] - db_ref).abs().max().item()
+        dk_tol = 0.0 if exact else 1e-4 * max(1.0, dk_ref.abs().max().item())
+        db_tol = 0.0 if exact else 1e-4
+        out_tol = 0.0 if exact else 1e-4
+        print(f"ids kernels {name} (V={table.shape[0]} B={b} T={t} E={e} "
+              f"F={f} W={w}): bitwise the plain-x kernels on table[ids]: "
+              f"{bitwise}; vs plain: max|out err| {out_err:.3e}, idx "
+              f"differs at {len(moved)} of {idx_i.numel()} (windows within "
+              f"{gap:.1e} in float64), max|dK err| {dk_err:.3e} (limit "
+              f"{dk_tol:.1e}), max|db err| {db_err:.3e}; "
+              f"{int(ids.unique().numel())} distinct ids")
+        if not (bitwise and out_err <= out_tol and gap <= 1e-5
+                and (not exact or not len(moved)) and dk_err <= dk_tol
+                and db_err <= db_tol):
+            raise AssertionError(f"the ids kernels disagree ({name})")
+        worst["fwd"] = max(worst["fwd"], out_err)
+        worst["dg"] = max(worst["dg"], dk_err)
+        if j == 0:
+            _check_deterministic(torch, textcnn.BWD_DG_IDS, lambda: textcnn
+                                 .textcnn_pool_bwd_dg_ids(ids, table, gated,
+                                                          idx_i, w))
+            _check_bad_ids(torch, textcnn, table, ids, k, bias, gated, idx_i,
+                           out_x, w)
+    return worst
+
+
+def _check_bad_ids(torch, textcnn, table, ids, k, bias, gated, idx, out,
+                   w) -> None:
+    """Ids V and -1 in batch rows 2 and 3: NaN and -1 in those rows'
+    forward outputs, the others' bits unchanged; and an id V at a doc
+    position that winning windows of row 2 cover: NaN in exactly the dK
+    values that its tap touches, the other values the bits of the launch
+    with the good id."""
+    v = table.shape[0]
+    b, t = ids.shape
+    e = table.shape[1]
+    bad = ids.clone()
+    bad[2, 7], bad[3, 9] = v, -1
+    out_b, idx_b = textcnn.textcnn_pool_fwd_ids(bad, table, k, bias, w)
+    keep = torch.ones(b, dtype=torch.bool, device="cuda")
+    keep[2:4] = False
+    fwd_ok = (bool(torch.isnan(out_b[2:4]).all())
+              and bool((idx_b[2:4] == -1).all())
+              and torch.equal(out_b[keep], out[keep])
+              and torch.equal(idx_b[keep], idx[keep]))
+    # a doc position of row 2 under the middle tap of a live window
+    live = (gated[2] != 0).nonzero()[:, 0]
+    starts = idx[2, live].long() - (w - 1) + w // 2
+    p = int(starts[(starts >= 0) & (starts < t)][0])
+    bad = ids.clone()
+    bad[2, p] = v
+    dk_bad = textcnn.textcnn_pool_bwd_dg_ids(bad, table, gated, idx, w)
+    dk_good = textcnn.textcnn_pool_bwd_dg_ids(ids, table, gated, idx, w)
+    taps = idx[2].long()[None, :] - (w - 1) + torch.arange(
+        w, device="cuda")[:, None]                       # [W, F]
+    hit = (taps == p) & (gated[2] != 0)[None, :]
+    want = hit[:, None, :].expand(w, e, -1).reshape(w * e, -1)
+    torch.cuda.synchronize()
+    nan = torch.isnan(dk_bad)
+    dg_ok = (torch.equal(nan, want) and bool(want.any())
+             and torch.equal(dk_bad[~want], dk_good[~want]))
+    print(f"ids kernels, ids V and -1: NaN and -1 in their batch rows, the "
+          f"others unchanged: {fwd_ok}; an id V under {int(hit.sum())} "
+          f"winning taps: NaN in the {int(want.sum())} dK values they touch "
+          f"and nowhere else, the rest the bits of the good id: {dg_ok}")
+    if not (fwd_ok and dg_ok):
+        raise AssertionError("an id outside the table is not flagged")
+
+
+def _dg_bound_ids(torch, ids, e: int, g, idx, w: int) -> dict:
+    """`_bound` of an ids dG call from the work this run's data needs: the
+    FMAs of the non-zero g; the ids of the distinct doc positions that
+    their winning windows cover and the distinct table rows those ids
+    name, E floats each; g, idx and dK."""
+    b, t = ids.shape
+    f = g.shape[1]
+    nz = g != 0
+    pos = idx.long()[:, :, None] - (w - 1) + torch.arange(w, device="cuda")
+    src = torch.arange(b, device="cuda")[:, None, None].expand_as(pos)
+    sel = nz[:, :, None].expand_as(pos) & (pos >= 0) & (pos < t)
+    covered = torch.zeros(b, t, dtype=torch.bool, device="cuda")
+    covered[src[sel], pos[sel]] = True
+    cells = int(covered.sum())
+    words = int(ids[covered].unique().numel())
+    nbytes = 4.0 * cells + 4.0 * words * e + 4.0 * (2 * b * f + w * e * f)
+    return dict(_bound(2.0 * int(nz.sum()) * w * e, nbytes), cells=cells,
+                words=words)
+
+
+def time_embed(torch, textcnn, ds) -> dict:
+    """Medians of 30 single calls (CUDA events) of each ids kernel on the
+    corpus table and real ids at B=256, T=1000 (E=64, F=100, W=3),
+    beside its plain version, the plain-x kernel on the gathered
+    `table[ids]` (gather included) and a library yardstick the port
+    never calls: `F.embedding`, then cuDNN conv1d + ReLU + max, and
+    `torch.autograd.grad` of that graph with respect to (K, b) for dG;
+    with the device time a launch over 100 back-to-back calls. Also the
+    device time a launch at NARRE's tower shape (B=2560, T=100)."""
+    import torch.nn.functional as F
+
+    f, w = SERVE_SHAPE["f"], SERVE_SHAPE["w"]
+    halo = w - 1
+    table = torch.from_numpy(ds.word_vectors).float().cuda()
+    e = table.shape[1]
+    res = {}
+    for key, (b, t) in (("", (256, 1000)),
+                        ("_narre", (NARRE_SHAPE["b"], NARRE_SHAPE["t"]))):
+        ids = _corpus_ids(torch, ds, b, t)
+        k, bias = _weights(torch, e, f, w, False, 0)
+        out, idx = textcnn.textcnn_pool_fwd_ids(ids, table, k, bias, w)
+        g = torch.randn(b, f, generator=torch.Generator().manual_seed(7))
+        g = torch.where(out > 0, g.cuda(), 0.0)
+        distinct = int(ids.unique().numel())
+        flops = 2.0 * b * (t + halo) * w * e * f
+        fwd_bytes = (4.0 * (b * t + distinct * e + w * e * f + f)
+                     + 8.0 * b * f)
+        fwd = lambda: textcnn.textcnn_pool_fwd_ids(  # noqa: E731
+            ids, table, k, bias, w)
+        dg = lambda: textcnn.textcnn_pool_bwd_dg_ids(  # noqa: E731
+            ids, table, g, idx, w)
+        res["fwd" + key] = dict(_bound(flops, fwd_bytes),
+                                bound_tc_ms=_tc_bound_ms(flops, fwd_bytes),
+                                distinct=distinct, **_per_launch(torch, fwd))
+        res["dg" + key] = dict(_dg_bound_ids(torch, ids, e, g, idx, w),
+                               **_per_launch(torch, dg))
+        if key:
+            continue
+        ids_l = ids.long()
+        k_cf = k.reshape(w, e, f).permute(2, 1, 0).contiguous()
+
+        def lib_fwd():
+            x_cf = F.embedding(ids_l, table).transpose(1, 2)
+            return torch.relu(F.conv1d(x_cf, k_cf, bias, padding=halo)).max(2)
+
+        kg, bg = k_cf.clone().requires_grad_(), bias.clone().requires_grad_()
+        y = torch.relu(F.conv1d(F.embedding(ids_l, table).transpose(1, 2), kg,
+                                bg, padding=halo)).max(2).values
+
+        def lib_dg():
+            return torch.autograd.grad(y, (kg, bg), g, retain_graph=True)
+
+        ref_out, _ = textcnn.textcnn_pool_embed_reference(ids, table, k,
+                                                          bias, w)
+        ref_dk, _ = textcnn.textcnn_pool_embed_backward_reference(
+            ids, table, g, idx, w)
+        lib_dk = lib_dg()[0].permute(2, 1, 0).reshape(w * e, f)
+        if not ((lib_fwd().values - ref_out).abs().max().item() <= 1e-4
+                and (lib_dk - ref_dk).abs().max().item()
+                <= 1e-4 * max(1.0, ref_dk.abs().max().item())):
+            raise AssertionError("the library yardstick computes another "
+                                 "function")
+        gather = lambda: table[ids_l]                    # noqa: E731
+        res["fwd"].update(
+            ms=_median_ms(torch, fwd),
+            plain_ms=_median_ms(torch, lambda: textcnn
+                                .textcnn_pool_embed_reference(ids, table, k,
+                                                              bias, w)),
+            take_ms=_median_ms(torch, lambda: textcnn.textcnn_pool_forward(
+                gather(), k, bias, w)),
+            library_ms=_median_ms(torch, lib_fwd))
+        res["dg"].update(
+            ms=_median_ms(torch, dg),
+            plain_ms=_median_ms(torch, lambda: textcnn
+                                .textcnn_pool_embed_backward_reference(
+                                    ids, table, g, idx, w)),
+            take_ms=_median_ms(torch, lambda: textcnn.textcnn_pool_bwd_dg(
+                gather(), g, idx, w)),
+            library_ms=_median_ms(torch, lib_dg))
+        res["gather_ms"] = _median_ms(torch, gather)
+        res["gated_off"] = int((g == 0).sum())
+    return res
+
+
+def _print_embed_times(textcnn, r) -> None:
+    print(f"ids kernels on the corpus table (8921 x 64) and real ids at "
+          f"B=256 T=1000 E=64 F=100 W=3 f32 ({r['fwd']['distinct']} distinct "
+          f"ids, {r['gated_off']} of 25600 g gated off): the [B, T, E] gather "
+          f"they do without {r['gather_ms']:.4f} ms")
+    for key, name, lib in (("fwd", textcnn.FWD_IDS,
+                            "F.embedding+conv1d+relu+max"),
+                           ("dg", textcnn.BWD_DG_IDS,
+                            "autograd of F.embedding+conv1d+relu+max")):
+        x, n = r[key], r[key + "_narre"]
+        print(f"{name}: kernel {x['ms']:.4f} ms" + _launch_text(x)
+              + f", plain {x['plain_ms']:.4f} ms, plain-x kernel on the "
+              f"gather {x['take_ms']:.4f} ms, {lib} {x['library_ms']:.4f} ms,"
+              f" bound {x['bound_ms']:.4f} ms ({x['bound_by']}; "
+              f"{x['mflop']:.2f} MFLOP, {x['mbytes']:.2f} MB"
+              + (f", {x['cells']} doc positions, {x['words']} table rows"
+                 if "cells" in x else "") + ")"
+              + (f", 3xTF32 tensor-core bound {x['bound_tc_ms']:.4f} ms"
+                 if "bound_tc_ms" in x else ""))
+        print(f"{name} at NARRE B={NARRE_SHAPE['b']} T={NARRE_SHAPE['t']} "
+              f"real ids: {n['device_ms']:.4f} ms of device time a launch "
+              f"({n['launch_ms']:.4f} ms a launch back-to-back), bound "
+              f"{n['bound_ms']:.4f} ms ({n['bound_by']}; {n['mflop']:.2f} "
+              f"MFLOP, {n['mbytes']:.2f} MB)")
+
+
+def _ids_only(textcnn, launches: dict, what: str) -> None:
+    """A fused-gather path launches the ids kernels and no plain-x one."""
+    if not (launches[textcnn.FWD_IDS] and launches[textcnn.BWD_DG_IDS]):
+        raise AssertionError(f"{what}: the ids kernels did not launch: "
+                             f"{launches}")
+    if launches[textcnn.FWD] or launches[textcnn.BWD_DG] \
+            or launches[textcnn.BWD_DX]:
+        raise AssertionError(f"{what}: a plain-x kernel launched: "
+                             f"{launches}")
+
+
+def _step_peak_mb(torch, ds, device, flags) -> float:
+    """Peak device memory, MB, of one deepconn training step at B=256,
+    T=1000 (after a warm step), with the model and optimizer state."""
+    from reviews4rec_torch.config import HyperParams
+    from reviews4rec_torch.data import Batcher
+    from reviews4rec_torch.models import build_model
+    from reviews4rec_torch.train.loop import make_optimizer, train_step
+    from reviews4rec_torch.utils.device import to_device
+
+    hp = ds.apply_to(HyperParams(model_type="deepconn", dataset="e2e",
+                                 latent_size=10, batch_size=256, **flags))
+    model = build_model(hp, ds.word_vectors, device=device)
+    opt = make_optimizer(hp, model)
+    recs = ds.materialize(hp, "train")
+    batches = iter(Batcher({k: v[:512] for k, v in recs.items()}, 256))
+    model.train()
+    train_step(model, opt, to_device(next(batches), device))
+    batch = to_device(next(batches), device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train_step(model, opt, batch)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e6
+
+
+def embed_train(torch, textcnn, ds, device) -> dict:
+    """The five review models with `use_pallas` and `pallas_fuse_gather`
+    (the ids kernels on every tower over word ids): deepconn and
+    deepconn++ serve against e2e_ref.npz (predictions, test MSE) and
+    train 8 steps against train_ref.npz; NARRE, transnet and transnet++
+    serve against review_ref.npz (`_check_review_serving`) and train 8
+    steps against review_train_ref.npz, all at the tolerances of those
+    checks and each bitwise equal to the same run without the flags
+    (predictions, params after 8 steps). Then `api.run` of deepconn
+    uncached with the flags and `scan_steps` 10 (CUDA-graph groups), 2
+    epochs, restored and served. Prints the peak device memory of one
+    deepconn step with and without the flags. Returns the launches of
+    the flagged path."""
+    import math
+    import re
+    import tempfile
+
+    import numpy as np
+
+    from reviews4rec_torch.api import finalize, run
+    from reviews4rec_torch.config import HyperParams
+    from reviews4rec_torch.data import Batcher
+    from reviews4rec_torch.models import build_model
+    from reviews4rec_torch.serve import predict, restore_model
+    from reviews4rec_torch.train.loop import make_optimizer
+    from reviews4rec_torch.utils.device import to_device
+    from reviews4rec_torch.utils.io import load_npz
+    from reviews4rec_torch.weights import load_flax_params
+
+    e2e, e2e_train = load_npz(str(FIXTURE)), load_npz(str(TRAIN_FIXTURE))
+    rev, rev_train = (load_npz(str(REVIEW_FIXTURE)),
+                      load_npz(str(REVIEW_TRAIN_FIXTURE)))
+
+    def setup(mt, fixture, train_fixture, flags):
+        geom = json.loads(str(fixture["geometry"]))
+        tgeom = json.loads(str(train_fixture["geometry"]))
+        steps = tgeom.pop("steps")
+        hp = ds.apply_to(HyperParams(model_type=mt, **geom, **flags))
+        thp = ds.apply_to(HyperParams(model_type=mt, **tgeom, **flags))
+        model = build_model(hp, ds.word_vectors, device=device)
+        load_flax_params(model, _subtree(fixture, f"{mt}/params/"))
+        tmodel = build_model(thp, ds.word_vectors, device=device)
+        load_flax_params(tmodel, _subtree(fixture, f"{mt}/params/"))
+        recs = ds.materialize(thp, "train")
+        batches = [lambda b=batch: to_device(b, device) for batch, _ in zip(
+            Batcher(recs, thp.batch_size), range(steps))]
+        return hp, model, thp, tmodel, batches
+
+    fixtures = {mt: (e2e, e2e_train) for mt in MODELS}
+    fixtures.update({mt: (rev, rev_train) for mt in REVIEW_MODELS})
+    flips = {mt: FLIP_SHARE if mt in REVIEW_MODELS else 0.0
+             for mt in fixtures}
+    # the unflagged runs first, outside the path's counts
+    plain = {}
+    for mt, (fx, tfx) in fixtures.items():
+        hp, model, thp, tmodel, batches = setup(mt, fx, tfx, {})
+        pred = predict(hp, ds, "test", model=model, device=device)
+        _, _, params = _steps_vs_ref(torch, tmodel, make_optimizer(
+            thp, tmodel), batches, tfx, mt, "training steps, unfused",
+            flips=flips[mt])
+        plain[mt] = (pred, params)
+    peak = {name: _step_peak_mb(torch, ds, device, flags)
+            for name, flags in (("unfused", {}), ("fused", FUSED))}
+    print(f"peak device memory of one deepconn step (B=256, T=1000): "
+          f"unfused {peak['unfused']:.1f} MB, fused {peak['fused']:.1f} MB, "
+          f"{peak['unfused'] - peak['fused']:.1f} MB less fused")
+    if not peak["fused"] < peak["unfused"]:
+        raise AssertionError("the fused step holds no less device memory")
+
+    _reset(textcnn)
+    for mt, (fx, tfx) in fixtures.items():
+        hp, model, thp, tmodel, batches = setup(mt, fx, tfx, FUSED)
+        pred, secs = _timed(torch, lambda: predict(hp, ds, "test",
+                                                   model=model,
+                                                   device=device))
+        scored = finalize(hp, model, ds, device=device)
+        same = np.array_equal(pred, plain[mt][0])
+        print(f"{mt} fused gather: predict {secs:.3f} s, bitwise the "
+              f"unfused predictions: {same}")
+        if not same:
+            raise AssertionError(f"{mt}: fused predictions differ")
+        if mt in REVIEW_MODELS:
+            _check_review_serving(mt, hp, model, ds, device, fx, pred, scored)
+        else:
+            perr = float(np.max(np.abs(pred - fx[f"{mt}/test_pred"])))
+            ref_mse = json.loads(str(fx[f"{mt}/metrics"]))["MSE"]
+            print(f"  {mt} predictions max|err| {perr:.3e}; test MSE "
+                  f"{scored[0]['MSE']} (JAX {ref_mse})")
+            if not (perr <= 1e-3
+                    and abs(scored[0]["MSE"] - ref_mse) <= 1e-4 + 1e-9):
+                raise AssertionError(f"{mt}: fused serving differs from JAX")
+        _, _, params = _steps_vs_ref(
+            torch, tmodel, make_optimizer(thp, tmodel), batches, tfx, mt,
+            "training steps, fused gather", flips=flips[mt])
+        same = all(torch.equal(params[k], plain[mt][1][k]) for k in params)
+        print(f"  {mt}: params after {len(batches)} fused steps bitwise the "
+              f"unfused run's: {same}")
+        if not same:
+            raise AssertionError(f"{mt}: fused training differs")
+    _ids_only(textcnn, textcnn.launches, "fused serving and training")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        hp = ds.apply_to(HyperParams(
+            model_type="deepconn", dataset="e2e", latent_size=10,
+            batch_size=256, eval_num_negs=99, epochs=2, scan_steps=10,
+            log_dir=tmp, model_dir=tmp, **FUSED))
+        steps = hp.epochs * math.ceil(len(ds.splits["train"]) /
+                                      hp.batch_size)
+        before = dict(textcnn.launches)
+        (metrics, _, _), wall = _timed(torch, lambda: run(hp, ds,
+                                                          device=device))
+        ran = {k: textcnn.launches[k] - before[k] for k in before}
+        banners = re.findall(_BANNER, open(hp.log_file()).read())
+        print(f"api.run deepconn fused gather, scan_steps 10, {hp.epochs} "
+              f"epochs of {steps // hp.epochs} steps: {wall:.1f} s, launches "
+              f"{ran}; epochs {banners}; test {metrics}")
+        vals = [float(m) for _, _, m, _ in banners]
+        if not (len(vals) == hp.epochs and vals[-1] < UNTRAINED_MSE
+                and np.isfinite([metrics[k] for k in ("MSE", "HR@1",
+                                                      "NDCG@10")]).all()):
+            raise AssertionError("the fused scan run did not train")
+        # one warm-up step runs before the capture
+        if ran[textcnn.BWD_DG_IDS] != 2 * (steps + 1):
+            raise AssertionError(f"expected {2 * (steps + 1)} ids dG "
+                                 f"launches")
+        restored = restore_model(hp, ds, device=device)
+        pred = predict(hp, ds, "test", model=restored, device=device)
+        test_mse = float(np.mean((pred - ds.splits["test"].rating) ** 2))
+        print(f"  restored: test MSE from predict {test_mse:.6f} (run "
+              f"{metrics['MSE']})")
+        if not abs(test_mse - metrics["MSE"]) <= 5e-5:
+            raise AssertionError("the restored fused model serves another "
+                                 "model")
+    launches = dict(textcnn.launches)
+    _ids_only(textcnn, launches, "the fused-gather path")
+    print(f"fused-gather path: launches {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------
+# hp.scan_steps: S training steps per CUDA-graph replay
+# ---------------------------------------------------------------------
+SCAN_CASES = (
+    ("MF_dot", "MF_dot", {}),
+    ("NeuMF", "NeuMF", {}),
+    ("deepconn fused entity", "deepconn", dict(ENTITY,
+                                               pallas_fuse_rows=True)),
+    ("deepconn uncached", "deepconn", {}),
+    ("deepconn uncached fused gather", "deepconn", FUSED),
+    ("NARRE entity", "NARRE", ENTITY),
+    ("transnet++ entity", "transnet++", ENTITY),
+)
+
+
+def _scan_setup(ds, device, mt, flags):
+    """(hp, train records for the Batcher, device cache) of one epoch of
+    `mt` at full width (batch 256, dropout 0.6), as `train_complete`
+    builds them."""
+    import numpy as np
+
+    from reviews4rec_torch.config import HyperParams
+    from reviews4rec_torch.train import loop
+    from reviews4rec_torch.utils.device import to_device
+
+    hp = ds.apply_to(HyperParams(model_type=mt, dataset="e2e",
+                                 latent_size=10, batch_size=256, dropout=0.6,
+                                 shuffle_data_every_epoch=True, **flags))
+    _, use_entity = loop._cache_mode(hp)
+    if use_entity:
+        recs = ds.materialize_entity(hp, "train")
+        tables = loop.build_entity_tables(hp, ds, device)
+        if loop.fuse_rows_for(hp):
+            tables = loop._fuse_tables(tables)
+        cache = loop.EntityCache(to_device(recs, device), tables)
+        return hp, {"row": np.arange(len(recs["rating"]))}, cache
+    return hp, ds.materialize(hp, "train"), None
+
+
+def _scan_model(ds, device, hp):
+    from reviews4rec_torch.models import build_model
+    from reviews4rec_torch.train.loop import make_optimizer
+    wv = ds.word_vectors if hp.family == "review" else None
+    model = build_model(hp, wv, device=device)
+    return model, make_optimizer(hp, model)
+
+
+def _scan_epoch(torch, ds, device, hp, recs, cache, model, opt, scan,
+                epoch: int, rows=None):
+    """`train_epoch` of epoch `epoch` (its shuffle and dropout stream),
+    over the first `rows` records if given."""
+    from reviews4rec_torch.data import Batcher
+    from reviews4rec_torch.train.loop import epoch_generator, train_epoch
+    if rows is not None:
+        recs = {k: v[:rows] for k, v in recs.items()}
+    batcher = Batcher(recs, hp.batch_size,
+                      shuffle=hp.shuffle_data_every_epoch and rows is None,
+                      seed=hp.seed)
+    batcher.set_epoch(epoch - 1)
+    return train_epoch(model, opt, batcher, epoch_generator(
+        hp.seed, epoch, device), device, cache, scan)
+
+
+def _launch_calls(torch, prof) -> int:
+    """Kernel and graph launches the host issued in a profile."""
+    names = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+             "cuLaunchKernelEx", "cudaGraphLaunch")
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CPU
+               and ev.key in names)
+
+
+def _profile_scan(torch, ds, device, what, hp, recs, cache, runs) -> None:
+    """50 warm training steps with scan_steps 1 and (5 replays) 10:
+    device busy share, kernels a step and host launch calls a step."""
+    import tempfile
+
+    from reviews4rec_torch.train.profiler import trace
+
+    for steps in (1, 10):
+        model, opt, scan = runs[steps]
+        _scan_epoch(torch, ds, device, hp, recs, cache, model, opt, scan, 9,
+                    rows=10 * hp.batch_size)                # warm
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            with trace(tmp) as prof:
+                t0 = time.perf_counter()
+                _scan_epoch(torch, ds, device, hp, recs, cache, model, opt,
+                            scan, 10, rows=50 * hp.batch_size)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        rows = _print_profile(torch, prof, f"50 {what} training steps, "
+                              f"scan_steps {steps}", wall, top=4)
+        kernels = sum(r[2] for r in rows if not r[1].startswith("Memcpy")
+                      and not r[1].startswith("Memset"))
+        print(f"  {what}, scan_steps {steps}: {1e3 * wall / 50:.3f} ms per "
+              f"step, {kernels / 50:.1f} kernels a step on the device, "
+              f"{_launch_calls(torch, prof) / 50:.2f} host launch calls a "
+              f"step")
+
+
+def scan(torch, textcnn, ds, device) -> dict:
+    """`hp.scan_steps` 10 (one CUDA-graph replay a group of 10 steps)
+    against 1, from the same init at dropout 0.6, for each of
+    SCAN_CASES: one epoch (two for the fused entity deepconn, whose
+    second re-keys the registered dropout generator), params and epoch
+    MSE bitwise equal; then ms per step both ways in 5 alternating
+    pairs of epochs, and a profile of 50 steps both ways (device busy
+    share, kernels and host launch calls a step). NeuMF runs its three
+    phases (`api._train_neumf`, 1 epoch a phase) both ways, final params
+    and every phase's epoch MSE bitwise equal. Returns the launches of
+    the path."""
+    import statistics
+    import tempfile
+
+    from reviews4rec_torch import api
+    from reviews4rec_torch.config import HyperParams
+    from reviews4rec_torch.train import loop
+
+    _reset(textcnn)
+    for name, mt, flags in SCAN_CASES:
+        hp, recs, cache = _scan_setup(ds, device, mt, flags)
+        if cache is None:   # the record keys the model reads
+            recs = loop._model_records(_scan_model(ds, device, hp)[0], recs)
+        epochs = 2 if name == "deepconn fused entity" else 1
+        runs, mse = {}, {}
+        for steps in (1, 10):
+            model, opt = _scan_model(ds, device, hp)
+            sc = (loop.ScanSteps(model, opt, steps, device, cache)
+                  if steps > 1 else None)
+            before = dict(textcnn.launches)
+            mse[steps] = [_scan_epoch(torch, ds, device, hp, recs, cache,
+                                      model, opt, sc, ep)["MSE"]
+                          for ep in range(1, epochs + 1)]
+            torch.cuda.synchronize()
+            ran = {k: textcnn.launches[k] - before[k] for k in before
+                   if textcnn.launches[k] != before[k]}
+            runs[steps] = (model, opt, sc)
+            print(f"scan {name}, scan_steps {steps}: {epochs} epoch(s), "
+                  f"epoch MSE {mse[steps]}, TextCNN launches {ran}"
+                  + (f", a replay {sc.launches}" if sc else ""))
+        same = all(torch.equal(a, b) for a, b in zip(
+            runs[1][0].state_dict().values(),
+            runs[10][0].state_dict().values()))
+        print(f"  {name}: params bitwise equal {same}, epoch MSE equal "
+              f"{mse[1] == mse[10]}")
+        if not (same and mse[1] == mse[10]):
+            raise AssertionError(f"scan {name}: scan_steps 10 differs from 1")
+        ms = {1: [], 10: []}
+        for pair in range(5):
+            for steps in ((1, 10) if pair % 2 == 0 else (10, 1)):
+                model, opt, sc = runs[steps]
+                m = _scan_epoch(torch, ds, device, hp, recs, cache, model,
+                                opt, sc, 2 + epochs + pair)
+                ms[steps].append(m["ms_per_step"])
+        print(f"  {name} ms per step in 5 alternating pairs: scan_steps 1 "
+              f"{ms[1]} (median {statistics.median(ms[1])}), scan_steps 10 "
+              f"{ms[10]} (median {statistics.median(ms[10])})")
+        _profile_scan(torch, ds, device, name, hp, recs, cache, runs)
+        del runs, cache
+        torch.cuda.empty_cache()
+
+    # NeuMF's three phases through train_complete
+    seen = {1: [], 10: []}
+    final = {}
+    real = loop.train_epoch
+    for steps in (1, 10):
+        def record(*a, _s=steps, **k):
+            m = real(*a, **k)
+            seen[_s].append(m["MSE"])
+            return m
+        loop.train_epoch = record
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                hp = ds.apply_to(HyperParams(
+                    model_type="NeuMF", dataset="e2e", latent_size=10,
+                    batch_size=256, epochs=1, scan_steps=steps,
+                    log_dir=tmp, model_dir=tmp))
+                final[steps] = api._train_neumf(hp, ds, True, device)
+        finally:
+            loop.train_epoch = real
+    same = all(torch.equal(a, b) for a, b in zip(
+        final[1].state_dict().values(), final[10].state_dict().values()))
+    print(f"scan NeuMF three phases (GMF, MLP, NeuMF): epoch MSE "
+          f"{seen[1]} and {seen[10]}, final params bitwise equal {same}")
+    if not (same and seen[1] == seen[10] and len(seen[1]) == 3):
+        raise AssertionError("scan NeuMF: scan_steps 10 differs from 1")
+    launches = dict(textcnn.launches)
+    print(f"scan path: launches {launches}")
+    for k in (textcnn.FWD, textcnn.BWD_DG, textcnn.FWD_ROWS,
+              textcnn.BWD_DG_ROWS, textcnn.FWD_IDS, textcnn.BWD_DG_IDS):
+        if not launches[k]:
+            raise AssertionError(f"scan path: {k} never launched")
+    return launches
+
+
 def profile_predict(torch, ds) -> None:
     """Device time by kernel over one deepconn `predict` pass."""
     from torch.profiler import ProfilerActivity, profile
@@ -2936,6 +3656,17 @@ def main(argv=None) -> None:
     if "factorized" in want:
         paths["factorized"], fac_shapes = factorized(torch, textcnn, ds,
                                                      device)
+    # the fused word gather: the ids kernels alone on every tower over
+    # word ids (serving, 8 steps, api.run on CUDA-graph groups)
+    if "embed" in want:
+        embed_err = check_embed(torch, textcnn, ds)
+        embed = time_embed(torch, textcnn, ds)
+        _print_embed_times(textcnn, embed)
+    if "embed_train" in want:
+        paths["embed_train"] = embed_train(torch, textcnn, ds, device)
+    # scan_steps 10 as CUDA-graph replays: every kernel but the dx
+    if "scan" in want:
+        paths["scan"] = scan(torch, textcnn, ds, device)
     if want != set(PHASES):
         print(f"partial run of {sorted(want)}: no result line")
         return
@@ -2948,7 +3679,9 @@ def main(argv=None) -> None:
             (textcnn.BWD_DG, bwd["dg"], bwd_err["dg"], 448),
             (textcnn.BWD_DX, bwd["dx"], bwd_err["dx"], 380),
             (textcnn.FWD_ROWS, rows["fwd"], rows_err["fwd"], 945),
-            (textcnn.BWD_DG_ROWS, rows["dg"], rows_err["dg"], 1001)):
+            (textcnn.BWD_DG_ROWS, rows["dg"], rows_err["dg"], 1001),
+            (textcnn.FWD_IDS, embed["fwd"], embed_err["fwd"], 768),
+            (textcnn.BWD_DG_IDS, embed["dg"], embed_err["dg"], 784)):
         by_path = {path: counts[name] for path, counts in paths.items()}
         kernels.append({
             "name": name, "route": "cuda",
@@ -2967,6 +3700,13 @@ def main(argv=None) -> None:
         entry["narre_device_ms"] = narre[key]["device_ms"]
         entry["narre_bound_ms"] = narre[key]["bound_ms"]
     kernels[0]["also_replaces"] = pallas.format(47)
+    # the fused entry's forward reaches `_paired_call` or
+    # `_forward_generic`; its dG replaces `_bwd_embed`'s regather
+    kernels[5]["also_replaces"] = [pallas.format(262), pallas.format(347)]
+    for entry, key in ((kernels[5], "fwd"), (kernels[6], "dg")):
+        entry["device_ms"] = embed[key]["device_ms"]
+        entry["narre_device_ms"] = embed[key + "_narre"]["device_ms"]
+        entry["narre_bound_ms"] = embed[key + "_narre"]["bound_ms"]
     # device time a launch at the factorized towers' shapes
     kernels[0]["factorized_shapes"] = {
         shape: {k: r[k] for k in ("device_ms", "bound_ms", "bound_by",

@@ -107,7 +107,13 @@ class HyperParams:
     total_items: int = 0
     total_words: int = 0
 
-    # ---- runtime switches of the JAX package (not read by the port) ----
+    # ---- runtime switches of the JAX package ----
+    # The port reads: mesh_shape (a mesh is refused, Queue 1 item 13),
+    # embedding_lookup, use_pallas with pallas_fuse_gather (the fused word
+    # gather, `ops.textcnn.textcnn_pool_embed`), scan_steps (S steps per
+    # dispatch, a CUDA-graph replay on the card), the cache_* switches and
+    # pallas_fuse_rows. compute_dtype and seq_parallel are the JAX
+    # package's alone: the port computes in f32.
     mesh_shape: Tuple[int, ...] = (1, 1)
     mesh_axes: Tuple[str, ...] = ("data", "model")
     compute_dtype: str = "float32"

@@ -11,7 +11,10 @@
 // of every TextCNN tower over the frozen word table, where dx is dead, as
 // `textcnn_pool_bwd_dg_f32`; and `_gathered_bwd_dg_kernel` (launched from
 // `_gathered_dg`), the same on table[rows] of a whole [N, T, E] entity doc
-// table, as `textcnn_pool_bwd_dg_rows_f32`. The TPU kernels rebuild a
+// table, as `textcnn_pool_bwd_dg_rows_f32`; and, as
+// `textcnn_pool_bwd_dg_ids_f32`, the dK of `textcnn_pool_embed`'s backward
+// `_bwd_embed` (:784), which regathers the W winning taps from word ids
+// (a plain XLA gather and einsum on the TPU). The TPU kernels rebuild a
 // winner mask over every window start and run one matmul with it; none of
 // that layout carries over: the work is a gather of the W winning taps per
 // (b, f) and a reduction over b.
@@ -66,11 +69,19 @@
 // the same inputs give the same bits; a lane's vector width does not
 // enter the order, so aligned and unaligned x agree bitwise too.
 //
-// One body, two forms. kGather changes only where a batch row's window is
-// read: x[b] or table[rows[b]]. The staging, the order of the sums and the
-// tiling are the same, so the rows form is bitwise the plain-x form on
-// table[rows]. A row outside [0, N) with a non-zero g reads NaN in place
-// of each in-doc tap, which reaches every dK value those taps touch.
+// One body, three forms. kSrc changes only where a batch row's window is
+// read: x[b], table[rows[b]] (rows), or tap by tap table[ids[b, p]] of a
+// [V, E] word table (ids: the block also stages the W ids of each of its
+// rows' windows, ids_pad[b, idx + w], beside the rest of step 1, and a
+// lane's vector of tap w reads E floats' worth of row ids[...] in place
+// of x). The staging, the order of the sums and the tiling are the same,
+// so the rows form is bitwise the plain-x form on table[rows] and the ids
+// form on table[ids]. A row outside [0, N) (rows) or an id outside
+// [0, V) (ids, W <= 8) with a non-zero g reads NaN in place of each
+// in-doc tap it covers, which reaches every dK value those taps touch.
+// The ids form's bound counts the bytes of the winning windows' ids and
+// of the distinct table rows they touch (chip_smoke.py, on the run's
+// data).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -84,6 +95,10 @@ constexpr int kUnroll = 4;                // windows in flight per warp
 constexpr int kChunk = 256;               // span floats a warp sums per pass
 constexpr int kMaxSliceRows = 512;        // staged batch rows per block
 constexpr int kTargetBlocks = 4 * 132;    // four blocks on each of 132 SMs
+constexpr int kMaxIdsWindow = 8;          // taps a row the ids form stages
+
+// where a batch row's window is read
+enum Source { kPlain = 0, kRows = 1, kIds = 2 };
 static_assert(kChunk == kThreads, "one thread per chunk float in the warp sum");
 
 // one staged batch row of a block's slice
@@ -116,9 +131,11 @@ __device__ __forceinline__ void load_vec(const float* p, float (&v)[kVec]) {
   }
 }
 
-// kGather: x is a [N, T, E] table and batch row b reads x[rows[b]].
+// kSrc == kRows: x is a [N, T, E] table and batch row b reads x[rows[b]].
+// kSrc == kIds: x is a [N, E] word table, `rows` holds ids [B, T] and doc
+// position p of batch row b is x[rows[b * T + p]].
 // kVec: floats a lane loads at once (4 needs E % 4 == 0 and aligned x).
-template <bool kGather, int kVec>
+template <int kSrc, int kVec>
 __global__ void __launch_bounds__(kThreads, 4)
 textcnn_pool_bwd_dg_kernel(const float* __restrict__ x, const int* __restrict__ rows,
                            const float* __restrict__ g, const int* __restrict__ idx,
@@ -127,7 +144,8 @@ textcnn_pool_bwd_dg_kernel(const float* __restrict__ x, const int* __restrict__ 
                            int B, int T, int E, int F, int W, int per_warp) {
   constexpr int kSlots = kChunk / 32 / kVec;  // vectors a lane holds per pass
   __shared__ Row staged[kMaxSliceRows];
-  __shared__ int src_row[kGather ? kMaxSliceRows : 1];
+  __shared__ int src_row[kSrc == kRows ? kMaxSliceRows : 1];
+  __shared__ int tap_id[kSrc == kIds ? kMaxSliceRows * kMaxIdsWindow : 1];
   __shared__ __align__(16) float red[kWarps][kChunk];
   __shared__ bool last;
 
@@ -154,7 +172,16 @@ textcnn_pool_bwd_dg_kernel(const float* __restrict__ x, const int* __restrict__ 
       r.hi = (int)(hi < lo ? lo : hi);
     }
     staged[i] = r;
-    if constexpr (kGather) src_row[i] = rows[b];
+    if constexpr (kSrc == kRows) src_row[i] = rows[b];
+  }
+  if constexpr (kSrc == kIds) {
+    // the W word ids of each row's window, 0 at a padding position
+    for (int i = threadIdx.x; i < nb * W; i += kThreads) {
+      const int r = i / W;
+      const int b = b0 + r;
+      const int p = idx[(size_t)b * F + f] - (W - 1) + (i - r * W);
+      tap_id[i] = p >= 0 && p < T ? rows[(size_t)b * T + p] : 0;
+    }
   }
   __syncthreads();
 
@@ -193,12 +220,12 @@ textcnn_pool_bwd_dg_kernel(const float* __restrict__ x, const int* __restrict__ 
         if (r < r1) row = staged[r];
         gv[u] = row.g;
         bool ok = true;
-        long long base;
-        if constexpr (kGather) {
+        long long base = 0;
+        if constexpr (kSrc == kRows) {
           const int src = r < r1 ? src_row[r] : 0;
           ok = src >= 0 && src < N;
           base = ((long long)(ok ? src : 0) * T + row.p0) * E;
-        } else {
+        } else if constexpr (kSrc == kPlain) {
           base = ((long long)(b0 + r) * T + row.p0) * E;
         }
 #pragma unroll
@@ -206,8 +233,16 @@ textcnn_pool_bwd_dg_kernel(const float* __restrict__ x, const int* __restrict__ 
           const int p = row.p0 + tap[v];
           in[u][v] = has[v] && row.g != 0.f && p >= 0 && p < T &&
                      (p < row.lo || p >= row.hi);
+          const float* src = x + base + off[v];
+          if constexpr (kSrc == kIds) {
+            // tap[v]'s word: E floats of its table row, at the same
+            // offset within the tap
+            const int id = in[u][v] ? tap_id[r * W + tap[v]] : 0;
+            ok = id >= 0 && id < N;
+            src = x + (long long)(ok ? id : 0) * E + (off[v] - tap[v] * E);
+          }
           if (in[u][v] && ok) {
-            load_vec<kVec>(x + base + off[v], val[u][v]);
+            load_vec<kVec>(src, val[u][v]);
           } else {
 #pragma unroll
             for (int k = 0; k < kVec; ++k) val[u][v][k] = nan;
@@ -260,7 +295,7 @@ textcnn_pool_bwd_dg_kernel(const float* __restrict__ x, const int* __restrict__ 
   if (threadIdx.x == 0) counter[f] = 0;
 }
 
-template <bool kGather>
+template <int kSrc>
 int launch(const float* x, const int* rows, const float* g, const int* idx, const int* skip,
            float* dk, float* partial, int* counter, int N, int B, int T, int E, int F, int W,
            void* stream) {
@@ -272,12 +307,13 @@ int launch(const float* x, const int* rows, const float* g, const int* idx, cons
   if (blocks > 0x7fffffffLL || (long long)W * E > 0x3fffffffLL) return (int)cudaErrorInvalidValue;
   if (slices > 1 && (partial == nullptr || counter == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (kSrc == kIds && W > kMaxIdsWindow) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (E % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) {
-    textcnn_pool_bwd_dg_kernel<kGather, 4><<<(unsigned)blocks, kThreads, 0, st>>>(
+    textcnn_pool_bwd_dg_kernel<kSrc, 4><<<(unsigned)blocks, kThreads, 0, st>>>(
         x, rows, g, idx, skip, dk, partial, counter, N, B, T, E, F, W, per_warp);
   } else {
-    textcnn_pool_bwd_dg_kernel<kGather, 1><<<(unsigned)blocks, kThreads, 0, st>>>(
+    textcnn_pool_bwd_dg_kernel<kSrc, 1><<<(unsigned)blocks, kThreads, 0, st>>>(
         x, rows, g, idx, skip, dk, partial, counter, N, B, T, E, F, W, per_warp);
   }
   return (int)cudaGetLastError();
@@ -287,10 +323,11 @@ int launch(const float* x, const int* rows, const float* g, const int* idx, cons
 
 extern "C" {
 
-// Static shared memory of a block of the rows form (the plain-x form
-// stages no source rows): the staged slice and the warps' sums.
+// Static shared memory of a block of the ids form, the largest (the
+// plain-x form stages no source rows or tap ids): the staged slice, its
+// tap ids and the warps' sums.
 size_t textcnn_pool_bwd_dg_smem_bytes(int, int) {
-  return sizeof(Row) * kMaxSliceRows + sizeof(int) * kMaxSliceRows +
+  return sizeof(Row) * kMaxSliceRows + sizeof(int) * kMaxSliceRows * kMaxIdsWindow +
          sizeof(float) * kWarps * kChunk + 16;
 }
 
@@ -307,7 +344,7 @@ int textcnn_pool_bwd_dg_slice_rows(int B, int F) {
 int textcnn_pool_bwd_dg_f32(const float* x, const float* g, const int* idx, const int* skip,
                             float* dk, float* partial, int* counter, int B, int T, int E, int F,
                             int W, void* stream) {
-  return launch<false>(x, nullptr, g, idx, skip, dk, partial, counter, B, B, T, E, F, W, stream);
+  return launch<kPlain>(x, nullptr, g, idx, skip, dk, partial, counter, B, B, T, E, F, W, stream);
 }
 
 // The row-gathered dK: table [N, T, E] and rows [B] int32 in place of x;
@@ -316,7 +353,17 @@ int textcnn_pool_bwd_dg_rows_f32(const float* table, const int* rows, const floa
                                  const int* idx, const int* skip, float* dk, float* partial,
                                  int* counter, int N, int B, int T, int E, int F, int W,
                                  void* stream) {
-  return launch<true>(table, rows, g, idx, skip, dk, partial, counter, N, B, T, E, F, W, stream);
+  return launch<kRows>(table, rows, g, idx, skip, dk, partial, counter, N, B, T, E, F, W, stream);
+}
+
+// The word-gathered dK: a word table [V, E] and ids [B, T] int32 in place
+// of x; doc position p of batch row b is table[ids[b, p]]. No skip span;
+// W <= 8. g and idx are per batch row.
+int textcnn_pool_bwd_dg_ids_f32(const float* table, const int* ids, const float* g,
+                                const int* idx, float* dk, float* partial, int* counter, int V,
+                                int B, int T, int E, int F, int W, void* stream) {
+  return launch<kIds>(table, ids, g, idx, nullptr, dk, partial, counter, V, B, T, E, F, W,
+                      stream);
 }
 
 const char* textcnn_pool_bwd_dg_error_string(int code) {

@@ -7,7 +7,9 @@
 // Replaces three Pallas kernels of reviews4rec_tpu/ops/textcnn_pallas.py:
 // `_paired_kernel` (:153, E = 64, W <= 3), `_kernel` (:47, any E and W)
 // and, as the row-gathered instantiation below, `_gathered_paired_kernel`
-// (:945). Unlike `_paired_kernel`, which keeps the even start of an exact
+// (:945); as the word-gathered instantiation it is the forward of
+// `textcnn_pool_embed` (:768, through `_paired_call` :262 or
+// `_forward_generic` :347). Unlike `_paired_kernel`, which keeps the even start of an exact
 // tie inside one 256-start chunk, this kernel returns the true first
 // argmax, as `_kernel` does.
 //
@@ -76,8 +78,8 @@
 //
 // Shared memory at the serving shape: K 24 k-steps x 13 n-tiles x 32
 // lanes x 16 B = 159,744 B; x ring 2 x 130 rows x 68 floats = 70,720 B;
-// bias 416 B: 230,880 B of the 232,448 a block may have, so one block of
-// 256 threads per SM. Waves: 132 persistent blocks for B = 256 rows, 124
+// bias 416 B: 230,880 B of the 232,448 a block may have (the ids form
+// adds 2 x 130 staged ids, 1,040 B), so one block of 256 threads per SM. Waves: 132 persistent blocks for B = 256 rows, 124
 // blocks take 2 rows and 8 take 1, 97% of the row slots busy (one block
 // per row, 64 filters a block, would give 512 blocks on the 396 slots
 // of three blocks an SM: 65%). Shapes that do not
@@ -95,16 +97,35 @@
 // and the per-tile epilogue around them. `wgmma`, with K and the x tile
 // read from shared memory by descriptor, would lift that ceiling.
 //
-// Row-gathered variant, `textcnn_pool_fwd_rows_f32`: the same body
-// (template flag kGather) on table[rows[b]] of a whole [N, T, E] entity
-// doc table. The per-row DMA pipeline of `_gathered_paired_kernel` has
-// no counterpart: the tile loader reads rows[b] and copies from that
-// row. The arithmetic and launch configuration are the plain kernel's,
+// Three sources of x, one body (template parameter kSrc); only the tile
+// loader and the row's validity differ:
+// - plain x, `textcnn_pool_fwd_f32`: a [B, T, E] doc tensor;
+// - rows, `textcnn_pool_fwd_rows_f32`: table[rows[b]] of a whole
+//   [N, T, E] entity doc table;
+// - ids, `textcnn_pool_fwd_ids_f32`: table[ids[b, t]] of a [V, E] word
+//   table, word by word.
+//
+// Row-gathered variant. The per-row DMA pipeline of
+// `_gathered_paired_kernel` has no counterpart: the tile loader reads
+// rows[b] and copies from that row. The arithmetic and launch configuration are the plain kernel's,
 // so the two agree bitwise on table[rows], tie rule included. A row
 // outside [0, N) is zero-filled and writes NaN to its out and -1 to its
 // idx, so a bad id shows in the loss instead of reading foreign memory.
 // What it saves is the [B, T, E] copy table[rows] that the plain kernel
 // needs: 65.5 MB written and read back, at least 39 us at 3.35 TB/s.
+//
+// Word-gathered variant (the fused word gather, `hp.pallas_fuse_gather`):
+// the block stages the ids of a tile's starts + W - 1 word positions in
+// shared memory once per tile (-1 for a padding position), and each tile
+// row is one run of `cp.async` copies of table[id] (E floats, 256 B at
+// E = 64) into the same x ring, a padding position or an id outside
+// [0, V) zero-filled as the plain loader fills padding. The mma, the ring
+// and the argmax are the plain kernel's, so the two agree bitwise on
+// table[ids]. A batch row holding an id outside [0, V) writes NaN to its
+// out and -1 to its idx (the block checks the row's T ids at its end).
+// Bytes at the serving shape: 1.0 MB of ids and the 8921 x 64 table
+// (2.3 MB, which stays in L2) in place of 65.5 MB of x a tower; the
+// operations, and so the bound, are the plain kernel's.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -117,6 +138,9 @@ constexpr int kStartsPerWarp = 16;  // one m16 tile
 constexpr int kMaxNTiles = 13;      // n8 tiles a block: 104 filters
 constexpr int kStages = 2;
 constexpr int kMaxWindow = 8;
+
+// where a tile's word rows come from
+enum Source { kPlain = 0, kRows = 1, kIds = 2 };
 
 __host__ __device__ constexpr int pad8(int e) { return (e + 7) & ~7; }
 __host__ __device__ constexpr int row_pitch(int e) { return pad8(e) + 4; }
@@ -136,10 +160,12 @@ __host__ __device__ constexpr int stage_floats(int e, int window, int nt, int wa
              : 2 * warps * nt * 8;
 }
 
-// bytes of shared memory one block takes: K, the x ring and the bias
-size_t smem_bytes(int e, int window, int nt, int warps) {
+// bytes of shared memory one block takes: K, the x ring, the bias and,
+// for the ids source, a ring of each tile's word ids
+size_t smem_bytes(int e, int window, int nt, int warps, bool ids) {
   return 16 * (size_t)k_slots(e, window, nt) +
-         sizeof(float) * ((size_t)kStages * stage_floats(e, window, nt, warps) + nt * 8);
+         sizeof(float) * ((size_t)kStages * stage_floats(e, window, nt, warps) + nt * 8) +
+         (ids ? sizeof(int) * kStages * (warps * kStartsPerWarp + window - 1) : 0);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -226,10 +252,12 @@ __device__ __forceinline__ void tile_mma(float (&acc)[kMaxNTiles][4], const floa
   }
 }
 
-// kGather: x is a [N, T, E] table and batch row b reads x[rows[b]].
+// kSrc == kRows: x is a [N, T, E] table and batch row b reads x[rows[b]].
+// kSrc == kIds: x is a [N, E] word table, `rows` holds ids [B, T] and word
+// t of batch row b is x[rows[b * T + t]].
 // Block: blockDim.x / 32 warps of 16 starts each; filters
 // [blockIdx.y * nt * 8, + nt * 8).
-template <int W, bool kGather>
+template <int W, int kSrc>
 __global__ void __launch_bounds__(kMaxWarps * 32, 1)
 textcnn_pool_fwd_kernel(const float* __restrict__ x, const int* __restrict__ rows,
                         const float* __restrict__ k, const float* __restrict__ bias,
@@ -259,6 +287,8 @@ textcnn_pool_fwd_kernel(const float* __restrict__ x, const int* __restrict__ row
   float* xs = reinterpret_cast<float*>(kq + k_slots(E, W, nt));
   const int stage = stage_floats(E, W, nt, warps);
   float* bs = xs + (size_t)kStages * stage;  // [nf]
+  // kIds: kStages stages of tile_rows word ids (-1 = zero-fill)
+  int* id_ring = reinterpret_cast<int*>(bs + nf);
 
   // K in B-fragment order, b0 = K[kc*8 + tq][8j + g] and b1 four k later
   // (zero past E, F and in the spare n-tiles), copied into the hi words
@@ -294,7 +324,7 @@ textcnn_pool_fwd_kernel(const float* __restrict__ x, const int* __restrict__ row
       ld_r = r;
       const int b = blockIdx.x + r * gridDim.x;
       ld_src = b;
-      if constexpr (kGather) {
+      if constexpr (kSrc == kRows) {
         ld_src = rows[b];
         ld_ok = ld_src >= 0 && ld_src < N;
       }
@@ -304,24 +334,43 @@ textcnn_pool_fwd_kernel(const float* __restrict__ x, const int* __restrict__ row
     const float* xb = x + (size_t)(ld_ok ? ld_src : 0) * T * E;
     float* dst = xs + (size_t)(it % kStages) * stage;
     const int word0 = tile * starts - (W - 1);
+    int* ids_st = id_ring + (it % kStages) * tile_rows;
+    if constexpr (kSrc == kIds) {
+      // the stage's ids were last read when its previous tile was issued,
+      // before the barrier that opened this item
+      const int* ib = rows + (size_t)ld_src * T;
+      for (int i = tid; i < tile_rows; i += nthreads) {
+        const int word = word0 + i;
+        ids_st[i] = word >= 0 && word < T && (word < ld_lo || word >= ld_hi) ? ib[word] : -1;
+      }
+      __syncthreads();
+    }
+    // the source of (tile row, column c), or null to zero-fill it
+    auto src_of = [&](int row, int c) -> const float* {
+      if constexpr (kSrc == kIds) {
+        const int id = ids_st[row];
+        return id >= 0 && id < N && c < E ? x + (size_t)id * E + c : nullptr;
+      } else {
+        const int word = word0 + row;
+        return ld_ok && word >= 0 && word < T && (word < ld_lo || word >= ld_hi) && c < E
+                   ? xb + (size_t)word * E + c
+                   : nullptr;
+      }
+    };
     if (vec16) {
       const int per_row = e8 / 4;
       for (int i = tid; i < tile_rows * per_row; i += nthreads) {
         const int row = i / per_row;
         const int c = 4 * (i - row * per_row);
-        const int word = word0 + row;
-        const bool ok = ld_ok && word >= 0 && word < T && (word < ld_lo || word >= ld_hi) &&
-                        c < E;
-        cp_async16(dst + row * pitch + c, ok ? xb + (size_t)word * E + c : x, ok ? 16 : 0);
+        const float* src = src_of(row, c);
+        cp_async16(dst + row * pitch + c, src ? src : x, src ? 16 : 0);
       }
     } else {
       for (int i = tid; i < tile_rows * e8; i += nthreads) {
         const int row = i / e8;
         const int c = i - row * e8;
-        const int word = word0 + row;
-        const bool ok = ld_ok && word >= 0 && word < T && (word < ld_lo || word >= ld_hi) &&
-                        c < E;
-        cp_async4(dst + row * pitch + c, ok ? xb + (size_t)word * E + c : x, ok ? 4 : 0);
+        const float* src = src_of(row, c);
+        cp_async4(dst + row * pitch + c, src ? src : x, src ? 4 : 0);
       }
     }
   };
@@ -418,7 +467,15 @@ textcnn_pool_fwd_kernel(const float* __restrict__ x, const int* __restrict__ row
     __syncthreads();
     const int b = blockIdx.x + r * gridDim.x;
     bool row_ok = true;
-    if constexpr (kGather) row_ok = rows[b] >= 0 && rows[b] < N;
+    if constexpr (kSrc == kRows) row_ok = rows[b] >= 0 && rows[b] < N;
+    if constexpr (kSrc == kIds) {
+      int bad = 0;
+      for (int t = tid; t < T; t += nthreads) {
+        const int id = rows[(size_t)b * T + t];
+        bad |= id < 0 || id >= N;
+      }
+      row_ok = !__syncthreads_or(bad);
+    }
     for (int col = tid; col < nf; col += nthreads) {
       const int f = f0 + col;
       if (f >= F) continue;
@@ -446,19 +503,19 @@ struct Config {
 
 // the first of 8, 4, 2, 1 warps, and for it the fewest
 // filter chunks, whose block fits in `max_smem`; nt = 0 if none does
-Config choose(int E, int F, int W, int max_smem) {
+Config choose(int E, int F, int W, bool ids, int max_smem) {
   const int total = (F + 7) / 8;
   for (int warps = kMaxWarps; warps >= 1; warps /= 2)
     for (int chunks = 1; chunks <= total; ++chunks) {
       const int nt = (total + chunks - 1) / chunks;
       if (nt > kMaxNTiles) continue;
-      const size_t smem = smem_bytes(E, W, nt, warps);
+      const size_t smem = smem_bytes(E, W, nt, warps, ids);
       if (smem <= (size_t)max_smem) return {warps, nt, (total + nt - 1) / nt, smem};
     }
-  return {1, 0, 0, smem_bytes(E, W, 1, 1)};
+  return {1, 0, 0, smem_bytes(E, W, 1, 1, ids)};
 }
 
-template <int W, bool kGather>
+template <int W, int kSrc>
 int launch(const float* x, const int* rows, const float* k, const float* bias,
            const int* skip, float* out, int* idx, int N, int B, int T, int E, int F,
            cudaStream_t stream) {
@@ -469,37 +526,43 @@ int launch(const float* x, const int* rows, const float* k, const float* bias,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const Config cfg = choose(E, F, W, max_smem);
+  const Config cfg = choose(E, F, W, kSrc == kIds, max_smem);
   if (cfg.nt == 0) return (int)cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(textcnn_pool_fwd_kernel<W, kGather>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cfg.smem);
-  if (err != cudaSuccess) return (int)err;
+  // raised once per instantiation, not on every launch (nor inside a
+  // CUDA-graph capture after a first launch)
+  static size_t smem_set = 0;
+  if (cfg.smem > smem_set) {
+    err = cudaFuncSetAttribute(textcnn_pool_fwd_kernel<W, kSrc>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cfg.smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = cfg.smem;
+  }
   // one persistent block per SM and filter chunk: at the serving shape
   // the block's shared memory and registers fill the SM
   int blocks = sms / cfg.chunks;
   blocks = blocks < 1 ? 1 : (blocks > B ? B : blocks);
   const int vec16 = E % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  textcnn_pool_fwd_kernel<W, kGather><<<dim3(blocks, cfg.chunks), cfg.warps * 32, cfg.smem,
-                                        stream>>>(x, rows, k, bias, skip, out, idx, N, B, T,
-                                                  E, F, cfg.nt, vec16);
+  textcnn_pool_fwd_kernel<W, kSrc><<<dim3(blocks, cfg.chunks), cfg.warps * 32, cfg.smem,
+                                     stream>>>(x, rows, k, bias, skip, out, idx, N, B, T, E,
+                                               F, cfg.nt, vec16);
   return (int)cudaGetLastError();
 }
 
-template <bool kGather>
+template <int kSrc>
 int dispatch(const float* x, const int* rows, const float* k, const float* bias,
              const int* skip, float* out, int* idx, int N, int B, int T, int E, int F, int W,
              void* stream) {
   if (N <= 0 || B <= 0 || T <= 0 || E <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (W) {
-    case 1: return launch<1, kGather>(x, rows, k, bias, skip, out, idx, N, B, T, E, F, s);
-    case 2: return launch<2, kGather>(x, rows, k, bias, skip, out, idx, N, B, T, E, F, s);
-    case 3: return launch<3, kGather>(x, rows, k, bias, skip, out, idx, N, B, T, E, F, s);
-    case 4: return launch<4, kGather>(x, rows, k, bias, skip, out, idx, N, B, T, E, F, s);
-    case 5: return launch<5, kGather>(x, rows, k, bias, skip, out, idx, N, B, T, E, F, s);
-    case 6: return launch<6, kGather>(x, rows, k, bias, skip, out, idx, N, B, T, E, F, s);
-    case 7: return launch<7, kGather>(x, rows, k, bias, skip, out, idx, N, B, T, E, F, s);
-    case 8: return launch<8, kGather>(x, rows, k, bias, skip, out, idx, N, B, T, E, F, s);
+    case 1: return launch<1, kSrc>(x, rows, k, bias, skip, out, idx, N, B, T, E, F, s);
+    case 2: return launch<2, kSrc>(x, rows, k, bias, skip, out, idx, N, B, T, E, F, s);
+    case 3: return launch<3, kSrc>(x, rows, k, bias, skip, out, idx, N, B, T, E, F, s);
+    case 4: return launch<4, kSrc>(x, rows, k, bias, skip, out, idx, N, B, T, E, F, s);
+    case 5: return launch<5, kSrc>(x, rows, k, bias, skip, out, idx, N, B, T, E, F, s);
+    case 6: return launch<6, kSrc>(x, rows, k, bias, skip, out, idx, N, B, T, E, F, s);
+    case 7: return launch<7, kSrc>(x, rows, k, bias, skip, out, idx, N, B, T, E, F, s);
+    case 8: return launch<8, kSrc>(x, rows, k, bias, skip, out, idx, N, B, T, E, F, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -510,7 +573,9 @@ extern "C" {
 
 // The least shared memory a block needs at this E and W (one warp, one
 // n8 tile of filters); the caller reports it when a launch is refused.
-size_t textcnn_pool_fwd_smem_bytes(int e, int window) { return smem_bytes(e, window, 1, 1); }
+size_t textcnn_pool_fwd_smem_bytes(int e, int window) {
+  return smem_bytes(e, window, 1, 1, true);
+}
 
 int textcnn_pool_fwd_max_window() { return kMaxWindow; }
 
@@ -520,7 +585,7 @@ int textcnn_pool_fwd_max_window() { return kMaxWindow; }
 int textcnn_pool_fwd_f32(const float* x, const float* k, const float* bias, const int* skip,
                          float* out, int* idx, int B, int T, int E, int F, int W,
                          void* stream) {
-  return dispatch<false>(x, nullptr, k, bias, skip, out, idx, B, B, T, E, F, W, stream);
+  return dispatch<kPlain>(x, nullptr, k, bias, skip, out, idx, B, B, T, E, F, W, stream);
 }
 
 // The row-gathered forward: table [N, T, E] and rows [B] int32 in place of
@@ -529,7 +594,17 @@ int textcnn_pool_fwd_f32(const float* x, const float* k, const float* bias, cons
 int textcnn_pool_fwd_rows_f32(const float* table, const int* rows, const float* k,
                               const float* bias, const int* skip, float* out, int* idx,
                               int N, int B, int T, int E, int F, int W, void* stream) {
-  return dispatch<true>(table, rows, k, bias, skip, out, idx, N, B, T, E, F, W, stream);
+  return dispatch<kRows>(table, rows, k, bias, skip, out, idx, N, B, T, E, F, W, stream);
+}
+
+// The word-gathered forward: a word table [V, E] and ids [B, T] int32 in
+// place of x; word t of batch row b is table[ids[b, t]]. No skip span
+// (the fused path is taken only without one). out and idx as above; a
+// row holding an id outside [0, V) gets NaN and -1.
+int textcnn_pool_fwd_ids_f32(const float* table, const int* ids, const float* k,
+                             const float* bias, float* out, int* idx, int V, int B, int T,
+                             int E, int F, int W, void* stream) {
+  return dispatch<kIds>(table, ids, k, bias, nullptr, out, idx, V, B, T, E, F, W, stream);
 }
 
 const char* textcnn_pool_fwd_error_string(int code) {

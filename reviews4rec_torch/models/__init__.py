@@ -59,15 +59,19 @@ def build_model(hp: HyperParams, word_vectors=None,
             raise ValueError(f"{mt} needs the corpus word vectors")
         rows = (hp.num_user_rows, hp.num_item_rows, hp.latent_size,
                 word_vectors, hp.dropout)
+        # the fused word gather, as the JAX package sets it
+        # (`models/__init__.py`: `fuse_gather` under `use_pallas`)
+        kw = dict(generator=gen,
+                  fuse_gather=bool(hp.use_pallas and hp.pallas_fuse_gather))
         if mt == "NARRE":
             from .narre import NARRE
-            model = NARRE(*rows, generator=gen)
+            model = NARRE(*rows, **kw)
         elif mt.startswith("transnet"):
             from .transnet import TransNet
-            model = TransNet(*rows, plus=(mt == "transnet++"), generator=gen)
+            model = TransNet(*rows, plus=(mt == "transnet++"), **kw)
         else:
             from .deepconn import DeepCoNN
-            model = DeepCoNN(*rows, use_fm=(mt == "deepconn"), generator=gen)
+            model = DeepCoNN(*rows, use_fm=(mt == "deepconn"), **kw)
         return model.to(dev)
     if mt not in ALL_MODELS:
         raise ValueError(f"unknown model_type {mt!r}")

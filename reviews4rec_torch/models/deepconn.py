@@ -23,7 +23,8 @@ class DeepCoNN(nn.Module):
     def __init__(self, num_user_rows: int, num_item_rows: int,
                  latent_size: int, word_vectors: np.ndarray,
                  dropout: float = 0.6, use_fm: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 fuse_gather: bool = False):
         super().__init__()
         # frozen word table: a buffer, so no optimizer ever sees it
         self.register_buffer("word_vectors", torch.as_tensor(
@@ -31,8 +32,10 @@ class DeepCoNN(nn.Module):
         e = self.word_vectors.shape[1]
         L = latent_size
         self.use_fm = use_fm
-        self.user_conv = TextCNN(e, L, dropout, generator=generator)
-        self.item_conv = TextCNN(e, L, dropout, generator=generator)
+        self.user_conv = TextCNN(e, L, dropout, generator=generator,
+                                 fuse_gather=fuse_gather)
+        self.item_conv = TextCNN(e, L, dropout, generator=generator,
+                                 fuse_gather=fuse_gather)
         self.global_bias = nn.Parameter(torch.full((1,), 4.0))
         if use_fm:
             self.fm = FM(2 * L, 8, generator=generator)

@@ -18,7 +18,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..ops.textcnn import textcnn_pool, textcnn_pool_rows
+from ..ops.textcnn import (textcnn_pool, textcnn_pool_embed,
+                            textcnn_pool_rows)
 
 
 def _linear(n_in: int, n_out: int, generator: Optional[torch.Generator]
@@ -71,14 +72,22 @@ class FM(nn.Module):
 class TextCNN(nn.Module):
     """Review-document encoder: conv window W over the full embedding
     width with F filters, ReLU, max over time (one fused op,
-    `ops.textcnn.textcnn_pool`), FC to latent, dropout."""
+    `ops.textcnn.textcnn_pool`), FC to latent, dropout.
+
+    `fuse_gather` (`hp.use_pallas and hp.pallas_fuse_gather`): int ids
+    with a `table` and no skip span go to `textcnn_pool_embed`, whose
+    kernels read each word from the table, in place of `table[ids]` and
+    the plain-x op; the JAX TextCNN takes its fused gather under the same
+    condition. The two give the same bits."""
 
     def __init__(self, embed_size: int, latent_size: int,
                  dropout: float = 0.6, num_filters: int = 100,
                  window: int = 3,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 fuse_gather: bool = False):
         super().__init__()
         self.window = window
+        self.fuse_gather = fuse_gather
         self.conv_kernel = nn.Parameter(nn.init.xavier_uniform_(
             torch.empty(window * embed_size, num_filters),
             generator=generator))
@@ -107,6 +116,11 @@ class TextCNN(nn.Module):
         if rows is not None:
             x = x[rows.long()]
         if table is not None and not x.is_floating_point():
+            if self.fuse_gather and skip is None:
+                y, _ = textcnn_pool_embed(x.to(torch.int32).contiguous(),
+                                          table, self.conv_kernel,
+                                          self.conv_bias, self.window)
+                return self.dropout(self.fc(y), generator)
             x = table[x]
         y, _ = textcnn_pool(x.contiguous(), self.conv_kernel,
                             self.conv_bias, self.window, skip)

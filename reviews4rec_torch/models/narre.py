@@ -26,7 +26,8 @@ class NARRE(nn.Module):
     def __init__(self, num_user_rows: int, num_item_rows: int,
                  latent_size: int, word_vectors: np.ndarray,
                  dropout: float = 0.6,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 fuse_gather: bool = False):
         super().__init__()
         # frozen word table: a buffer, so no optimizer ever sees it
         self.register_buffer("word_vectors", torch.as_tensor(
@@ -37,8 +38,10 @@ class NARRE(nn.Module):
             torch.empty(num_user_rows, L), generator=generator))
         self.item_embedding = nn.Parameter(nn.init.xavier_uniform_(
             torch.empty(num_item_rows, L), generator=generator))
-        self.user_conv = TextCNN(e, L, dropout, generator=generator)
-        self.item_conv = TextCNN(e, L, dropout, generator=generator)
+        self.user_conv = TextCNN(e, L, dropout, generator=generator,
+                                 fuse_gather=fuse_gather)
+        self.item_conv = TextCNN(e, L, dropout, generator=generator,
+                                 fuse_gather=fuse_gather)
         self.att_user = ScorerMLP(2 * L, L, dropout, generator=generator)
         self.att_item = ScorerMLP(2 * L, L, dropout, generator=generator)
         self.dropout = Dropout(dropout)

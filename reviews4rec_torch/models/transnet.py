@@ -35,7 +35,8 @@ class TransNet(nn.Module):
     def __init__(self, num_user_rows: int, num_item_rows: int,
                  latent_size: int, word_vectors: np.ndarray,
                  dropout: float = 0.6, plus: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 fuse_gather: bool = False):
         super().__init__()
         # frozen word table: a buffer, so no optimizer ever sees it
         self.register_buffer("word_vectors", torch.as_tensor(
@@ -43,11 +44,14 @@ class TransNet(nn.Module):
         e = self.word_vectors.shape[1]
         L = latent_size
         self.plus = plus
-        self.source_user_conv = TextCNN(e, L, dropout, generator=generator)
-        self.source_item_conv = TextCNN(e, L, dropout, generator=generator)
+        fuse = dict(generator=generator, fuse_gather=fuse_gather)
+        self.source_user_conv = TextCNN(e, L, dropout, **fuse)
+        self.source_item_conv = TextCNN(e, L, dropout, **fuse)
         self.project_fc0 = _linear(2 * L, L, generator)
         self.project_fc1 = _linear(L, L, generator)
-        self.target_conv = TextCNN(e, L, dropout, generator=generator)
+        # reads the pair's own review as ids even on the entity path,
+        # so it takes the fused gather there too
+        self.target_conv = TextCNN(e, L, dropout, **fuse)
         self.target_fm = FM(L, 8, generator=generator)
         self.dropout = Dropout(dropout)
         n_fm = L

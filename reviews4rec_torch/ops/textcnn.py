@@ -37,6 +37,19 @@ inside the skip span.
   instantiations of the forward and dG kernels, in the same two sources,
   `textcnn_pool_fwd_rows` and `textcnn_pool_bwd_dg_rows`. Their plain
   version is `textcnn_pool_rows_reference`, the op on `table[rows]`.
+- `textcnn_pool_embed`: the same op on `table[ids]` of a frozen [V, E]
+  word table and [B, T] int32 word ids (the fused word gather under
+  `hp.pallas_fuse_gather`; the JAX package's `textcnn_pool_embed`), a
+  `TextCNNPoolEmbed` autograd function differentiable in K and b only.
+  Its kernels, the word-gathered instantiations `textcnn_pool_fwd_ids`
+  and `textcnn_pool_bwd_dg_ids` of the same two sources, read each word
+  straight from the table, so the [B, T, E] doc never exists. Its plain
+  version is `textcnn_pool_embed_reference`, the op on `table[ids]`, and
+  `textcnn_pool_embed_backward_reference` its (dK, db).
+
+The three forms of the forward and of the dG share one kernel body each,
+so the rows and ids forms give the bits of the plain-x kernels on
+`table[rows]` and `table[ids]`.
 """
 
 from __future__ import annotations
@@ -53,13 +66,14 @@ from . import _build
 FWD, BWD_DG, BWD_DX = "textcnn_pool_fwd", "textcnn_pool_bwd_dg", \
     "textcnn_pool_bwd_dx"
 FWD_ROWS, BWD_DG_ROWS = "textcnn_pool_fwd_rows", "textcnn_pool_bwd_dg_rows"
-KERNELS = (FWD, BWD_DG, BWD_DX, FWD_ROWS, BWD_DG_ROWS)
+FWD_IDS, BWD_DG_IDS = "textcnn_pool_fwd_ids", "textcnn_pool_bwd_dg_ids"
+KERNELS = (FWD, BWD_DG, BWD_DX, FWD_ROWS, BWD_DG_ROWS, FWD_IDS, BWD_DG_IDS)
 # the source `csrc/<source>.cu` that holds each kernel's entry point
 SOURCE = {FWD: FWD, BWD_DG: BWD_DG, BWD_DX: BWD_DX, FWD_ROWS: FWD,
-          BWD_DG_ROWS: BWD_DG}
+          BWD_DG_ROWS: BWD_DG, FWD_IDS: FWD, BWD_DG_IDS: BWD_DG}
 # (pointer, int) argument counts of each `<name>_f32`, before its stream
 _ARGS = {FWD: (6, 5), BWD_DG: (7, 5), BWD_DX: (6, 5), FWD_ROWS: (7, 6),
-         BWD_DG_ROWS: (8, 6)}
+         BWD_DG_ROWS: (8, 6), FWD_IDS: (6, 6), BWD_DG_IDS: (7, 6)}
 # the sizes each source's `<source>_smem_bytes` takes, in order
 _SMEM_ARGS = {FWD: ("E", "W"), BWD_DG: ("E", "W"), BWD_DX: ("W", "F")}
 
@@ -155,8 +169,8 @@ def textcnn_pool_backward_reference(
 
 
 def take_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """table[rows], raising IndexError for a row outside [0, N) (plain
-    indexing would wrap a negative one)."""
+    """table[rows] (rows of any shape), raising IndexError for a row
+    outside [0, N) (plain indexing would wrap a negative one)."""
     n = table.shape[0]
     if rows.numel() and not (0 <= int(rows.min()) and int(rows.max()) < n):
         raise IndexError(f"rows must lie in [0, {n}), got "
@@ -173,6 +187,27 @@ def textcnn_pool_rows_reference(table: torch.Tensor, rows: torch.Tensor,
     the plain version of the row-gathered forward kernel."""
     return textcnn_pool_reference(take_rows(table, rows), kernel, bias,
                                   window, skip)
+
+
+def textcnn_pool_embed_reference(ids: torch.Tensor, table: torch.Tensor,
+                                 kernel: torch.Tensor, bias: torch.Tensor,
+                                 window: int = 3
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, idx) of the op on table[ids] ([V, E] table, [B, T] ids),
+    the plain version of the word-gathered forward kernel."""
+    return textcnn_pool_reference(take_rows(table, ids), kernel, bias,
+                                  window)
+
+
+def textcnn_pool_embed_backward_reference(
+        ids: torch.Tensor, table: torch.Tensor, g: torch.Tensor,
+        idx: torch.Tensor, window: int = 3
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, db) of the op on table[ids] from the gated g [B, F] and idx:
+    the W winning taps regathered from the ids, as the JAX package's
+    `_bwd_embed` does; the table gets no gradient."""
+    return _dg_reference(take_rows(table, ids), g, idx, window, None), \
+        g.sum(0)
 
 
 # ---------------------------------------------------------------------
@@ -452,6 +487,71 @@ def textcnn_pool_bwd_dg_rows(table: torch.Tensor, rows: torch.Tensor,
     return dk
 
 
+def _check_embed(ids: torch.Tensor, table: torch.Tensor) -> None:
+    if ids.dim() != 2 or table.dim() != 2:
+        raise ValueError(f"ids [B, T] and table [V, E] expected, got "
+                         f"{tuple(ids.shape)} and {tuple(table.shape)}")
+    _check_cuda("textcnn_pool_embed", [("table", table), ("ids", ids)],
+                [torch.float32, torch.int32])
+
+
+def textcnn_pool_fwd_ids(ids: torch.Tensor, table: torch.Tensor,
+                         kernel: torch.Tensor, bias: torch.Tensor,
+                         window: int = 3
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, idx) of the op on table[ids] without autograd: the plain
+    version on the CPU, else the word-gathered instantiation of
+    `csrc/textcnn_pool_fwd.cu`. On the card an id outside [0, V) gives
+    NaN in `out` and -1 in `idx` for its batch row."""
+    if table.device.type == "cpu":
+        return textcnn_pool_embed_reference(ids, table, kernel, bias, window)
+    _check_embed(ids, table)
+    v, e = table.shape
+    b, t = ids.shape
+    # the table's rows as docs of one word: K, bias, types, layout
+    _check_forward(table.view(v, 1, e), kernel, bias, window, None)
+    if min(b, t) < 1:
+        raise ValueError(f"empty operand: B={b}, T={t}")
+    f = kernel.shape[1]
+    max_window = _library(FWD_IDS).textcnn_pool_fwd_max_window()
+    if not 1 <= window <= max_window:
+        raise ValueError(f"window {window} outside the kernel's "
+                         f"1..{max_window}")
+    out = torch.empty((b, f), dtype=torch.float32, device=table.device)
+    idx = torch.empty((b, f), dtype=torch.int32, device=table.device)
+    _launch(FWD_IDS, table, (table.data_ptr(), ids.data_ptr(),
+                             kernel.data_ptr(), bias.data_ptr(),
+                             out.data_ptr(), idx.data_ptr()),
+            dict(V=v, B=b, T=t, E=e, F=f, W=window))
+    return out, idx
+
+
+def textcnn_pool_bwd_dg_ids(ids: torch.Tensor, table: torch.Tensor,
+                            g: torch.Tensor, idx: torch.Tensor,
+                            window: int = 3) -> torch.Tensor:
+    """dK [W*E, F] of the op on table[ids] from the gated g [B, F] and
+    idx: the plain version on the CPU, else the word-gathered
+    instantiation of `csrc/textcnn_pool_bwd_dg.cu` (W <= 8)."""
+    if table.device.type == "cpu":
+        return textcnn_pool_embed_backward_reference(ids, table, g, idx,
+                                                     window)[0]
+    if g.dim() != 2 or ids.dim() != 2 or ids.shape[0] != g.shape[0]:
+        raise ValueError(f"ids [B, T] and g [B, F] expected, got "
+                         f"{tuple(ids.shape)} and {tuple(g.shape)}")
+    _check_embed(ids, table)
+    _check_backward(BWD_DG_IDS, g, idx, ("table", table), None, window)
+    v, e = table.shape
+    b, t = ids.shape
+    f = g.shape[1]
+    dk = torch.empty((window * e, f), dtype=torch.float32, device=g.device)
+    partial, counter = _dg_workspace(table, b, f, window * e)
+    _launch(BWD_DG_IDS, table, (table.data_ptr(), ids.data_ptr(),
+                                g.data_ptr(), idx.data_ptr(), dk.data_ptr(),
+                                _ptr(partial), _ptr(counter)),
+            dict(V=v, B=b, T=t, E=e, F=f, W=window))
+    return dk
+
+
 class TextCNNPool(torch.autograd.Function):
     """(out, idx) of the op, differentiable in x, K and b. The backward
     computes dx only when x needs it (the JAX op's `need_dx`); a tower
@@ -509,6 +609,30 @@ class TextCNNPoolRows(torch.autograd.Function):
         return None, None, dk, g.sum(0), None, None
 
 
+class TextCNNPoolEmbed(torch.autograd.Function):
+    """(out, idx) of the op on table[ids], differentiable in K and b only:
+    the ids are integers and the word table is frozen (the JAX op gives
+    it a zero cotangent; here it gets none)."""
+
+    @staticmethod
+    def forward(ctx, ids, table, kernel, bias, window):
+        out, idx = textcnn_pool_fwd_ids(ids, table, kernel, bias, window)
+        ctx.window = window
+        ctx.save_for_backward(ids, table, out, idx)
+        ctx.mark_non_differentiable(idx)
+        return out, idx
+
+    @staticmethod
+    def backward(ctx, g_out, _g_idx):
+        ids, table, out, idx = ctx.saved_tensors
+        g = torch.where(out > 0, g_out, torch.zeros((), dtype=g_out.dtype,
+                                                    device=g_out.device))
+        g = g.contiguous()
+        dk = (textcnn_pool_bwd_dg_ids(ids, table, g, idx, ctx.window)
+              if ctx.needs_input_grad[2] else None)
+        return None, None, dk, g.sum(0), None
+
+
 def textcnn_pool(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                  window: int = 3, skip: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -523,3 +647,11 @@ def textcnn_pool_rows(table: torch.Tensor, rows: torch.Tensor,
     """(out [B, F] f32, idx [B, F] int32) of the op on table[rows], for a
     [N, T, E] table and [B] int32 rows; see the module docstring."""
     return TextCNNPoolRows.apply(table, rows, kernel, bias, window, skip)
+
+
+def textcnn_pool_embed(ids: torch.Tensor, table: torch.Tensor,
+                       kernel: torch.Tensor, bias: torch.Tensor,
+                       window: int = 3) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [B, F] f32, idx [B, F] int32) of the op on table[ids], for a
+    [V, E] word table and [B, T] int32 ids; see the module docstring."""
+    return TextCNNPoolEmbed.apply(ids, table, kernel, bias, window)

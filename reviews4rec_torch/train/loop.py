@@ -38,6 +38,14 @@ device, so a step moves only [B] row ids from the host:
   (`<side>_doc__table` keys) and the row-gathered kernels read each
   example's row themselves; without it the step gathers `table[rows]`.
 
+`hp.scan_steps` = S > 1 groups S batches into one dispatch, as the JAX
+package's `lax.scan` over S batches does (`ScanSteps`): on the card a
+full group is one replay of a CUDA graph of S captured steps (Adam is
+built `capturable` there for every S, so graph and single steps run the
+same arithmetic), on the CPU its S steps run eagerly; a trailing group
+smaller than S runs as single steps. The updates, their order and the
+dropout masks are those of S = 1, bit for bit.
+
 Not ported here, each raising `NotImplementedError` with its ROADMAP.md
 item: ranking losses (item 11) and meshes (item 13), with or without a
 cache.
@@ -80,8 +88,14 @@ def check_trainable(hp: HyperParams) -> None:
 
 def make_optimizer(hp: HyperParams, model: torch.nn.Module
                    ) -> torch.optim.Optimizer:
-    return torch.optim.Adam(model.parameters(), lr=hp.lr,
-                            weight_decay=hp.weight_decay)
+    """Adam with additive L2. On the card it is built `capturable`
+    (step count and bias corrections as device tensors) for every
+    `hp.scan_steps`, so that steps replayed from a CUDA graph and single
+    steps run the same arithmetic."""
+    params = list(model.parameters())
+    capturable = bool(params) and params[0].device.type == "cuda"
+    return torch.optim.Adam(params, lr=hp.lr, weight_decay=hp.weight_decay,
+                            capturable=capturable)
 
 
 def _batch_loss(preds, batch: Dict[str, torch.Tensor]
@@ -154,9 +168,214 @@ def _prefetch(batcher: Batcher, device: torch.device, depth: int = 2):
     return _lookahead((_place(b, device) for b in batcher), depth)
 
 
+class ScanSteps:
+    """`hp.scan_steps` = S > 1: S training steps per dispatch, the JAX
+    package's `lax.scan` over S batches (`make_scan_train_step`,
+    `make_cached_train_step`), with the same updates in the same order
+    as S single steps.
+
+    A full group of S batches is staged into static [S, B, ...] input
+    buffers (host records on the uncached path; [S, B] row ids and
+    weights into a device `cache`, whose gather runs inside the group).
+    On the card the group is one replay of a `torch.cuda.CUDAGraph`
+    holding S captured `train_step`s, step s reading slice s: forward,
+    the CUDA kernels, backward and Adam. The host stacks a group into one
+    of two reused pinned buffers (one event each) and copies it with one
+    transfer a key. On the CPU the group runs its S steps eagerly from
+    the same buffers. A trailing group smaller than S runs as single
+    steps, as JAX's does.
+
+    The graph is captured at the first full group, after one warm-up step
+    on the capture stream (which builds the kernel libraries, the dG
+    workspace of that stream and the optimizer state) whose updates are
+    then undone, so the warm-up changes nothing. It is captured again if
+    a parameter or optimizer state tensor was replaced since. The dropout
+    masks come from one generator registered with the graph and set to
+    the epoch's stream at the start of each epoch, so replays and single
+    steps draw the masks eager steps draw, and resume stays keyed by
+    (seed, epoch). The squared-error sums add up on the device across
+    groups. Each replay adds the kernel launches counted during capture
+    to `ops.textcnn.launches`. A failure to capture or replay raises; a
+    group never falls back to eager steps on the card.
+    """
+
+    def __init__(self, model: torch.nn.Module,
+                 optimizer: torch.optim.Optimizer, steps: int,
+                 device: torch.device, cache=None):
+        if steps < 2:
+            raise ValueError(f"ScanSteps groups 2 or more steps, got {steps}")
+        self.model, self.optimizer = model, optimizer
+        self.steps, self.device, self.cache = steps, device, cache
+        self.on_card = device.type == "cuda"
+        self.sq_sum = torch.zeros((), device=device)
+        self.n = torch.zeros((), device=device)
+        self.gen: Optional[torch.Generator] = None
+        self._own_gen = (torch.Generator(device=device) if self.on_card
+                         else None)
+        self.static: Optional[Dict[str, torch.Tensor]] = None
+        self._ring = [None, None]    # pinned host buffers
+        self._events = [None, None]  # the copy out of each
+        self._slot = 0
+        self.graph = None
+        self._addresses: Tuple[int, ...] = ()
+        # kernel launches of one replay, counted during capture
+        self.launches: Dict[str, int] = {}
+
+    def start_epoch(self, generator: Optional[torch.Generator]) -> None:
+        """Zero the sums and point the dropout stream at `generator`'s."""
+        self.sq_sum.zero_()
+        self.n.zero_()
+        if generator is None or not self.on_card:
+            self.gen = generator
+        else:
+            self._own_gen.set_state(generator.get_state())
+            self.gen = self._own_gen
+
+    def run(self, group) -> None:
+        """Train on a list of host batches: one dispatch for S of them,
+        single steps for fewer."""
+        if len(group) < self.steps:
+            for batch in group:
+                self._step(_place(batch, self.device))
+            return
+        self._stage(group)
+        if not self.on_card:
+            for s in range(self.steps):
+                self._body(s)
+            return
+        if self.graph is None or self._addresses != self._state_addresses():
+            self._capture()
+        try:
+            self.graph.replay()
+        except RuntimeError as exc:
+            raise RuntimeError(f"CUDA-graph replay of {self.steps} training "
+                               f"steps failed: {exc}") from exc
+        from ..ops import textcnn
+        for name, count in self.launches.items():
+            textcnn.launches[name] += count
+
+    def _step(self, batch: Dict[str, torch.Tensor]) -> None:
+        """One step on a batch on the device ({"row", "weight"} with a
+        cache), its sums added to the epoch's."""
+        if self.cache is not None:
+            batch = gather_cached_batch(self.cache, batch["row"],
+                                        batch["weight"])
+        _, sq, c = train_step(self.model, self.optimizer, batch, self.gen)
+        self.sq_sum += sq
+        self.n += c
+
+    def _body(self, s: int) -> None:
+        """Training step s of the staged group: what the graph captures."""
+        self._step({k: v[s] for k, v in self.static.items()})
+
+    def _stage(self, group) -> None:
+        """The group's batches into the static [S, B, ...] buffers."""
+        first = group[0]
+        if self.static is None:
+            self.static = {
+                k: torch.empty((self.steps,) + v.shape,
+                               dtype=torch.from_numpy(np.asarray(v)).dtype,
+                               device=self.device)
+                for k, v in first.items()}
+        if not self.on_card:
+            for k, dst in self.static.items():
+                dst.copy_(torch.from_numpy(np.stack([b[k] for b in group])))
+            return
+        slot = self._slot
+        self._slot ^= 1
+        if self._ring[slot] is None:
+            self._ring[slot] = {k: torch.empty(v.shape, dtype=v.dtype,
+                                               pin_memory=True)
+                                for k, v in self.static.items()}
+        else:
+            self._events[slot].synchronize()   # its last copy has left
+        for k, host in self._ring[slot].items():
+            arr = host.numpy()
+            for s, batch in enumerate(group):
+                arr[s] = batch[k]
+            self.static[k].copy_(host, non_blocking=True)
+        self._events[slot] = torch.cuda.Event()
+        self._events[slot].record()
+
+    def _tensors(self):
+        """The parameters and the tensors of their optimizer state."""
+        params = [p for grp in self.optimizer.param_groups
+                  for p in grp["params"]]
+        state = [v for p in params
+                 for v in self.optimizer.state.get(p, {}).values()
+                 if torch.is_tensor(v)]
+        return params, state
+
+    def _state_addresses(self) -> Tuple[int, ...]:
+        params, state = self._tensors()
+        return tuple(t.data_ptr() for t in params + state)
+
+    def _capture(self) -> None:
+        from ..ops import textcnn
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        # warm-up on the capture stream, then every update it made undone
+        params, state = self._tensors()
+        had_state = {p for p in params if self.optimizer.state.get(p)}
+        saved = [t.detach().clone() for t in params + state]
+        sums = (self.sq_sum.clone(), self.n.clone())
+        gen_state = self.gen.get_state() if self.gen is not None else None
+        with torch.cuda.stream(stream):
+            self._body(0)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        with torch.no_grad():
+            for t, v in zip(params + state, saved):
+                t.copy_(v)
+            for p in params:
+                if p.requires_grad and not self.optimizer.state.get(p):
+                    raise RuntimeError(
+                        f"CUDA-graph capture: a parameter of shape "
+                        f"{tuple(p.shape)} got no optimizer state in the "
+                        f"warm-up step; capture would create it inside the "
+                        f"graph")
+                if p not in had_state:   # a fresh Adam state is all 0
+                    for v in self.optimizer.state[p].values():
+                        if torch.is_tensor(v):
+                            v.zero_()
+            self.sq_sum.copy_(sums[0])
+            self.n.copy_(sums[1])
+        if gen_state is not None:
+            self.gen.set_state(gen_state)
+        graph = torch.cuda.CUDAGraph()
+        if self.gen is not None:
+            graph.register_generator_state(self.gen)
+        before = dict(textcnn.launches)
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                for s in range(self.steps):
+                    self._body(s)
+        except RuntimeError as exc:
+            raise RuntimeError(f"CUDA-graph capture of {self.steps} training "
+                               f"steps failed: {exc}") from exc
+        finally:
+            counted = {k: textcnn.launches[k] - before[k] for k in before}
+            textcnn.launches.update(before)
+        self.launches = {k: v for k, v in counted.items() if v}
+        self.graph = graph
+        self._addresses = self._state_addresses()
+
+
+def _groups(batcher: Batcher, size: int) -> Iterator[list]:
+    """The batcher's batches in lists of `size`, the last one shorter."""
+    group = []
+    for batch in batcher:
+        group.append(batch)
+        if len(group) == size:
+            yield group
+            group = []
+    if group:
+        yield group
+
+
 def train_epoch(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                 batcher: Batcher, generator: Optional[torch.Generator],
-                device: torch.device, cache=None) -> Dict:
+                device: torch.device, cache=None,
+                scan: Optional[ScanSteps] = None) -> Dict:
     """One epoch of updates, in batch order. The squared-error sums stay
     on the device until the end of the epoch: one sync per epoch.
 
@@ -165,22 +384,38 @@ def train_epoch(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     arange(n)} with the record Batcher's seed, so the shuffle is the
     record Batcher's, and each step gathers its batch on the device.
     Padded tail rows gather row 0 with weight 0, so loss and gradients
-    are the padded batch's."""
+    are the padded batch's.
+
+    With `scan` (a `ScanSteps` over the same model, optimizer and
+    cache), full groups of `scan.steps` batches run one dispatch each;
+    without, every batch is a single step, its host batch copied through
+    pinned memory two steps ahead."""
     model.train()
     tp = Throughput()
-    sq_sum = torch.zeros((), device=device)
-    n = torch.zeros((), device=device)
     bs, remaining = batcher.batch_size, batcher.n
-    for batch in _prefetch(batcher, device):
-        with annotate("train_step"):
-            if cache is not None:
-                batch = gather_cached_batch(cache, batch["row"],
-                                            batch["weight"])
-            _, s, c = train_step(model, optimizer, batch, generator)
-        sq_sum += s
-        n += c
-        tp.add(min(bs, remaining))
-        remaining -= bs
+    if scan is not None:
+        scan.start_epoch(generator)
+        for group in _groups(batcher, scan.steps):
+            with annotate("train_step" if len(group) < scan.steps
+                          else "train_group"):
+                scan.run(group)
+            for _ in group:
+                tp.add(min(bs, remaining))
+                remaining -= bs
+        sq_sum, n = scan.sq_sum, scan.n
+    else:
+        sq_sum = torch.zeros((), device=device)
+        n = torch.zeros((), device=device)
+        for batch in _prefetch(batcher, device):
+            with annotate("train_step"):
+                if cache is not None:
+                    batch = gather_cached_batch(cache, batch["row"],
+                                                batch["weight"])
+                _, s, c = train_step(model, optimizer, batch, generator)
+            sq_sum += s
+            n += c
+            tp.add(min(bs, remaining))
+            remaining -= bs
     total, count = float(sq_sum), float(n)   # the epoch's one sync
     return {"MSE": round(total / max(count, 1.0), 4), **tp.metrics()}
 
@@ -419,8 +654,10 @@ def train_complete(hp: HyperParams, model: torch.nn.Module, dataset, *,
     MSE, and `train_examples_per_s`, the median of the epochs'
     examples/s. Ctrl-C ends training and returns the best
     params so far. `hp.scan_steps` > 1 (the JAX package's `lax.scan`
-    over S batches in one dispatch) is accepted: the port runs the same
-    updates in the same order, one step at a time, as 1 does.
+    over S batches in one dispatch) trains each full group of S batches
+    as one dispatch (`ScanSteps`: one CUDA-graph replay on the card),
+    with the same updates in the same order as 1; the graph is captured
+    after any resume, so it holds the params and state the run trains.
 
     With `hp.cache_doc_embeds` (and `hp.cache_entity`) the splits live in
     a device cache (module docstring); validation then reads a val cache
@@ -472,6 +709,8 @@ def train_complete(hp: HyperParams, model: torch.nn.Module, dataset, *,
         best_mse = float(payload["extra"].get("val_mse", best_mse))
         since_improve = int(payload["extra"].get("since_improve", 0))
     train_b.set_epoch(start_epoch - 1)
+    scan = (ScanSteps(model, optimizer, hp.scan_steps, device, train_cache)
+            if hp.scan_steps > 1 else None)
 
     log = hp.log_file()
     try:
@@ -479,7 +718,7 @@ def train_complete(hp: HyperParams, model: torch.nn.Module, dataset, *,
             t0 = time.time()
             gen = epoch_generator(hp.seed, epoch, device)
             train_metrics = train_epoch(model, optimizer, train_b, gen,
-                                        device, train_cache)
+                                        device, train_cache, scan)
             if use_cache:
                 metrics, _, _ = evaluate_cached(
                     model, val_cache, val_recs, hp, dataset.user_count,
