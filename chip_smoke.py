@@ -95,10 +95,25 @@
 12. `scan_steps` 10, one CUDA-graph replay a group, against 1 from the
    same init at dropout 0.6: MF_dot, NeuMF (its three phases), deepconn
    on the fused entity path, uncached, and uncached with the fused
-   gather, NARRE and transnet++ on the entity cache; params and epoch
-   MSE bitwise equal; ms per step in 5 alternating pairs of epochs and
-   a 50-step profile each way (`scan`).
-13. Prints the card, one JSON line of kernel numbers and, last, the
+   gather, NARRE and transnet++ on the entity cache, MPCN on the
+   ids-only cache (its Gumbel noise from the registered generator);
+   params and epoch MSE bitwise equal; ms per step in 5 alternating
+   pairs of epochs and a 50-step profile each way (`scan`).
+13. MPCN at full width (the corpus's 8921 x 64 trained table, dmax 20,
+   smax 30, hidden 10) from the JAX package's params in
+   `tests/torch_fixtures/mpcn_ref.npz`: `predict`, `finalize` and the
+   grid top-10 against JAX's outputs, a prediction off by more than
+   1e-3 only where the hard pointer's pooled logits near-tie, on at most
+   1% of the rows (`mpcn_serve`); 8 steps at the fixture's fixed Gumbel
+   uniforms on the ids-only cache against JAX's, then `api.run` 1 epoch
+   at `scan_steps` 10 (`mpcn_train`). MPCN runs no kernel of ours.
+14. The ranking losses: 8 steps each of deepconn++ under CE, MF_dot
+   under BPR and MPCN under HINGE on the 1+5 grids of
+   `materialize_train_negs` (val split) against the fixture; the
+   forward and dG checked against their plain versions at the item
+   tower's B*C = 1536 docs of T = 1000; `api.run` of MF_dot under BPR
+   2 epochs, val HR@1 above the untrained model's (`rank_train`).
+15. Prints the card, one JSON line of kernel numbers and, last, the
    result line. Any failed check raises and the exit code is not 0.
 
 The kernel launch counts are set to 0 just before each path (serving,
@@ -106,7 +121,8 @@ The kernel launch counts are set to 0 just before each path (serving,
 training through `api.run` and entity serving, 7; review serving,
 review training and the review entity cache, 8; id-model serving and
 training, 9; the factorized index, 10; the fused gather's serving and
-training, 11; the scan groups, 12) and read just after. A CUDA-graph
+training, 11; the scan groups, 12; MPCN serving and training, 13; each
+ranking case, 14) and read just after. A CUDA-graph
 replay adds the launches counted while its group was captured.
 Without CUDA or the checkout around it, the script exits with an error
 and prints no result.
@@ -114,10 +130,11 @@ and prints no result.
     python3 chip_smoke.py --e2e-full [--seeds N] [--models M,...]
 
 is opt-in: it trains `--models` (default deepconn,deepconn++; also
-NARRE, transnet, transnet++, bias_only, MF_dot, NeuMF) with the
-reference's own flags (60 epochs, 40 for transnet(++) and 30 for the id
-models, early stop 5, the entity cache for the review models,
-`scan_steps` 10: CUDA-graph groups) and prints their
+NARRE, transnet, transnet++, bias_only, MF_dot, NeuMF, MPCN) with the
+reference's own flags (60 epochs, 40 for transnet(++) and MPCN and 30 for
+the id models, early stop 5, the entity cache for the TextCNN models,
+MPCN with mpcn_l2 1e-4 on the ids-only cache, `scan_steps` 10: CUDA-graph
+groups) and prints their
 test metrics (transnet's MSE_right too) beside the JAX package's rows in
 `data/e2e_state.json`. With N > 1 each model runs over seeds 0..N-1 from
 the port's own init and, for the deepconn heads, once from the JAX
@@ -157,6 +174,9 @@ REVIEW_ENTITY_FIXTURE = ROOT / "tests" / "torch_fixtures" / \
 MF_FIXTURE = ROOT / "tests" / "torch_fixtures" / "mf_ref.npz"
 FACTORIZED_FIXTURE = ROOT / "tests" / "torch_fixtures" / \
     "factorized_ref.npz"
+# MPCN's serving outputs and 8 steps, and 8 steps of CE, BPR and HINGE on
+# candidate grids (make_mpcn_ref.py)
+MPCN_FIXTURE = ROOT / "tests" / "torch_fixtures" / "mpcn_ref.npz"
 E2E_STATE = ROOT / "data" / "e2e_state.json"
 MODELS = ("deepconn", "deepconn++")
 REVIEW_MODELS = ("NARRE", "transnet", "transnet++")
@@ -166,7 +186,7 @@ MF_E2E_MODELS = ("bias_only", "MF_dot", "NeuMF")
 # `--e2e-full` epochs where the reference's flags differ from 60
 # (`examples/e2e_realistic.py`)
 E2E_EPOCHS = {"transnet": 40, "transnet++": 40, "bias_only": 30,
-              "MF_dot": 30, "NeuMF": 30}
+              "MF_dot": 30, "NeuMF": 30, "MPCN": 40}
 # the models FactorizedRecommender factorizes, with the fixture that
 # holds each one's params
 FACTORIZED = {"bias_only": MF_FIXTURE, "MF_dot": MF_FIXTURE,
@@ -210,7 +230,8 @@ NARRE_SHAPE = dict(b=2560, t=100)
 PHASES = ("kernels", "rows", "serve", "train", "input_grad",
           "entity_vs_jax", "entity_train", "entity_serve", "review_serve",
           "review_train", "review_entity", "mf_serve", "mf_train",
-          "factorized", "embed", "embed_train", "scan")
+          "factorized", "embed", "embed_train", "scan", "mpcn_serve",
+          "mpcn_train", "rank_train")
 # untrained deepconn's test MSE on the e2e corpus (e2e_ref.npz): two
 # epochs of training must land below it
 UNTRAINED_MSE = 1.524
@@ -1150,7 +1171,9 @@ def time_rows(torch, textcnn) -> dict:
 # training held against the JAX trainer
 # ---------------------------------------------------------------------
 def _steps_vs_ref(torch, model, opt, batches, ref, mt: str, what: str,
-                  p_tol: float = 5e-4, flips: float = 0.0):
+                  p_tol: float = 5e-4, flips: float = 0.0,
+                  shift_free=SHIFT_FREE, rows=None,
+                  objective=("RAW_MSE", 0.2)):
     """Train `model` one step per batch of `batches` and hold the run
     against the JAX trainer's in `ref` (under `<mt>/`): losses within
     1e-4 relative, step-1 gradients within 1e-4 of each tensor's max
@@ -1158,10 +1181,13 @@ def _steps_vs_ref(torch, model, opt, batches, ref, mt: str, what: str,
     rounding of near-zero gradients into up to a few percent of lr per
     step; tests/test_torch_train.py). `flips` > 0 lets that share of the
     param elements be up to 2 * steps * lr apart instead (FLIP_SHARE).
-    NARRE's shift-free bias elements (SHIFT_FREE) are held within
-    steps * lr of the init instead. Prints the worst param element with
-    its step-1 gradients and Adam moments. Returns (losses, step-1
-    grads, params)."""
+    The shift-free bias elements of `shift_free` (NARRE's SHIFT_FREE by
+    default) are held within steps * lr of the init instead. `rows`
+    ({name: row ids}) compares only those rows of a tensor, where the
+    fixture stores only those (MPCN's word table). `objective` is the
+    (loss, hinge margin) of the steps. Prints the worst param
+    element with its step-1 gradients and Adam moments. Returns (losses,
+    step-1 grads, params), unsliced."""
     import numpy as np
 
     from reviews4rec_torch.train.loop import train_step
@@ -1178,7 +1204,7 @@ def _steps_vs_ref(torch, model, opt, batches, ref, mt: str, what: str,
     hook = opt.register_step_pre_hook(grab)
     model.train()
     t0 = time.perf_counter()
-    losses = torch.stack([train_step(model, opt, batch())[0]
+    losses = torch.stack([train_step(model, opt, batch(), None, *objective)[0]
                           for batch in batches])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
@@ -1187,11 +1213,24 @@ def _steps_vs_ref(torch, model, opt, batches, ref, mt: str, what: str,
     want = ref[f"{mt}/loss"]
     loss_err = float(np.max(np.abs(got - want) / np.abs(want)))
     want_g = params_from_flax(_subtree(ref, f"{mt}/grad1/"))
-    state = model.state_dict()
+    full_state = model.state_dict()
     want_p = params_from_flax(_subtree(ref, f"{mt}/params/"))
-    # the shift-free bias elements (SHIFT_FREE), by step-1 gradient
+    moments = {n: opt.state[p] for n, p in model.named_parameters()}
+    rows = {n: torch.as_tensor(r).long() for n, r in (rows or {}).items()}
+
+    def sliced(n, t):
+        return t[rows[n].to(t.device)] if n in rows else t
+
+    full_grads = grads
+    grads = {n: sliced(n, g) for n, g in grads.items()}
+    state = {n: sliced(n, v) for n, v in full_state.items()}
+    init = {n: sliced(n, v) for n, v in init.items()}
+    moments = {n: {k: sliced(n, v) for k, v in m.items()
+                   if torch.is_tensor(v) and v.dim()}
+               for n, m in moments.items()}
+    # the shift-free bias elements, by step-1 gradient
     free = {n: torch.maximum(grads[n].cpu().abs(), want_g[n].abs()) < 1e-6
-            for n in SHIFT_FREE if n in grads}
+            for n in shift_free if n in grads}
     if free:
         lr = opt.param_groups[0]["lr"]
         moved = max((max((state[n].cpu() - init[n].cpu())[q].abs().max()
@@ -1222,7 +1261,7 @@ def _steps_vs_ref(torch, model, opt, batches, ref, mt: str, what: str,
     p_err = diff.max().item()
     at = int(diff.argmax())
     want_g = want_g[worst]
-    moments = opt.state[dict(model.named_parameters())[worst]]
+    moments = moments[worst]
     print(f"{mt} {len(got)} {what} vs JAX ({secs:.2f} s): losses "
           f"{np.round(got, 5).tolist()}; max loss err {loss_err:.2e} "
           f"(relative), step-1 grad err {grad_err:.2e} (of each max), "
@@ -1247,7 +1286,7 @@ def _steps_vs_ref(torch, model, opt, batches, ref, mt: str, what: str,
             p_err = 0.0
     if not (loss_err <= 1e-4 and grad_err <= 1e-4 and p_err <= p_tol):
         raise AssertionError(f"{mt}: {what} differ from the JAX trainer's")
-    return losses, grads, {k: v.clone() for k, v in state.items()}
+    return losses, full_grads, {k: v.clone() for k, v in full_state.items()}
 
 
 def train_vs_jax(torch, ds, device) -> None:
@@ -2607,7 +2646,9 @@ def _e2e_run(torch, ds, device, mt: str, seed: int, init=None) -> dict:
     from reviews4rec_torch.weights import load_flax_params
 
     jax_row = json.loads(E2E_STATE.read_text())["results"][mt]
-    review = {} if mt in MF_E2E_MODELS else dict(use_pallas=True, **ENTITY)
+    review = ({} if mt in MF_E2E_MODELS else
+              dict(mpcn_l2=1e-4, cache_doc_embeds=True, cache_sides="ids")
+              if mt == "MPCN" else dict(use_pallas=True, **ENTITY))
     with tempfile.TemporaryDirectory() as tmp:
         hp = ds.apply_to(HyperParams(
             model_type=mt, dataset="e2e", batch_size=256, eval_num_negs=99,
@@ -3200,6 +3241,8 @@ SCAN_CASES = (
     ("deepconn uncached fused gather", "deepconn", FUSED),
     ("NARRE entity", "NARRE", ENTITY),
     ("transnet++ entity", "transnet++", ENTITY),
+    ("MPCN ids cache", "MPCN", dict(cache_doc_embeds=True,
+                                    cache_sides="ids")),
 )
 
 
@@ -3216,7 +3259,7 @@ def _scan_setup(ds, device, mt, flags):
     hp = ds.apply_to(HyperParams(model_type=mt, dataset="e2e",
                                  latent_size=10, batch_size=256, dropout=0.6,
                                  shuffle_data_every_epoch=True, **flags))
-    _, use_entity = loop._cache_mode(hp)
+    use_cache, use_entity = loop._cache_mode(hp)
     if use_entity:
         recs = ds.materialize_entity(hp, "train")
         tables = loop.build_entity_tables(hp, ds, device)
@@ -3224,7 +3267,15 @@ def _scan_setup(ds, device, mt, flags):
             tables = loop._fuse_tables(tables)
         cache = loop.EntityCache(to_device(recs, device), tables)
         return hp, {"row": np.arange(len(recs["rating"]))}, cache
-    return hp, ds.materialize(hp, "train"), None
+    recs = ds.materialize(hp, "train")
+    if use_cache:   # the per-example cache (MPCN: int ids)
+        ck, idk = loop.doc_cache_keys(hp.model_type, hp.cache_sides)
+        recs = loop._model_records(_scan_model(ds, device, hp)[0], recs)
+        cache = loop.build_doc_cache(recs, ds.word_vectors,
+                                     loop.cache_dtype_for(hp), device,
+                                     keys=ck, id_keys=idk)
+        return hp, {"row": np.arange(len(recs["rating"]))}, cache
+    return hp, recs, None
 
 
 def _scan_model(ds, device, hp):
@@ -3382,6 +3433,459 @@ def scan(torch, textcnn, ds, device) -> dict:
         if not launches[k]:
             raise AssertionError(f"scan path: {k} never launched")
     return launches
+
+
+# ---------------------------------------------------------------------
+# MPCN (no kernel of ours) and the ranking losses
+# ---------------------------------------------------------------------
+def _pointer_near_ties(torch, model, rel: float = 1e-5):
+    """Forward hooks on MPCN's review-level co-attentions: for each
+    example of each forward, whether a side's MAX-pooled logits have
+    their two largest distinct values within `rel` of each other, where
+    f32 sum order can move the hard pointer. Returns (the list each
+    forward appends a [b] bool tensor to, the hook handles)."""
+    flags = []
+
+    def hook(_module, _inputs, out):
+        y = out[4]
+        near = torch.zeros(y.shape[0], dtype=torch.bool, device=y.device)
+        for v in (y.amax(-1), y.amax(-2)):
+            top = v.amax(-1, keepdim=True)
+            below = torch.where(v < top, v, -torch.inf).amax(-1)
+            near |= (top[:, 0] - below) <= rel * top[:, 0].abs()
+        flags.append(near)
+
+    handles = [getattr(model, f"mpcn_{h}").register_forward_hook(hook)
+               for h in range(model.num_heads)]
+    return flags, handles
+
+
+def _near_flags(flags, handles, n: int, c: int = 1):
+    """[n] bool: the example (c = 1) or grid row with a pointer near-tie
+    of the hooked forwards, the Batcher's padding dropped."""
+    import numpy as np
+    for h in handles:
+        h.remove()
+    got = np.concatenate([f.cpu().numpy() for f in flags])
+    return got.reshape(-1, c).any(1)[:n]
+
+
+def _check_mpcn_ranks(torch, name, model, recs, batch_size, device,
+                      ref_scores) -> int:
+    """`_check_ranks` for MPCN: a score may miss 1e-3, and a rank move
+    off the fixture's near-ties, only on a row with a pointer near-tie
+    (`_pointer_near_ties`). Returns the rank changes."""
+    import numpy as np
+
+    from reviews4rec_torch.train.evaluate import score_grid
+
+    flags, handles = _pointer_near_ties(torch, model)
+    got = score_grid(model, recs, batch_size, device)
+    near_ptr = _near_flags(flags, handles, len(got), got.shape[1])
+    off = np.abs(got - ref_scores).max(1) > 1e-3
+    ranks = np.sum(got[:, 1:] > got[:, :1], axis=1)
+    ref = np.sum(ref_scores[:, 1:] > ref_scores[:, :1], axis=1)
+    moved = ranks != ref
+    print(f"  {name}: max|score err| {np.abs(got - ref_scores).max():.3e}, "
+          f"rows with a pointer near-tie {int(near_ptr.sum())} of "
+          f"{len(got)}, scores off by > 1e-3 {int(off.sum())}, rank changes "
+          f"{int(moved.sum())}")
+    if np.any(off & ~near_ptr) or np.any(
+            moved & ~(near_ptr | _near_tie_rows(ref_scores))):
+        raise AssertionError(f"{name}: scores or ranks differ off near-ties")
+    return int(moved.sum())
+
+
+def _mpcn_model(ds, device, ref, **flags):
+    from reviews4rec_torch.config import HyperParams
+    from reviews4rec_torch.models import build_model
+
+    geom = json.loads(str(ref["geometry"]))
+    geom.pop("steps")
+    hp = ds.apply_to(HyperParams(model_type="MPCN", **dict(geom, **flags)))
+    model = build_model(hp, ds.word_vectors, device=device)
+    load_flax_params_from(model, ref, "MPCN")
+    return hp, model
+
+
+def mpcn_serve(torch, textcnn, ds, device) -> dict:
+    """MPCN at full width (the corpus's 8921 x 64 table, dmax 20, smax 30,
+    hidden 10, NBOW / FM / FC) from mpcn_ref.npz's JAX params: `predict`
+    on the test split at batch 256, `finalize` (HR@1 on the 1+5 sets,
+    HR@10 / NDCG@10 on the 1+99 sets) and the grid top-10 of 8 users,
+    each timed, held against JAX's outputs. A prediction may miss 1e-3
+    only where its review-level pooled logits have a near-tie within
+    1e-5 relative (the card's f32 order can move the hard pointer there),
+    on at most 1% of the rows. Returns the path's launches (all 0)."""
+    import numpy as np
+
+    from reviews4rec_torch.api import finalize
+    from reviews4rec_torch.serve import Recommender, predict
+    from reviews4rec_torch.utils.io import load_npz
+
+    ref = load_npz(str(MPCN_FIXTURE))
+    users = ref["serve_users"]
+    hp, model = _mpcn_model(ds, device, ref)
+    ds.materialize(hp, "test")      # warm the host records
+    ds.materialize_negs(hp)
+    ds.materialize_wide_negs(hp, hp.eval_num_negs, seed=hp.seed)
+    torch.cuda.reset_peak_memory_stats()
+    _reset(textcnn)
+    pred, pred_s = _timed(torch, lambda: predict(hp, ds, "test", model=model,
+                                                 device=device))
+    scored, fin_s = _timed(torch, lambda: finalize(hp, model, ds,
+                                                   device=device))
+    topk, topk_s = _timed(torch, lambda: Recommender(
+        hp, ds, model=model, item_chunk=512, device=device).topk(users,
+                                                                 k=10))
+    launches = _no_launches(textcnn, "MPCN serving")
+    n = len(pred)
+    print(f"MPCN: predict {pred_s:.3f} s ({n / pred_s:.0f} examples/s), "
+          f"finalize {fin_s:.3f} s, grid top-10 of {len(users)} users "
+          f"{topk_s:.3f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    flags, handles = _pointer_near_ties(torch, model)
+    again = predict(hp, ds, "test", model=model, device=device)
+    near = _near_flags(flags, handles, n)
+    want = ref["MPCN/test_pred"]
+    if not (pred.shape == want.shape and np.isfinite(pred).all()
+            and np.array_equal(again, pred)):
+        raise AssertionError("MPCN: bad predictions")
+    err = np.abs(pred - want)
+    off = err > 1e-3
+    print(f"  MPCN predictions max|err| {err.max():.3e}; off by > 1e-3 "
+          f"{int(off.sum())} of {n}; rows with a pointer near-tie "
+          f"{int(near.sum())} (limit {n // 100})")
+    if np.any(off & ~near) or near.sum() > n // 100:
+        raise AssertionError("MPCN: predictions differ off pointer "
+                             "near-ties")
+    metrics, ucm, icm = scored
+    ref_metrics = json.loads(str(ref["MPCN/metrics"]))
+    y = ds.splits["test"].rating
+    # what the near-tie rows may move the test MSE by
+    slack = float(np.sum(np.abs((pred - y) ** 2 - (want - y) ** 2)[off])) / n
+    print(f"  MPCN metrics {metrics}; JAX {ref_metrics}")
+    if set(metrics) != set(ref_metrics) or not (
+            abs(metrics["MSE"] - ref_metrics["MSE"]) <= 1e-4 + slack + 1e-9):
+        raise AssertionError("MPCN: test metrics differ")
+    if (sorted(ucm) != ref["MPCN/user_count_keys"].tolist()
+            or sorted(icm) != ref["MPCN/item_count_keys"].tolist()):
+        raise AssertionError("MPCN: count-map keys differ")
+    moved = _check_mpcn_ranks(torch, "MPCN 1+5 grids", model,
+                              ds.materialize_negs(hp), 64, device,
+                              ref["MPCN/narrow_scores"])
+    moved += _check_mpcn_ranks(
+        torch, f"MPCN 1+{hp.eval_num_negs} grids", model,
+        ds.materialize_wide_negs(hp, hp.eval_num_negs, seed=hp.seed), 16,
+        device, ref["MPCN/wide_scores"])
+    for key in ("HR@1", "HR@10", "NDCG@10"):
+        if moved == 0 and metrics[key] != ref_metrics[key]:
+            raise AssertionError(f"MPCN: {key} differs")
+    _check_topk("MPCN grid top-10 vs JAX", *topk, ref["MPCN/topk_ids"],
+                ref["MPCN/topk_scores"])
+    return launches
+
+
+def _fixture_uniforms(torch, ref, case: str, device):
+    """The fixed Gumbel uniforms of `case`'s JAX steps, for MPCN's one
+    head: [(u_a, u_b)] on the card."""
+    return [tuple(torch.from_numpy(ref[f"steps/{case}/u{j}"]).to(device)
+                  for j in (0, 1))]
+
+
+def mpcn_train(torch, textcnn, ds, device) -> dict:
+    """8 MPCN steps at dropout 0 and the fixture's fixed Gumbel uniforms,
+    on batches of the numpy-seeded Batcher gathered from the ids-only
+    per-example cache (`cache_sides="ids"`), held against mpcn_ref.npz's
+    JAX steps within `_steps_vs_ref`'s bounds (the word table on the
+    fixture's 1024 rows); then `api.run` of MPCN for 1 epoch (mpcn_l2
+    1e-4, scan_steps 10, the ids cache), whose val MSE must land below
+    that of its own init untrained. Returns the path's launches (all
+    0)."""
+    import re
+    import tempfile
+
+    import numpy as np
+
+    from reviews4rec_torch.api import run
+    from reviews4rec_torch.models import build_model
+    from reviews4rec_torch.serve import predict
+    from reviews4rec_torch.train import loop
+    from reviews4rec_torch.utils.io import load_npz
+
+    ref = load_npz(str(MPCN_FIXTURE))
+    steps = json.loads(str(ref["geometry"]))["steps"]
+    hp, model = _mpcn_model(ds, device, ref, mpcn_dropout_keep=1.0,
+                            cache_doc_embeds=True, cache_sides="ids")
+    recs = loop._model_records(model, ds.materialize(hp, "train"))
+    ck, idk = loop.doc_cache_keys("MPCN", hp.cache_sides)
+    cache = loop.build_doc_cache(recs, ds.word_vectors, torch.float32, device,
+                                 keys=ck, id_keys=idk)
+    bs = hp.batch_size
+    weight = torch.ones(bs, device=device)
+    batches = [lambda s=s: loop.gather_cached_batch(cache, torch.arange(
+        s * bs, (s + 1) * bs, device=device), weight) for s in range(steps)]
+    model.gumbel_u = _fixture_uniforms(torch, ref, "MPCN", device)
+    _reset(textcnn)
+    _steps_vs_ref(torch, model, loop.make_optimizer(hp, model), batches, ref,
+                  "steps/MPCN", "training steps (ids cache)",
+                  rows={"word_embedding": ref["table_rows"]})
+    del cache
+
+    with tempfile.TemporaryDirectory() as tmp:
+        hp = ds.apply_to(hp.replace(
+            mpcn_dropout_keep=0.8, epochs=1, scan_steps=10, log_dir=tmp,
+            model_dir=tmp, shuffle_data_every_epoch=True))
+        # the run's own init: the port's from hp.seed
+        fresh = build_model(hp, ds.word_vectors, device=device)
+        y = ds.splits["val"].rating
+        untrained = float(np.mean((predict(hp, ds, "val", model=fresh,
+                                           device=device) - y) ** 2))
+        torch.cuda.reset_peak_memory_stats()
+        (metrics, _, _), wall = _timed(torch, lambda: run(hp, ds,
+                                                          device=device))
+        banners = re.findall(_BANNER, open(hp.log_file()).read())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = _no_launches(textcnn, "MPCN training")
+    if len(banners) != 1:
+        raise AssertionError("MPCN api.run: no epoch banner")
+    _, secs, val_mse, eps = banners[0]
+    n_train = len(ds.splits["train"])
+    print(f"MPCN api.run, 1 epoch at scan_steps 10 on the ids cache: "
+          f"{wall:.1f} s with finalize; {float(eps):.1f} train examples/s "
+          f"({1e3 * n_train / float(eps) / -(-n_train // bs):.3f} ms per "
+          f"step), epoch {secs} s with val; val MSE {val_mse} (untrained "
+          f"{untrained:.4f}); peak device memory {peak:.2f} GB; test "
+          f"{metrics}")
+    if not (np.isfinite([v for k, v in metrics.items() if k != "dataset"])
+            .all() and float(val_mse) < untrained):
+        raise AssertionError(f"MPCN: val MSE {val_mse} after an epoch is not "
+                             f"below the untrained {untrained}")
+    return launches
+
+
+# CE of deepconn++ from e2e_ref.npz's init: the logits of a grid row start
+# near equal, the user tower's gradient is a near-cancelling sum over the
+# candidates, and Adam's normalised steps turn f32 rounding into lr-sized
+# moves. The port's own f32 and float64 runs of 8 such steps (B=64, CPU)
+# part at step 3 and end with 27686 of 44874 param elements more than
+# 5e-4 apart (max 0.0134), while under RAW_MSE they end within 3.2e-6.
+# So only step 1 is held to PERF.md's training bounds there; the losses
+# of later steps are held within this relative bound, the params within
+# 2 * steps * lr (two Adam runs can part by no more)
+CHAOTIC_LOSS_REL = 1e-3
+# the ranking cases of mpcn_ref.npz: (case, model, loss, params fixture
+# key, elements with a shift-free gradient (a bias that adds the same to
+# every candidate of a row: 0 in exact arithmetic under a ranking loss))
+RANK_CASES = (
+    ("CE/deepconn++", "deepconn++", "CE", "steps/CE/deepconn++/init/",
+     ("global_bias", "user_bias", "final.fc0.bias", "final.fc1.bias")),
+    ("BPR/MF_dot", "MF_dot", "BPR", "steps/BPR/MF_dot/init/",
+     ("global_bias", "user_bias")),
+    ("HINGE/MPCN", "MPCN", "HINGE", "MPCN/params/", ("fm_lin.bias",)))
+
+
+def _tie_filters(torch, model, batch) -> dict:
+    """{conv kernel name: [W*E, F] bool}, True in the columns of the
+    filters where a doc of `batch` has two window starts with the same
+    positive value (windows of words with equal vectors): JAX's XLA max
+    splits their gradient, the port's op gives it to the first argmax
+    (ROADMAP Queue 3, the first-argmax tie rule)."""
+    import torch.nn.functional as F
+    out = {}
+    for side in ("user", "item"):
+        conv = getattr(model, f"{side}_conv")
+        ids = batch[f"{side}_doc"]
+        x = model.word_vectors[ids.reshape(-1, ids.shape[-1]).long()]
+        w, k = conv.window, conv.conv_kernel.detach()
+        win = F.pad(x, (0, 0, w - 1, w - 1)).unfold(1, w, 1).transpose(
+            -1, -2).reshape(x.shape[0], x.shape[1] + w - 1, -1)
+        cols = torch.zeros(k.shape[1], dtype=torch.bool, device=x.device)
+        for lo in range(0, x.shape[0], 256):   # bounded memory
+            y = torch.relu(win[lo:lo + 256] @ k + conv.conv_bias.detach())
+            top = y.amax(1, keepdim=True)
+            cols |= (((y == top) & (top > 0)).sum(1) > 1).any(0)
+        out[f"{side}_conv.conv_kernel"] = cols[None].expand_as(k).cpu()
+    return out
+
+
+def _chaotic_steps_vs_ref(torch, model, opt, batches, ref, mt: str,
+                          objective, skip: dict, shift_free=()) -> None:
+    """The 8 steps of a case whose trajectory f32 rounding steers
+    (CHAOTIC_LOSS_REL): step 1's loss within 1e-4 relative and its
+    gradients within 1e-4 of each tensor's max (off the `skip` elements
+    and the shift-free elements of `shift_free`, whose step-1 gradient is
+    below 1e-6 on both sides),
+    the later losses within CHAOTIC_LOSS_REL relative, the final params
+    within 2 * steps * lr; prints how many elements end more than 5e-4
+    from JAX's."""
+    import numpy as np
+
+    from reviews4rec_torch.train.loop import train_step
+    from reviews4rec_torch.weights import params_from_flax
+
+    grads = {}
+
+    def grab(_opt, _args, _kwargs):
+        if not grads:
+            grads.update({n: p.grad.detach().cpu().clone()
+                          for n, p in model.named_parameters()})
+
+    hook = opt.register_step_pre_hook(grab)
+    model.train()
+    losses = torch.stack([train_step(model, opt, batch(), None, *objective)[0]
+                          for batch in batches]).cpu().numpy()
+    hook.remove()
+    want = ref[f"{mt}/loss"]
+    rel = np.abs(losses - want) / np.abs(want)
+    want_g = params_from_flax(_subtree(ref, f"{mt}/grad1/"))
+    skip = dict(skip)
+    for n in shift_free:
+        skip[n] = torch.maximum(grads[n].abs(), want_g[n].abs()) < 1e-6
+    grad_err = max(
+        ((grads[n] - g).abs().masked_fill(skip.get(n, torch.zeros_like(
+            g, dtype=torch.bool)), 0).max() / max(g.abs().max(), 1e-30))
+        .item() for n, g in want_g.items())
+    want_p = params_from_flax(_subtree(ref, f"{mt}/params/"))
+    state = model.state_dict()
+    diff = {n: (state[n].cpu() - v).abs() for n, v in want_p.items()}
+    p_err = max(d.max().item() for d in diff.values())
+    over = sum(int((d > 5e-4).sum()) for d in diff.values())
+    total = sum(d.numel() for d in diff.values())
+    bound = 2 * len(batches) * opt.param_groups[0]["lr"] * 1.03
+    print(f"{mt} {len(batches)} steps vs JAX: losses "
+          f"{np.round(losses, 5).tolist()}; step-1 loss err {rel[0]:.2e}, "
+          f"later losses max err {rel[1:].max():.2e} (relative, limit "
+          f"{CHAOTIC_LOSS_REL:g}); step-1 grad err {grad_err:.2e} (of each "
+          f"max; left out: " + ", ".join(
+              f"{n} {int(m.sum())}" for n, m in skip.items() if m.any())
+          + f"); final params "
+          f"max|err| {p_err:.2e} (limit {bound:.2e}), {over} of {total} "
+          f"elements beyond 5e-4")
+    if not (rel[0] <= 1e-4 and grad_err <= 1e-4
+            and rel.max() <= CHAOTIC_LOSS_REL and p_err <= bound):
+        raise AssertionError(f"{mt}: steps differ from the JAX trainer's")
+
+
+def _grid_fwd_dg(torch, textcnn, model, batch) -> dict:
+    """The forward and dG kernels on the item tower's inputs of a grid
+    step (B * C docs of T words, `batch` on the card) against their
+    plain versions: `_check_time_fwd`, and dK within 1e-4 of its max on
+    a seeded cotangent gated by out > 0."""
+    conv = model.item_conv
+    x = model.word_vectors[batch["item_doc"].reshape(
+        -1, batch["item_doc"].shape[-1]).long()]
+    res = _check_time_fwd(torch, textcnn, f"grid item tower B={x.shape[0]} "
+                          f"T={x.shape[1]}", x, conv)
+    k, bias = conv.conv_kernel.detach(), conv.conv_bias.detach()
+    w = conv.window
+    out, idx = textcnn.textcnn_pool_forward(x, k, bias, w)
+    gen = torch.Generator().manual_seed(12)
+    g = torch.randn(out.shape, generator=gen).to(x.device)
+    gated = torch.where(out > 0, g, 0.0)
+    dk = textcnn.textcnn_pool_bwd_dg(x, gated, idx, w)
+    _, ref_dk, _ = textcnn.textcnn_pool_backward_reference(
+        x, k, gated, idx, w, None, need_dx=False)
+    err = (dk - ref_dk).abs().max().item()
+    tol = 1e-4 * max(1.0, ref_dk.abs().max().item())
+    print(f"textcnn_pool_bwd_dg grid item tower B={x.shape[0]}: max|dK err| "
+          f"{err:.3e} (limit {tol:.1e})")
+    if not err <= tol:
+        raise AssertionError("dG disagrees with the plain version at the "
+                             "grid shape")
+    res["dg_max_abs_err"] = err
+    return res
+
+
+def rank_train(torch, textcnn, ds, device) -> dict:
+    """8 steps each of deepconn++ under CE, MF_dot under BPR and MPCN
+    under HINGE (dropout 0; MPCN at the fixture's Gumbel uniforms) on
+    the grids of `materialize_train_negs(hp, "val", seed)` (B = 256 rows
+    of 1 + 5 candidates), held against mpcn_ref.npz within
+    `_steps_vs_ref`'s bounds; deepconn++'s towers launch the forward and
+    dG at the item tower's 1536 x 1000 docs and the user tower's 256,
+    each counted, and one forward and one dG there are held against
+    their plain versions. Then `api.run` of MF_dot under BPR for 2
+    epochs: its val HR@1 above the untrained model's. Returns the path's
+    launches."""
+    import re
+    import tempfile
+
+    from reviews4rec_torch.api import run
+    from reviews4rec_torch.config import HyperParams
+    from reviews4rec_torch.data import Batcher
+    from reviews4rec_torch.models import build_model
+    from reviews4rec_torch.train import loop
+    from reviews4rec_torch.train.evaluate import eval_ranking
+    from reviews4rec_torch.utils.device import to_device
+    from reviews4rec_torch.utils.io import load_npz
+    from reviews4rec_torch.weights import load_flax_params
+
+    ref = load_npz(str(MPCN_FIXTURE))
+    geom = json.loads(str(ref["geometry"]))
+    steps = geom.pop("steps")
+    launches, grid = {}, None
+    for case, mt, loss, init, shift_free in RANK_CASES:
+        hp = ds.apply_to(HyperParams(model_type=mt, loss=loss, dropout=0.0,
+                                     mpcn_dropout_keep=1.0, **geom))
+        wv = ds.word_vectors if hp.family == "review" else None
+        model = build_model(hp, wv, device=device)
+        load_flax_params(model, _subtree(ref, init))
+        recs = loop._model_records(model, ds.materialize_train_negs(
+            hp, "val", seed=hp.seed))
+        host = [b for b, _ in zip(Batcher(recs, hp.batch_size),
+                                  range(steps))]
+        batches = [lambda b=b: to_device(b, device) for b in host]
+        rows = {}
+        if mt == "MPCN":
+            model.gumbel_u = _fixture_uniforms(torch, ref, case, device)
+            rows = {"word_embedding": ref["table_rows"]}
+        opt = loop.make_optimizer(hp, model)
+        if mt == "deepconn++":
+            skip = _tie_filters(torch, model, batches[0]())
+            _reset(textcnn)
+            _chaotic_steps_vs_ref(torch, model, opt, batches, ref,
+                                  f"steps/{case}", (loss, hp.hinge_margin),
+                                  skip, shift_free)
+        else:
+            _reset(textcnn)
+            _steps_vs_ref(torch, model, opt, batches, ref, f"steps/{case}",
+                          f"{loss} steps on 1+5 grids",
+                          shift_free=shift_free, rows=rows,
+                          objective=(loss, hp.hinge_margin))
+        ran = dict(textcnn.launches)
+        want = 2 * steps if mt == "deepconn++" else 0
+        print(f"  {case}: TextCNN launches {ran}")
+        if not (ran[textcnn.FWD] == ran[textcnn.BWD_DG] == want and not any(
+                ran[k] for k in ran if k not in (textcnn.FWD,
+                                                 textcnn.BWD_DG))):
+            raise AssertionError(f"{case}: expected {want} forward and dG "
+                                 f"launches, got {ran}")
+        for k, v in ran.items():
+            launches[k] = launches.get(k, 0) + v
+        if mt == "deepconn++":
+            grid = _grid_fwd_dg(torch, textcnn, model, batches[0]())
+
+    hp = ds.apply_to(HyperParams(model_type="MF_dot", loss="BPR", **geom))
+    val = ds.materialize_train_negs(hp, "val", seed=hp.seed + 1)
+    untrained = eval_ranking(build_model(hp, device=device), val, hp,
+                             hp.batch_size, device)["HR@1"]
+    with tempfile.TemporaryDirectory() as tmp:
+        hp = hp.replace(epochs=2, log_dir=tmp, model_dir=tmp,
+                        shuffle_data_every_epoch=True)
+        (metrics, _, _), wall = _timed(torch, lambda: run(hp, ds,
+                                                          device=device))
+        hr1 = [float(h) for h in re.findall(
+            r"end of epoch \d+ \|[^\n]*?\| HR@1 = ([\d.]+)",
+            open(hp.log_file()).read())]
+    print(f"MF_dot api.run under BPR, 2 epochs: {wall:.1f} s; val HR@1 by "
+          f"epoch {hr1} (untrained {untrained}); test {metrics}")
+    if not (len(hr1) == 2 and max(hr1) > untrained):
+        raise AssertionError("MF_dot under BPR: val HR@1 did not rise above "
+                             "the untrained model's")
+    print(f"ranking path: launches {launches}")
+    return launches, grid
 
 
 def profile_predict(torch, ds) -> None:
@@ -3553,7 +4057,7 @@ def main(argv=None) -> None:
                              "0..N-1, plus one from the JAX init when N > 1")
     parser.add_argument("--only", default=None,
                         help="comma-separated phases of " + ",".join(PHASES))
-    e2e_choices = MODELS + REVIEW_MODELS + MF_E2E_MODELS
+    e2e_choices = MODELS + REVIEW_MODELS + MF_E2E_MODELS + ("MPCN",)
     parser.add_argument("--models", default=",".join(MODELS),
                         help="with --e2e-full: comma-separated models of "
                              + ",".join(e2e_choices))
@@ -3583,7 +4087,7 @@ def main(argv=None) -> None:
     for need in (CORPUS_DIR / "corpus.npz", FIXTURE, TRAIN_FIXTURE,
                  ENTITY_FIXTURE, INIT_FIXTURE, REVIEW_FIXTURE,
                  REVIEW_TRAIN_FIXTURE, REVIEW_ENTITY_FIXTURE, MF_FIXTURE,
-                 FACTORIZED_FIXTURE, E2E_STATE):
+                 FACTORIZED_FIXTURE, MPCN_FIXTURE, E2E_STATE):
         if not need.exists():
             fail(f"missing {need.relative_to(ROOT)}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3667,6 +4171,15 @@ def main(argv=None) -> None:
     # scan_steps 10 as CUDA-graph replays: every kernel but the dx
     if "scan" in want:
         paths["scan"] = scan(torch, textcnn, ds, device)
+    # MPCN runs no TextCNN kernel; the ranking steps of deepconn++ run the
+    # plain-x forward and dG over candidate grids
+    if "mpcn_serve" in want:
+        paths["mpcn_serve"] = mpcn_serve(torch, textcnn, ds, device)
+    if "mpcn_train" in want:
+        paths["mpcn_train"] = mpcn_train(torch, textcnn, ds, device)
+    if "rank_train" in want:
+        paths["rank_train"], rank_grid = rank_train(torch, textcnn, ds,
+                                                    device)
     if want != set(PHASES):
         print(f"partial run of {sorted(want)}: no result line")
         return
@@ -3712,6 +4225,12 @@ def main(argv=None) -> None:
         shape: {k: r[k] for k in ("device_ms", "bound_ms", "bound_by",
                                   "tf32x3_ms", "plain_ms", "max_abs_err")}
         for shape, r in fac_shapes.items()}
+    # the forward at the ranking grids' item tower (B*C = 1536, T = 1000),
+    # and the dG's error there
+    kernels[0]["rank_grid_shape"] = {
+        k: rank_grid[k] for k in ("device_ms", "bound_ms", "bound_by",
+                                  "tf32x3_ms", "plain_ms", "max_abs_err")}
+    kernels[1]["rank_grid_max_abs_err"] = rank_grid["dg_max_abs_err"]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

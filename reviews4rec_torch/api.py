@@ -3,9 +3,11 @@
 - `run` trains `hp.model_type` and reports the full metric set, as the
   JAX package's `api.run` does: the id models (bias_only, MF_dot, MF,
   GMF, MLP, NeuMF, the last in its three phases), deepconn, deepconn++,
-  NARRE, transnet and transnet++ so far (other families raise
+  NARRE, transnet, transnet++ and MPCN (the non-SGD families raise
   `NotImplementedError` naming their ROADMAP.md item); transnet adds
-  `MSE_right` and `MSE_transform`.
+  `MSE_right` and `MSE_transform`. Under a ranking `hp.loss` (CE, BPR,
+  HINGE; not transnet) the model trains on sampled candidate grids and
+  keeps the epoch of best val HR@1; the test metrics are the same set.
 - `finalize` scores a model the way the JAX package's `api._finalize`
   does: test MSE with the count-vs-MSE maps, HR@1 on the stored 1+5
   candidate sets and, with `hp.eval_num_negs > 0`, the k > num_negs

@@ -3,9 +3,9 @@
 The PyTorch package's own copy of the reference configuration
 (`reviews4rec_tpu/config.py`): the same fields, defaults, derived sizes
 and artifact names, so a run tag or a data directory means the same
-thing in both packages. Fields that only the JAX runtime reads (mesh,
-Pallas and cache switches) are kept so that a configuration carries over
-unchanged; the port ignores them until it ports what they select.
+thing in both packages. Fields that only the JAX runtime reads are kept
+so that a configuration carries over unchanged; where one selects what
+the port does not have, the port raises, naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -112,8 +112,12 @@ class HyperParams:
     # embedding_lookup, use_pallas with pallas_fuse_gather (the fused word
     # gather, `ops.textcnn.textcnn_pool_embed`), scan_steps (S steps per
     # dispatch, a CUDA-graph replay on the card), the cache_* switches and
-    # pallas_fuse_rows. compute_dtype and seq_parallel are the JAX
-    # package's alone: the port computes in f32.
+    # pallas_fuse_rows. The port computes in f32: a TextCNN model with
+    # compute_dtype other than float32 and without use_pallas (the JAX
+    # package's XLA branch, which casts the conv operands) raises, naming
+    # Queue 1 item 18; under use_pallas, where the JAX kernels choose their
+    # own dot dtype, it stays f32. seq_parallel raises the JAX package's
+    # ValueErrors, and on a mesh with a model axis names item 13.
     mesh_shape: Tuple[int, ...] = (1, 1)
     mesh_axes: Tuple[str, ...] = ("data", "model")
     compute_dtype: str = "float32"

@@ -15,6 +15,8 @@ The records are byte-identical to the JAX package's
   per review (NARRE, MPCN).
 - neighbor-id lists padded to exactly 10 slots with the sentinel id
   `total + 1`.
+- ranking-loss training grids (`materialize_train_negs`): each
+  example's positive and `hp.num_negs` sampled negatives.
 - the entity doc store (`hp.cache_entity`): one canonical doc per user
   and per item, concatenated (`_entity_spans`) or per review with the
   neighbor-id lists in the same slot order (`_entity_rows_docs`, NARRE),
@@ -497,6 +499,68 @@ class ReviewDataset:
             recs.update(self._grid_text_records(
                 hp, self.neg_users.astype(np.int32), cands.reshape(-1),
                 neg1, neg1, neg1, m, c))
+        self._cache[key] = recs
+        return recs
+
+    def materialize_train_negs(self, hp, split: str = "train",
+                               seed: int = 0) -> Dict[str, np.ndarray]:
+        """Sampled candidate grids for ranking-loss training (hp.loss in
+        CE / BPR / HINGE): per (u, i) example of `split`, candidates =
+        [i, hp.num_negs items drawn uniformly outside u's train items]
+        (a draw that lands in them is redrawn, 10 rounds at most), in the
+        [N, C] layout of `materialize_negs`. For review models the pair's
+        own review is removed from the user doc of every column and from
+        the positive item's doc (column 0). Bitwise the JAX package's
+        arrays for the same seed (cached)."""
+        if hp.family == "review":
+            _not_ported(hp)
+        key = ("train_negs", split,
+               _doc_layout(hp) if hp.family == "review" else "id",
+               hp.num_negs, seed)
+        if key in self._cache:
+            return self._cache[key]
+        sp = self.splits[split]
+        tr = self.splits["train"]
+        rng = np.random.default_rng(seed)
+        n, k = len(sp), hp.num_negs
+        tr_keys = np.unique(tr.user.astype(np.int64) * self.num_items
+                            + tr.item.astype(np.int64))
+
+        def in_train(users_2d, items_2d):
+            q = (users_2d.astype(np.int64) * self.num_items
+                 + items_2d.astype(np.int64))
+            if len(tr_keys) == 0:
+                return np.zeros(q.shape, bool)
+            pos = np.minimum(np.searchsorted(tr_keys, q), len(tr_keys) - 1)
+            return tr_keys[pos] == q
+
+        cands = np.empty((n, k + 1), np.int32)
+        cands[:, 0] = sp.item
+        draw = rng.integers(0, self.num_items, size=(n, k), dtype=np.int64)
+        u_col = sp.user.astype(np.int64)[:, None]
+        for _ in range(10):   # a user who rated the whole catalog keeps
+            # the collision
+            bad = in_train(np.broadcast_to(u_col, draw.shape), draw)
+            if not bad.any():
+                break
+            draw[bad] = rng.integers(0, self.num_items, size=int(bad.sum()))
+        cands[:, 1:] = draw.astype(np.int32)
+
+        user = np.repeat(sp.user, k + 1).reshape(n, k + 1).astype(np.int32)
+        rating = np.zeros((n, k + 1), np.float32)
+        rating[:, 0] = sp.rating
+        recs = {"user": user, "item": cands, "rating": rating}
+        if hp.family == "review":
+            # the removal indices of the pair (train split only; eval
+            # splits remove nothing)
+            _, _, ui0, iu0, _ = self._examples(split)
+            ui = np.repeat(ui0, k + 1).reshape(n, k + 1)
+            iu = np.full((n, k + 1), -1, np.int32)
+            iu[:, 0] = iu0
+            neg1 = np.full(n * (k + 1), -1, np.int32)
+            recs.update(self._grid_text_records(
+                hp, sp.user.astype(np.int32), cands.reshape(-1),
+                ui.reshape(-1), iu.reshape(-1), neg1, n, k + 1))
         self._cache[key] = recs
         return recs
 

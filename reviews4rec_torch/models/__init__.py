@@ -3,15 +3,25 @@
 from __future__ import annotations
 
 import math
+import warnings
 
 import torch
 
 from ..config import ALL_MODELS, ID_MODELS, HyperParams
 from ..utils.device import DeviceLike, resolve_device
 
-# the models the port has: TextCNN towers over the frozen word table
+# the TextCNN towers over the frozen word table (the JAX package's
+# TEXTCNN_MODELS)
 _TEXTCNN_MODELS = ("deepconn", "deepconn++", "NARRE", "transnet",
                    "transnet++")
+
+
+def _mesh(hp: HyperParams):
+    """{axis: size} of `hp.mesh_shape`, or None for one device (the JAX
+    package's `mesh_from_hp`)."""
+    if math.prod(hp.mesh_shape) <= 1:
+        return None
+    return dict(zip(hp.mesh_axes, hp.mesh_shape))
 
 
 def _check_lookup(hp: HyperParams) -> None:
@@ -22,8 +32,7 @@ def _check_lookup(hp: HyperParams) -> None:
     if hp.embedding_lookup == "gspmd":
         return
     axis = hp.mesh_axes[1]
-    mesh = (dict(zip(hp.mesh_axes, hp.mesh_shape))
-            if math.prod(hp.mesh_shape) > 1 else None)
+    mesh = _mesh(hp)
     if mesh is None or mesh[axis] < 2:
         raise ValueError(
             f"embedding_lookup={hp.embedding_lookup!r} needs a mesh with "
@@ -31,6 +40,45 @@ def _check_lookup(hp: HyperParams) -> None:
     raise NotImplementedError(
         f"embedding_lookup={hp.embedding_lookup!r} shards the tables over "
         f"a mesh: ROADMAP.md Queue 1 item 13")
+
+
+def _check_seq_parallel(hp: HyperParams) -> None:
+    """`hp.seq_parallel` shards the TextCNN's time axis over the mesh's
+    model axis: the JAX package's two `ValueError`s word for word (a
+    model without a TextCNN; no model axis > 1), and its warning when
+    `use_pallas` is set too. With such a mesh: the port has no mesh yet."""
+    if not hp.seq_parallel:
+        return
+    mt = hp.model_type
+    if mt not in _TEXTCNN_MODELS:
+        raise ValueError(
+            f"seq_parallel=True shards the TextCNN time axis and is only "
+            f"supported for {_TEXTCNN_MODELS}; {mt!r} has no such axis")
+    if hp.use_pallas:
+        warnings.warn(
+            "seq_parallel and use_pallas are both set; the two paths "
+            "partition the same conv differently, seq_parallel takes "
+            "precedence and the Pallas kernel will NOT run",
+            stacklevel=3)
+    mesh = _mesh(hp)
+    if mesh is None or mesh[hp.mesh_axes[1]] < 2:
+        raise ValueError(
+            "seq_parallel=True needs a mesh with model axis > 1 "
+            f"(mesh_shape={hp.mesh_shape})")
+    raise NotImplementedError(
+        "seq_parallel=True shards the TextCNN time axis over a mesh: "
+        "ROADMAP.md Queue 1 item 13")
+
+
+def _check_compute_dtype(hp: HyperParams) -> None:
+    """The JAX package's XLA TextCNN branch (no `use_pallas`) casts the
+    conv operands to `hp.compute_dtype`. The port's TextCNN computes in
+    f32, so it refuses any other dtype there. The Pallas branches choose
+    their own dot dtype, and under `use_pallas` the port keeps f32."""
+    if hp.compute_dtype != "float32" and not hp.use_pallas:
+        raise NotImplementedError(
+            f"compute_dtype={hp.compute_dtype!r}: the TextCNN computes in "
+            f"float32 only: ROADMAP.md Queue 1 item 18")
 
 
 def _id_model(hp: HyperParams, gen: torch.Generator) -> torch.nn.Module:
@@ -44,17 +92,39 @@ def _id_model(hp: HyperParams, gen: torch.Generator) -> torch.nn.Module:
     return cls(*rows, hp.latent_size, hp.dropout, generator=gen)
 
 
+def _mpcn(hp: HyperParams, word_vectors, gen: torch.Generator
+          ) -> torch.nn.Module:
+    from .mpcn import MPCN
+    if word_vectors is None:
+        raise ValueError("MPCN needs the corpus word vectors (its table's "
+                         "size and, under mpcn_pretrained, its init)")
+    return MPCN(hp.num_user_rows, hp.num_item_rows, hp.latent_size,
+                word_vectors, num_heads=hp.mpcn_heads,
+                temperature=hp.mpcn_temperature, factors=hp.mpcn_factor,
+                dropout_keep=hp.mpcn_dropout_keep,
+                rating_min=hp.rating_min, rating_max=hp.rating_max,
+                affinity=hp.mpcn_affinity, encoder=hp.mpcn_encoder,
+                head=hp.mpcn_head, joint=hp.mpcn_joint,
+                pretrained_words=hp.mpcn_pretrained,
+                projection=hp.mpcn_projection, generator=gen)
+
+
 def build_model(hp: HyperParams, word_vectors=None,
                 device: DeviceLike = None) -> torch.nn.Module:
     """The module for `hp.model_type`, initialized from `hp.seed` and
     moved to `device` (None = the GPU). The id models take no word
-    vectors."""
+    vectors; MPCN takes them for its trained table's size (and init,
+    under `hp.mpcn_pretrained`)."""
     dev = resolve_device(device)
     mt = hp.model_type
+    _check_seq_parallel(hp)
     gen = torch.Generator().manual_seed(hp.seed)
     if mt in ID_MODELS:
         return _id_model(hp, gen).to(dev)
+    if mt == "MPCN":
+        return _mpcn(hp, word_vectors, gen).to(dev)
     if mt in _TEXTCNN_MODELS:
+        _check_compute_dtype(hp)
         if word_vectors is None:
             raise ValueError(f"{mt} needs the corpus word vectors")
         rows = (hp.num_user_rows, hp.num_item_rows, hp.latent_size,
@@ -75,7 +145,6 @@ def build_model(hp: HyperParams, word_vectors=None,
         return model.to(dev)
     if mt not in ALL_MODELS:
         raise ValueError(f"unknown model_type {mt!r}")
-    item = ("Queue 1 item 11 (MPCN and the co-attention lib)"
-            if mt == "MPCN" else "Queue 1 item 12 (non-SGD families)")
     raise NotImplementedError(
-        f"{mt!r} is not ported to PyTorch yet: ROADMAP.md {item}")
+        f"{mt!r} is not ported to PyTorch yet: ROADMAP.md Queue 1 item 12 "
+        f"(non-SGD families)")

@@ -1,5 +1,5 @@
 """Shared neural blocks: factorization machine, text CNN, scorer MLP,
-MLP tower.
+MLP tower, highway layer.
 
 PyTorch counterparts of `reviews4rec_tpu/models/layers.py`, with the
 same parameter layouts so that `weights.params_from_flax` maps one onto
@@ -170,6 +170,26 @@ class MLPTower(nn.Module):
         if self.final_activation is not None:
             x = self.final_activation(x)
         return x
+
+
+class Highway(nn.Module):
+    """gate * relu(trans(x)) + (1 - gate) * x, with gate = sigmoid(
+    gate(x)); when the output width differs from the input's, the carried
+    x goes through a Dense `carry` first. MPCN's `projection="HIGH"`."""
+
+    def __init__(self, n_in: int, dim: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.trans = _linear(n_in, dim, generator)
+        self.gate = _linear(n_in, dim, generator)
+        self.carry = _linear(n_in, dim, generator) if n_in != dim else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        trans = torch.relu(self.trans(x))
+        gate = torch.sigmoid(self.gate(x))
+        if self.carry is not None:
+            x = self.carry(x)
+        return gate * trans + (1.0 - gate) * x
 
 
 def doc_shape(doc: torch.Tensor, ndims: int) -> Tuple[tuple, tuple]:

@@ -1,9 +1,9 @@
 """Serving: predictions for a split and top-k retrieval per user.
 
-Counterpart of `reviews4rec_tpu/serve.py` for the models the port has
-(the id models bias_only, MF_dot, MF, GMF, MLP and NeuMF; deepconn,
-deepconn++, NARRE, transnet, transnet++; transnet serves and ranks by
-its source net):
+Counterpart of `reviews4rec_tpu/serve.py` for every SGD model (the id
+models bias_only, MF_dot, MF, GMF, MLP and NeuMF; deepconn, deepconn++,
+NARRE, transnet, transnet++, MPCN; transnet serves and ranks by its
+source net):
 
 - `predict()` / `save_predictions()`: per-example predictions of a
   rating split, and the reference's `<tag>_{split}_results` files. With
@@ -12,7 +12,9 @@ its source net):
 - `Recommender`: scores `users` x catalog grids through the model, one
   item chunk at a time, with a running top-k merge on the device; with
   `entity=True` the grids are id-only and their docs are gathered on the
-  device from the entity tables.
+  device from the entity tables (MPCN's: int ids, embedded by its
+  trained table). MPCN, whose co-attention is pairwise, serves top-k
+  here only.
 - `FactorizedRecommender`: runs the item tower once over the catalog at
   construction; a query encodes only its users and scores the catalog
   with the head split per side, exactly (the JAX package's seven

@@ -7,7 +7,8 @@ them:
   user's / item's train-set frequency.
 - Ranking: per stored set, the positive sits in column 0; its rank is
   the number of candidates scoring strictly higher, so a tie goes to
-  the positive.
+  the positive. Under a ranking loss the trainer validates each epoch
+  by `eval_ranking` over the val candidate grids.
 - transnet's forward gives (source, target, trans_loss): the source net
   is its prediction, in eval, ranking and serving alike (`source_pred`),
   and eval also reports the target net's `MSE_right` and the transform

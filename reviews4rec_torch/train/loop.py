@@ -1,6 +1,6 @@
-"""Training loop of the port, for the pointwise models (the id models
-bias_only, MF_dot, MF, GMF, MLP, NeuMF; the review towers deepconn,
-deepconn++, NARRE, transnet, transnet++). Counterpart of
+"""Training loop of the port, for every SGD model (the id models
+bias_only, MF_dot, MF, GMF, MLP, NeuMF; the review models deepconn,
+deepconn++, NARRE, transnet, transnet++, MPCN). Counterpart of
 `reviews4rec_tpu/train/loop.py` (`make_optimizer`, `_batch_loss`,
 `train_epoch` and `train_epoch_cached` as one `train_epoch`, the device
 doc caches, `train_complete`), with the same dynamics:
@@ -8,6 +8,9 @@ doc caches, `train_complete`), with the same dynamics:
 - Adam with additive (not decoupled) L2 weight decay: torch's
   `Adam(weight_decay=...)` is optax's `add_decayed_weights` then `adam`.
   The frozen word table is a buffer, so it never reaches the optimizer.
+  MPCN's recipe (`ClippedAdam`): the gradient plus `mpcn_l2` * param,
+  then optax's global-norm clip at `mpcn_clip_norm`, then Adam at
+  `mpcn_lr` with no decay of its own, all on the device.
 - per-batch loss: the mean squared error over the real rows of the
   padded batch. transnet's is routed: source MSE + target MSE +
   the transform loss, with `.detach()` inside the model sending each
@@ -16,7 +19,13 @@ doc caches, `train_complete`), with the same dynamics:
   forward; all three gradients are taken at the same point, each group
   gets only its own loss's gradient, and Adam is elementwise, so one
   Adam step on the routed sum makes the same updates.
-- per-epoch validation MSE, a best-validation snapshot of the params,
+- `hp.loss` CE / BPR / HINGE (`train.losses`): the model scores [B, C]
+  candidate grids with the positive in column 0
+  (`ReviewDataset.materialize_train_negs`, train at hp.seed, val at
+  hp.seed + 1), and the epoch's "MSE" is its mean training loss.
+  transnet refuses them, as JAX does.
+- per-epoch validation (MSE, or for a ranking loss HR@k over the val
+  grids, selected by -HR@1), a best-validation snapshot of the params,
   `early_stop` patience, a checkpoint each epoch and `hp.resume`.
 
 Randomness: the JAX RNG streams cannot be reproduced in torch. The port
@@ -24,7 +33,9 @@ keys its own by the absolute epoch, as the JAX loop does: one
 `torch.Generator` per epoch on the model's device, seeded from
 (hp.seed, epoch), draws every dropout mask of that epoch in step order,
 and the `Batcher` shuffle is keyed by seed + epoch. A resumed run is
-therefore the same as an uninterrupted one.
+therefore the same as an uninterrupted one. MPCN's Gumbel uniforms come
+from the same generator as the dropout masks (JAX splits the two
+streams), so its trajectories are the port's own.
 
 The device caches (`hp.cache_doc_embeds`) keep a split's records on the
 device, so a step moves only [B] row ids from the host:
@@ -46,9 +57,8 @@ same arithmetic), on the CPU its S steps run eagerly; a trailing group
 smaller than S runs as single steps. The updates, their order and the
 dropout masks are those of S = 1, bit for bit.
 
-Not ported here, each raising `NotImplementedError` with its ROADMAP.md
-item: ranking losses (item 11) and meshes (item 13), with or without a
-cache.
+Not ported here, raising `NotImplementedError` with its ROADMAP.md
+item: meshes (item 13), with or without a cache.
 """
 
 from __future__ import annotations
@@ -68,41 +78,81 @@ from ..data.corpus import NEIGHBOR_SLOTS, _doc_layout
 from ..utils.device import to_device
 from ..utils.logging import file_write, log_end_epoch
 from .checkpoint import load_checkpoint, save_checkpoint
-from .evaluate import evaluate, evaluate_cached
+from .evaluate import eval_ranking, evaluate, evaluate_cached
+from .losses import bpr, hinge, softmax_ce
 from .profiler import Throughput, annotate
 
 Params = Dict[str, torch.Tensor]
 
 
 def check_trainable(hp: HyperParams) -> None:
-    """Raise for the training options this slice does not port."""
+    """Raise for the training options the port does not have yet."""
     if tuple(hp.mesh_shape) != (1, 1):
         raise NotImplementedError(
             f"mesh_shape {tuple(hp.mesh_shape)}: data / model parallel "
             f"training is not ported yet: ROADMAP.md Queue 1 item 13")
-    if hp.loss != "RAW_MSE":
-        raise NotImplementedError(
-            f"loss {hp.loss!r}: ranking losses are not ported yet: "
-            f"ROADMAP.md Queue 1 item 11")
+    if hp.loss != "RAW_MSE" and hp.model_type in ("transnet", "transnet++"):
+        raise ValueError("ranking losses are not defined for transnet's "
+                         "routed 3-loss objective; use loss='RAW_MSE'")
+
+
+class ClippedAdam(torch.optim.Adam):
+    """MPCN's optimizer, optax's `chain(add_decayed_weights(l2),
+    clip_by_global_norm(max_norm), adam(lr))`: each gradient plus
+    l2 * param, then all of them scaled by max_norm / ||g|| (g / ||g|| *
+    max_norm, optax's form) where the global norm ||g|| >= max_norm,
+    then Adam with no decay. The clip is a `torch.where` on the device
+    with no host read, so a CUDA graph can hold it. (torch's
+    `Adam(weight_decay=)` would add the decay after a clip, and
+    `clip_grad_norm_` scales by max_norm / (||g|| + 1e-6).)"""
+
+    def __init__(self, params, lr: float, l2: float, max_norm: float,
+                 capturable: bool = False):
+        super().__init__(params, lr=lr, weight_decay=0.0,
+                         capturable=capturable)
+        self.l2, self.max_norm = float(l2), float(max_norm)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        params = [p for group in self.param_groups for p in group["params"]
+                  if p.grad is not None]
+        if params:
+            grads = [p.grad for p in params]
+            if self.l2:
+                torch._foreach_add_(grads, params, alpha=self.l2)
+            norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+            keep = norm < self.max_norm
+            for g in grads:
+                g.copy_(torch.where(keep, g, g / norm * self.max_norm))
+        return super().step(closure)
 
 
 def make_optimizer(hp: HyperParams, model: torch.nn.Module
                    ) -> torch.optim.Optimizer:
-    """Adam with additive L2. On the card it is built `capturable`
-    (step count and bias corrections as device tensors) for every
-    `hp.scan_steps`, so that steps replayed from a CUDA graph and single
-    steps run the same arithmetic."""
+    """Adam with additive L2 (MPCN: `ClippedAdam`). On the card it is
+    built `capturable` (step count and bias corrections as device
+    tensors) for every `hp.scan_steps`, so that steps replayed from a
+    CUDA graph and single steps run the same arithmetic."""
     params = list(model.parameters())
     capturable = bool(params) and params[0].device.type == "cuda"
+    if hp.model_type == "MPCN":
+        return ClippedAdam(params, hp.mpcn_lr, hp.mpcn_l2, hp.mpcn_clip_norm,
+                           capturable=capturable)
     return torch.optim.Adam(params, lr=hp.lr, weight_decay=hp.weight_decay,
                             capturable=capturable)
 
 
-def _batch_loss(preds, batch: Dict[str, torch.Tensor]
+def _batch_loss(preds, batch: Dict[str, torch.Tensor],
+                loss_name: str = "RAW_MSE", hinge_margin: float = 0.2
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """RAW_MSE over the real rows: (loss, (sum(sq * w), sum(w))). For
+    """The masked batch loss and its epoch accumulators.
+
+    RAW_MSE over the real rows: (loss, (sum(sq * w), sum(w))). For
     transnet's (source, target, trans_loss) the loss is the routed sum
-    (module docstring) and the sums are the source net's."""
+    (module docstring) and the sums are the source net's. CE / BPR /
+    HINGE score [B, C] grids with the positive in column 0 (hinge summed
+    over the pairs, then divided by the real rows, as JAX does), and the
+    accumulators are (loss * sum(w), sum(w))."""
     w = batch["weight"]
     y = batch["rating"]
     n = torch.sum(w)
@@ -113,18 +163,33 @@ def _batch_loss(preds, batch: Dict[str, torch.Tensor]
         loss = (sq_sum / denom + torch.sum((target - y) ** 2 * w) / denom
                 + trans_loss)
         return loss, (sq_sum, n)
-    sq_sum = torch.sum((preds - y) ** 2 * w)
-    return sq_sum / denom, (sq_sum, n)
+    if loss_name == "RAW_MSE":
+        sq_sum = torch.sum((preds - y) ** 2 * w)
+        return sq_sum / denom, (sq_sum, n)
+    pos, neg = preds[:, :1], preds[:, 1:]
+    wn = w[:, None].expand(neg.shape)
+    if loss_name == "CE":
+        labels = torch.zeros_like(preds)
+        labels[:, 0] = 1.0
+        loss = softmax_ce(preds, labels, w)
+    elif loss_name == "BPR":
+        loss = bpr(pos, neg, wn)
+    elif loss_name == "HINGE":
+        loss = hinge(pos, neg, hinge_margin, wn) / denom
+    else:
+        raise ValueError(f"unknown loss {loss_name!r}")
+    return loss, (loss * n, n)
 
 
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                batch: Dict[str, torch.Tensor],
-               generator: Optional[torch.Generator] = None
+               generator: Optional[torch.Generator] = None,
+               loss_name: str = "RAW_MSE", hinge_margin: float = 0.2
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One update on one batch; returns (loss, sum(sq * w), sum(w)) as
-    device scalars, without waiting for the device."""
+    """One update on one batch; returns (loss, and `_batch_loss`'s two
+    accumulators) as device scalars, without waiting for the device."""
     preds = model(batch, generator=generator)
-    loss, (sq_sum, n) = _batch_loss(preds, batch)
+    loss, (sq_sum, n) = _batch_loss(preds, batch, loss_name, hinge_margin)
     loss.backward()
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
@@ -190,21 +255,23 @@ class ScanSteps:
     workspace of that stream and the optimizer state) whose updates are
     then undone, so the warm-up changes nothing. It is captured again if
     a parameter or optimizer state tensor was replaced since. The dropout
-    masks come from one generator registered with the graph and set to
-    the epoch's stream at the start of each epoch, so replays and single
-    steps draw the masks eager steps draw, and resume stays keyed by
-    (seed, epoch). The squared-error sums add up on the device across
-    groups. Each replay adds the kernel launches counted during capture
-    to `ops.textcnn.launches`. A failure to capture or replay raises; a
+    masks (and MPCN's Gumbel uniforms) come from one generator registered
+    with the graph and set to the epoch's stream at the start of each
+    epoch, so replays and single steps draw what eager steps draw, and
+    resume stays keyed by (seed, epoch). The squared-error sums add up on
+    the device across groups. Each replay adds the kernel launches
+    counted during capture to `ops.textcnn.launches`. A failure to capture or replay raises; a
     group never falls back to eager steps on the card.
     """
 
     def __init__(self, model: torch.nn.Module,
                  optimizer: torch.optim.Optimizer, steps: int,
-                 device: torch.device, cache=None):
+                 device: torch.device, cache=None,
+                 loss_name: str = "RAW_MSE", hinge_margin: float = 0.2):
         if steps < 2:
             raise ValueError(f"ScanSteps groups 2 or more steps, got {steps}")
         self.model, self.optimizer = model, optimizer
+        self.objective = (loss_name, hinge_margin)
         self.steps, self.device, self.cache = steps, device, cache
         self.on_card = device.type == "cuda"
         self.sq_sum = torch.zeros((), device=device)
@@ -260,7 +327,8 @@ class ScanSteps:
         if self.cache is not None:
             batch = gather_cached_batch(self.cache, batch["row"],
                                         batch["weight"])
-        _, sq, c = train_step(self.model, self.optimizer, batch, self.gen)
+        _, sq, c = train_step(self.model, self.optimizer, batch, self.gen,
+                              *self.objective)
         self.sq_sum += sq
         self.n += c
 
@@ -375,9 +443,12 @@ def _groups(batcher: Batcher, size: int) -> Iterator[list]:
 def train_epoch(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                 batcher: Batcher, generator: Optional[torch.Generator],
                 device: torch.device, cache=None,
-                scan: Optional[ScanSteps] = None) -> Dict:
+                scan: Optional[ScanSteps] = None, loss_name: str = "RAW_MSE",
+                hinge_margin: float = 0.2) -> Dict:
     """One epoch of updates, in batch order. The squared-error sums stay
-    on the device until the end of the epoch: one sync per epoch.
+    on the device until the end of the epoch: one sync per epoch. Under a
+    ranking `loss_name` the epoch's "MSE" is its mean loss (`scan`
+    carries its own objective).
 
     With a device `cache` (the JAX package's `train_epoch_cached`),
     `batcher` iterates {"row", "weight"}: a Batcher over {"row":
@@ -411,7 +482,8 @@ def train_epoch(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                 if cache is not None:
                     batch = gather_cached_batch(cache, batch["row"],
                                                 batch["weight"])
-                _, s, c = train_step(model, optimizer, batch, generator)
+                _, s, c = train_step(model, optimizer, batch, generator,
+                                     loss_name, hinge_margin)
             sq_sum += s
             n += c
             tp.add(min(bs, remaining))
@@ -646,7 +718,10 @@ def train_complete(hp: HyperParams, model: torch.nn.Module, dataset, *,
                    stats: Optional[Dict] = None
                    ) -> Tuple[Params, float]:
     """Train `model` in place on the train split, validating each epoch.
-    Returns (best-validation `state_dict`, its val MSE).
+    Returns (best-validation `state_dict`, its val MSE); under a ranking
+    `hp.loss` (CE / BPR / HINGE) the model trains on sampled candidate
+    grids, each epoch is selected by its val HR@1 over the val grids, and
+    the scalar returned is -(best HR@1).
 
     With `checkpoint_path`, every epoch saves the latest params,
     optimizer state and the best params in one file, and `hp.resume`
@@ -665,10 +740,18 @@ def train_complete(hp: HyperParams, model: torch.nn.Module, dataset, *,
     check_trainable(hp)
     hp = dataset.apply_to(hp)
     use_cache, use_entity = _cache_mode(hp)
+    ranking = hp.loss != "RAW_MSE"
     device = next(model.parameters()).device
     optimizer = make_optimizer(hp, model)
     train_cache = val_cache = None
-    if use_entity:
+    if ranking:
+        # [N, C] grids, the positive in column 0; the val grids are
+        # scored by `eval_ranking`, never from a cache
+        train_recs = _model_records(model, dataset.materialize_train_negs(
+            hp, "train", seed=hp.seed))
+        val_recs = _model_records(model, dataset.materialize_train_negs(
+            hp, "val", seed=hp.seed + 1))
+    elif use_entity:
         # no per-example doc tensors at all: ids, rating and mask spans
         train_recs = dataset.materialize_entity(hp, "train")
         val_recs = dataset.materialize_entity(hp, "val")
@@ -683,10 +766,14 @@ def train_complete(hp: HyperParams, model: torch.nn.Module, dataset, *,
         val_recs = _model_records(model, dataset.materialize(hp, "val"))
     if use_cache and not use_entity:
         ck, idk = doc_cache_keys(hp.model_type, hp.cache_sides)
-        train_cache, val_cache = (
-            build_doc_cache(recs, dataset.word_vectors, cache_dtype_for(hp),
-                            device, keys=ck, id_keys=idk)
-            for recs in (train_recs, val_recs))
+
+        def cache(recs):
+            return build_doc_cache(recs, dataset.word_vectors,
+                                   cache_dtype_for(hp), device, keys=ck,
+                                   id_keys=idk)
+
+        train_cache = cache(train_recs)
+        val_cache = None if ranking else cache(val_recs)
     # with a cache the batcher yields row ids into it, in the same
     # shuffled order as the record Batcher
     train_b = Batcher({"row": np.arange(len(train_recs["rating"]))}
@@ -709,7 +796,8 @@ def train_complete(hp: HyperParams, model: torch.nn.Module, dataset, *,
         best_mse = float(payload["extra"].get("val_mse", best_mse))
         since_improve = int(payload["extra"].get("since_improve", 0))
     train_b.set_epoch(start_epoch - 1)
-    scan = (ScanSteps(model, optimizer, hp.scan_steps, device, train_cache)
+    scan = (ScanSteps(model, optimizer, hp.scan_steps, device, train_cache,
+                      hp.loss, hp.hinge_margin)
             if hp.scan_steps > 1 else None)
 
     log = hp.log_file()
@@ -718,8 +806,15 @@ def train_complete(hp: HyperParams, model: torch.nn.Module, dataset, *,
             t0 = time.time()
             gen = epoch_generator(hp.seed, epoch, device)
             train_metrics = train_epoch(model, optimizer, train_b, gen,
-                                        device, train_cache, scan)
-            if use_cache:
+                                        device, train_cache, scan, hp.loss,
+                                        hp.hinge_margin)
+            if ranking:
+                rank = eval_ranking(model, val_recs, hp, hp.batch_size,
+                                    device)
+                # -HR@1, so the lower-is-better selection is shared
+                metrics = {"train_loss": train_metrics["MSE"], **rank,
+                           "MSE": -rank["HR@1"]}
+            elif use_cache:
                 metrics, _, _ = evaluate_cached(
                     model, val_cache, val_recs, hp, dataset.user_count,
                     dataset.item_count, device)
@@ -736,7 +831,9 @@ def train_complete(hp: HyperParams, model: torch.nn.Module, dataset, *,
                 stats.setdefault("epoch_val_mse", []).append(metrics["MSE"])
                 stats["train_examples_per_s"] = round(
                     statistics.median(eps), 1)
-            log_end_epoch(log, metrics, epoch, time.time() - t0, quiet=quiet)
+            log_end_epoch(log, {k: v for k, v in metrics.items()
+                                if not (ranking and k == "MSE")},
+                          epoch, time.time() - t0, quiet=quiet)
             if metrics["MSE"] < best_mse:
                 best_mse = metrics["MSE"]
                 since_improve = 0

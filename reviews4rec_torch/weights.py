@@ -3,8 +3,12 @@
 A flax params tree (nested dicts of arrays) maps onto a torch
 `state_dict` by joining the path with dots, with one change of layout:
 a flax `Dense` kernel is `[in, out]` and becomes `nn.Linear.weight`
-`[out, in]`. TextCNN's `conv_kernel` (`[W*E, F]`) and `conv_bias` keep
-their layout, and `word_vectors` becomes the model's frozen buffer.
+`[out, in]`. Every other leaf keeps its layout: TextCNN's `conv_kernel`
+(`[W*E, F]`) and `conv_bias`, MPCN's trained `word_embedding` [V, E], its
+FM's `fm_V`, TENSOR's `weights_T` [d, k, d], the `<prefix>_kernel` /
+`<prefix>_bias` of D-ATT's convs (whose torch modules carry the flax
+auto-names, `_Conv1D_0`, ...). `word_vectors` becomes the model's frozen
+buffer.
 """
 
 from __future__ import annotations

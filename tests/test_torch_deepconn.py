@@ -87,7 +87,7 @@ def test_forward_with_skip_spans(dataset, port_dataset):
 
 
 def test_build_model_raises_for_unported_models(port_dataset):
-    for mt in ("MPCN", "HFT", "SVD"):
+    for mt in ("HFT", "SVD"):
         hp = port_dataset.apply_to(PortHP(model_type=mt))
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             port_build(hp, port_dataset.word_vectors, device="cpu")

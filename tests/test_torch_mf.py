@@ -14,8 +14,8 @@ params bridged into the port:
   one served by `restore_model`);
 - `api.run` trains and finalizes each model on the CPU with JAX's
   metric keys, and the refusals JAX makes (a sharded `embedding_lookup`
-  without a model axis, the doc cache) or the port still makes
-  (ranking losses, ROADMAP.md Queue 1 item 11).
+  without a model axis, the doc cache, `seq_parallel`) or the port still
+  makes (a mesh, ROADMAP.md Queue 1 item 13).
 """
 
 import os
@@ -268,7 +268,8 @@ def test_sharded_lookup_without_model_axis_raises(mt, lookup, dataset,
      "family"),
     (dict(cache_doc_embeds=True, cache_entity=True), ValueError,
      "only applies to the review family"),
-    (dict(loss="BPR"), NotImplementedError, "Queue 1 item 11"),
+    (dict(seq_parallel=True), ValueError, "seq_parallel=True shards the "
+     "TextCNN time axis"),
     (dict(mesh_shape=(1, 2), embedding_lookup="psum"), NotImplementedError,
      "Queue 1 item 13"),
 ])

@@ -259,11 +259,10 @@ def test_run_returns_the_jax_metric_keys_and_restores(dataset, port_dataset,
 
 @pytest.mark.parametrize("option,item", [
     (dict(cache_doc_embeds=True, mesh_shape=(2, 1)), "Queue 1 item 13"),
-    (dict(cache_doc_embeds=True, cache_entity=True, loss="BPR"),
-     "Queue 1 item 11"),
+    (dict(compute_dtype="bfloat16"), "Queue 1 item 18"),
     (dict(mesh_shape=(2, 1)), "Queue 1 item 13"),
-    (dict(loss="BPR"), "Queue 1 item 11"),
-    (dict(model_type="MPCN"), "Queue 1 item 11"),
+    (dict(seq_parallel=True, mesh_shape=(1, 2)), "Queue 1 item 13"),
+    (dict(model_type="HFT"), "Queue 1 item 12"),
 ])
 def test_unported_options_raise(option, item, port_dataset, tmp_path):
     hp = port_dataset.apply_to(PortHP(
@@ -271,3 +270,64 @@ def test_unported_options_raise(option, item, port_dataset, tmp_path):
         model_dir=str(tmp_path), **GEOM)).replace(**option)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         port_api.run(hp, port_dataset, device="cpu")
+
+
+@pytest.mark.parametrize("mt,option", [
+    ("MF_dot", dict(seq_parallel=True)),
+    ("MPCN", dict(seq_parallel=True)),
+    ("deepconn", dict(seq_parallel=True)),
+    ("deepconn", dict(seq_parallel=True, mesh_shape=(2, 1))),
+    ("NARRE", dict(seq_parallel=True, use_pallas=True)),
+])
+def test_seq_parallel_raises_jax_s_error(mt, option, dataset, port_dataset):
+    """`seq_parallel` without a mesh whose model axis is > 1: JAX's
+    `ValueError` on the same HyperParams, word for word (and its warning
+    first when `use_pallas` is set too)."""
+    import contextlib
+
+    from reviews4rec_tpu.parallel.mesh import mesh_from_hp
+    jh = dataset.apply_to(JaxHP(model_type=mt, **GEOM, **option))
+    ph = port_dataset.apply_to(PortHP(model_type=mt, **GEOM, **option))
+
+    def warned():
+        return (pytest.warns(UserWarning, match="seq_parallel and "
+                             "use_pallas") if ph.use_pallas
+                else contextlib.nullcontext())
+
+    with pytest.raises(ValueError) as jax_err, warned():
+        jax_build(jh, dataset.word_vectors, mesh=mesh_from_hp(jh))
+    with pytest.raises(ValueError) as port_err, warned():
+        port_build(ph, port_dataset.word_vectors, device="cpu")
+    assert str(port_err.value) == str(jax_err.value)
+
+
+@pytest.mark.parametrize("mt", ["deepconn", "NARRE", "transnet++"])
+def test_bf16_compute_dtype_is_refused(mt, dataset, port_dataset):
+    """JAX's XLA TextCNN branch computes its conv in bf16 under
+    `compute_dtype="bfloat16"` (its outputs move off the f32 ones); the
+    port, which computes in f32, refuses it there, naming item 18. Under
+    `use_pallas` the JAX kernels pick their own dot dtype and the port
+    builds, in f32."""
+    geom = dict(GEOM, model_type=mt, dropout=0.0, narre_num_reviews=4,
+                narre_num_words=16)
+    jh = dataset.apply_to(JaxHP(**geom))
+    jm = jax_build(jh, dataset.word_vectors)
+    jm16 = jax_build(jh.replace(compute_dtype="bfloat16"),
+                     dataset.word_vectors)
+    batch = jax.tree_util.tree_map(jnp.asarray, next(iter(Batcher(
+        dataset.materialize(jh, "test"), 8))))
+    params = jm.init({"params": jax.random.PRNGKey(0)}, batch,
+                     train=False)["params"]
+
+    def out(m):
+        y = m.apply({"params": params}, batch, train=False)
+        return np.asarray(y[0] if isinstance(y, tuple) else y)
+
+    assert np.abs(out(jm16) - out(jm)).max() > 1e-6
+    ph = port_dataset.apply_to(PortHP(**geom, compute_dtype="bfloat16"))
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1 item 18"):
+        port_build(ph, port_dataset.word_vectors, device="cpu")
+    port_build(ph.replace(use_pallas=True), port_dataset.word_vectors,
+               device="cpu")
+    port_build(ph.replace(model_type="MF_dot"), device="cpu")
