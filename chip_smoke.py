@@ -113,7 +113,36 @@
    forward and dG checked against their plain versions at the item
    tower's B*C = 1536 docs of T = 1000; `api.run` of MF_dot under BPR
    2 epochs, val HR@1 above the untrained model's (`rank_train`).
-15. Prints the card, one JSON line of kernel numbers and, last, the
+15. `compute_dtype="bfloat16"`: the bf16 forward (`textcnn_pool_fwd_bf16`)
+   and dG (`textcnn_pool_bwd_dg_bf16`) against their plain versions at
+   the serving shape, NARRE's B=2560 T=100, B=37, integer and
+   real-valued ties, E=5 with F=129 and W=8, and E=256 with W=5 (out
+   within 1e-5 of its scale, idx equal except at float64 near-ties
+   within 1e-5, exact window ties counted; dK equal or one bf16 ulp
+   apart on at most 1% of its values; dx of the bf16 op against the
+   CPU's), timed beside their bound (bytes at 3.35 TB/s, FLOP at the
+   989 TFLOP/s of dense bf16), the plain versions, cuDNN's bf16 conv1d
+   and the f32 kernels on the bf16 values; deepconn and deepconn++ at
+   bf16 serve 512 test rows against `bf16_ref.npz` (1e-3) and
+   deepconn++ trains 8 steps against it (`bf16`).
+16. The neighborhood models: the per-example SGD kernel
+   (`csrc/neighbors_sgd.cu`) against its plain version on 1 epoch of the
+   first 5000 train examples for baseline, SVD and SVD++ (state within
+   1e-5), timed there beside its bound and a chain of dependent
+   read-modify-writes; then `fit` of baseline, SVD, SVD++, NMF and kNN
+   on the whole corpus from JAX's init in `neighbors_ref.npz` (final
+   state and test predictions within 1e-4) and `run_neighbor`'s metrics
+   (test MSE within 1e-4 of JAX's), with each fit's seconds
+   (`neighbors`).
+17. HFT (latent_reg 4.0): energy and gradient at JAX's first M-step
+   result within 1e-5 relative (the gradient within 5e-5 of each
+   tensor's max, `HFT_GRAD_TOL`), that M-step (20 L-BFGS iterations of
+   the port's copy of `optax.lbfgs()`) from JAX's counts in float64, its
+   value at each iteration within 1e-9 relative of JAX's under x64 in
+   `hft_ref.npz`, and in float32 (first value within 1e-6, decreasing,
+   last within 1e-2: the f32 runs part after a few iterations), and 4
+   EM iterations with test MSE below the offset+bias anchor (`hft`).
+18. Prints the card, one JSON line of kernel numbers and, last, the
    result line. Any failed check raises and the exit code is not 0.
 
 The kernel launch counts are set to 0 just before each path (serving,
@@ -122,7 +151,8 @@ training through `api.run` and entity serving, 7; review serving,
 review training and the review entity cache, 8; id-model serving and
 training, 9; the factorized index, 10; the fused gather's serving and
 training, 11; the scan groups, 12; MPCN serving and training, 13; each
-ranking case, 14) and read just after. A CUDA-graph
+ranking case, 14; bf16 serving and steps, 15; the neighborhood fits,
+16) and read just after. A CUDA-graph
 replay adds the launches counted while its group was captured.
 Without CUDA or the checkout around it, the script exits with an error
 and prints no result.
@@ -130,7 +160,8 @@ and prints no result.
     python3 chip_smoke.py --e2e-full [--seeds N] [--models M,...]
 
 is opt-in: it trains `--models` (default deepconn,deepconn++; also
-NARRE, transnet, transnet++, bias_only, MF_dot, NeuMF, MPCN) with the
+NARRE, transnet, transnet++, bias_only, MF_dot, NeuMF, MPCN, and fits
+baseline, SVD, SVD++, NMF, kNN and HFT) with the
 reference's own flags (60 epochs, 40 for transnet(++) and MPCN and 30 for
 the id models, early stop 5, the entity cache for the TextCNN models,
 MPCN with mpcn_l2 1e-4 on the ids-only cache, `scan_steps` 10: CUDA-graph
@@ -177,12 +208,21 @@ FACTORIZED_FIXTURE = ROOT / "tests" / "torch_fixtures" / \
 # MPCN's serving outputs and 8 steps, and 8 steps of CE, BPR and HINGE on
 # candidate grids (make_mpcn_ref.py)
 MPCN_FIXTURE = ROOT / "tests" / "torch_fixtures" / "mpcn_ref.npz"
+# deepconn / deepconn++ at compute_dtype="bfloat16", the neighborhood
+# models' inits, fits and predictions, and HFT's first E- and M-step
+# (make_nonsgd_ref.py)
+BF16_FIXTURE = ROOT / "tests" / "torch_fixtures" / "bf16_ref.npz"
+NEIGHBORS_FIXTURE = ROOT / "tests" / "torch_fixtures" / "neighbors_ref.npz"
+HFT_FIXTURE = ROOT / "tests" / "torch_fixtures" / "hft_ref.npz"
 E2E_STATE = ROOT / "data" / "e2e_state.json"
 MODELS = ("deepconn", "deepconn++")
 REVIEW_MODELS = ("NARRE", "transnet", "transnet++")
 MF_MODELS = ("bias_only", "MF_dot", "MF", "GMF", "MLP", "NeuMF")
 # the id models `--e2e-full` trains (the JAX rows of data/e2e_state.json)
 MF_E2E_MODELS = ("bias_only", "MF_dot", "NeuMF")
+# the neighbor and topic families `--e2e-full` fits (their JAX rows; the
+# e2e runner's flags: surprise defaults, HFT at latent_reg 4.0)
+NON_SGD_E2E_MODELS = ("baseline", "SVD", "SVD++", "NMF", "kNN", "HFT")
 # `--e2e-full` epochs where the reference's flags differ from 60
 # (`examples/e2e_realistic.py`)
 E2E_EPOCHS = {"transnet": 40, "transnet++": 40, "bias_only": 30,
@@ -231,7 +271,7 @@ PHASES = ("kernels", "rows", "serve", "train", "input_grad",
           "entity_vs_jax", "entity_train", "entity_serve", "review_serve",
           "review_train", "review_entity", "mf_serve", "mf_train",
           "factorized", "embed", "embed_train", "scan", "mpcn_serve",
-          "mpcn_train", "rank_train")
+          "mpcn_train", "rank_train", "bf16", "neighbors", "hft")
 # untrained deepconn's test MSE on the e2e corpus (e2e_ref.npz): two
 # epochs of training must land below it
 UNTRAINED_MSE = 1.524
@@ -250,6 +290,7 @@ _BANNER = (r"end of epoch (\d+) \| time: *([\d.]+)s \| MSE = ([\d.]+) "
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
 PEAK_TF32_FLOP_S = 495e12
+PEAK_BF16_FLOP_S = 989e12
 
 
 def fail(msg: str) -> None:
@@ -2646,14 +2687,16 @@ def _e2e_run(torch, ds, device, mt: str, seed: int, init=None) -> dict:
     from reviews4rec_torch.weights import load_flax_params
 
     jax_row = json.loads(E2E_STATE.read_text())["results"][mt]
-    review = ({} if mt in MF_E2E_MODELS else
+    fits = mt in NON_SGD_E2E_MODELS
+    review = ({} if mt in MF_E2E_MODELS + NON_SGD_E2E_MODELS else
               dict(mpcn_l2=1e-4, cache_doc_embeds=True, cache_sides="ids")
               if mt == "MPCN" else dict(use_pallas=True, **ENTITY))
     with tempfile.TemporaryDirectory() as tmp:
         hp = ds.apply_to(HyperParams(
             model_type=mt, dataset="e2e", batch_size=256, eval_num_negs=99,
             epochs=E2E_EPOCHS.get(mt, 60), early_stop=5, scan_steps=10,
-            seed=seed, log_dir=tmp, model_dir=tmp, **review))
+            seed=seed, log_dir=tmp, model_dir=tmp, **review,
+            **({"latent_reg": 4.0} if mt == "HFT" else {})))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if init is None:
@@ -2676,7 +2719,7 @@ def _e2e_run(torch, ds, device, mt: str, seed: int, init=None) -> dict:
                                    "HR@1", "HR@10", "NDCG@10",
                                    "train_examples_per_s") if k in metrics}
     row.update(wall_s=round(wall, 1), epochs_run=len(vals),
-               best_epoch=int(np.argmin(vals)) + 1,
+               best_epoch=None if fits else int(np.argmin(vals)) + 1,
                early_stop_at=int(stop.group(1)) if stop else None,
                jax=jax_row, mse_gap=round(metrics["MSE"] - jax_row["MSE"], 4))
     if not np.isfinite([row[k] for k in ("MSE", "HR@1", "HR@10",
@@ -4047,6 +4090,494 @@ def _print_rows_times(textcnn, rows) -> None:
                     f"table positions of {NARRE_SHAPE['b']} rows")
 
 
+# ---------------------------------------------------------------------
+# compute_dtype="bfloat16": the bf16 forward and dG kernels
+# ---------------------------------------------------------------------
+def _bf16_cases():
+    """(name, maker, (B, T, E, F, W)) of the bf16 kernel checks."""
+    s = SERVE_SHAPE
+    return [
+        ("B=256 T=1000 E=64 F=100 W=3", _random_case,
+         (s["b"], s["t"], s["e"], s["f"], s["w"])),
+        ("NARRE B=2560 T=100", _random_case,
+         (NARRE_SHAPE["b"], NARRE_SHAPE["t"], s["e"], s["f"], s["w"])),
+        ("B=37", _random_case, (37, s["t"], s["e"], s["f"], s["w"])),
+        ("forced ties", _tie_case, (8, 300, s["e"], s["f"], s["w"])),
+        ("real-valued ties", _real_tie_case, (8, 300, s["e"], s["f"], s["w"])),
+        ("E=5 F=129 W=8", _random_case, (7, 130, 5, 129, 8)),
+        ("E=256 W=5", _random_case, (4, 200, 256, s["f"], 5)),
+    ]
+
+
+def _bf16_ulp(torch, a):
+    """The bf16 spacing at each value of a (8 significant bits)."""
+    tiny = torch.finfo(torch.float32).tiny
+    return torch.exp2(torch.floor(torch.log2(a.abs().clamp(min=tiny))) - 7)
+
+
+def check_bf16(torch, textcnn) -> dict:
+    """The bf16 forward and dG kernels against their plain versions on the
+    card. Forward: out within 1e-5 * max(1, max|out|), idx equal except
+    where the two starts' windows lie within 1e-5 of each other in
+    float64 (on the bf16 values); the exact window ties of the plain
+    version (a max reached at two or more starts) counted. dG: every dK
+    value equal or one bf16 ulp apart, at most 1% of them. dx through the
+    autograd function: the card's against the plain one on the CPU,
+    equal or one bf16 ulp apart."""
+    worst = {"fwd": 0.0, "dg": 0.0}
+    for j, (name, make, (b, t, e, f, w)) in enumerate(_bf16_cases()):
+        x, k, bias = (a.cuda() for a in make(torch, b, t, e, f, w, seed=j))
+        xb, kb = x.to(torch.bfloat16), k.to(torch.bfloat16)
+        out, idx = textcnn.textcnn_pool_forward_bf16(xb, kb, bias, w)
+        ref_out, ref_idx = textcnn.textcnn_pool_bf16_reference(xb, kb, bias,
+                                                               w)
+        torch.cuda.synchronize()
+        err = (out - ref_out).abs().max().item()
+        scale = max(1.0, ref_out.abs().max().item())
+        moved = (idx != ref_idx).nonzero()
+        gap = 0.0
+        if len(moved):
+            rows, cols = moved[:, 0], moved[:, 1]
+            a, c = (_window_f64(torch, xb.float(), kb.float(), bias, w, rows,
+                                cols, s_[rows, cols]) for s_ in (idx, ref_idx))
+            gap = (a - c).abs().max().item()
+        ties = _exact_ties(torch, xb.float(), kb.float(), bias, w, ref_out)
+        g = torch.randn(b, f, generator=torch.Generator().manual_seed(j))
+        g = torch.where(out > 0, g.cuda(), 0.0)
+        dk = textcnn.textcnn_pool_bwd_dg_bf16(xb, g, ref_idx, w)
+        ref_dk = textcnn.textcnn_pool_bf16_dg_reference(xb, g, ref_idx, w)
+        torch.cuda.synchronize()
+        diff = (dk - ref_dk).abs()
+        share = (diff > 0).float().mean().item()
+        ulp_ok = bool((diff <= _bf16_ulp(torch, ref_dk) * 1.0001).all())
+        print(f"textcnn_pool_fwd_bf16 {name}: max|out err| {err:.3e}, idx "
+              f"differs at {len(moved)} of {idx.numel()} (windows within "
+              f"{gap:.1e} in float64), exact window ties {ties}; "
+              f"textcnn_pool_bwd_dg_bf16: dK one bf16 ulp apart at "
+              f"{share:.4%} of {dk.numel()}, max|diff| "
+              f"{diff.max().item():.3e}")
+        if not (err <= 1e-5 * scale and gap <= 1e-5 * scale):
+            raise AssertionError(f"bf16 forward disagrees ({name})")
+        if not (ulp_ok and share <= 0.01):
+            raise AssertionError(f"bf16 dG disagrees ({name})")
+        worst["fwd"] = max(worst["fwd"], err)
+        worst["dg"] = max(worst["dg"], diff.max().item())
+    # dx of the bf16 op: the f32 dx kernel on bf16 K, rounded
+    b, t, e, f, w = 16, 300, 64, 100, 3
+    x, k, bias = _random_case(torch, b, t, e, f, w, seed=99)
+    g = torch.randn(b, f, generator=torch.Generator().manual_seed(99))
+    grads = []
+    for dev in ("cuda", "cpu"):
+        xx = x.to(dev).requires_grad_(True)
+        out, _ = textcnn.textcnn_pool(xx, k.to(dev), bias.to(dev), w, None,
+                                      torch.bfloat16)
+        out.backward(g.to(dev))
+        grads.append(xx.grad.cpu())
+    diff = (grads[0] - grads[1]).abs()
+    print(f"bf16 dx (card vs CPU plain): max|diff| {diff.max().item():.3e}, "
+          f"{(diff > 0).float().mean().item():.4%} one ulp apart")
+    if not bool((diff <= _bf16_ulp(torch, grads[1]) * 1.0001).all()):
+        raise AssertionError("bf16 dx disagrees")
+    return worst
+
+
+def _exact_ties(torch, x, k, bias, w, out) -> int:
+    """(b, f) whose max the plain version reaches at two or more starts."""
+    import torch.nn.functional as F
+
+    b, t, e = x.shape
+    xp = F.pad(x, (0, 0, w - 1, w - 1))
+    win = xp.unfold(1, w, 1).transpose(2, 3).reshape(b, t + w - 1, w * e)
+    y = torch.relu(win @ k + bias)
+    return int(((y == out[:, None, :]).sum(1) > 1).sum())
+
+
+def time_bf16(torch, textcnn) -> dict:
+    """The bf16 kernels at the serving shape: medians of 30 calls (CUDA
+    events) of kernel, plain version and library yardstick (cuDNN's bf16
+    conv1d, its output f32 plus bias, ReLU, max; dG: autograd of it with
+    respect to the bf16 K), beside the bound: max(bytes / 3.35 TB/s,
+    FLOP / 989 TFLOP/s dense bf16); and the f32 forward kernel on the
+    bf16 values."""
+    import torch.nn.functional as F
+
+    b, t, e, f, w = (SERVE_SHAPE[k] for k in "btefw")
+    x, k, bias = (a.cuda() for a in _random_case(torch, b, t, e, f, w, 0))
+    xb, kb = x.to(torch.bfloat16), k.to(torch.bfloat16)
+    out, idx = textcnn.textcnn_pool_forward_bf16(xb, kb, bias, w)
+    g = torch.randn(b, f, generator=torch.Generator().manual_seed(7)).cuda()
+    g = torch.where(out > 0, g, 0.0)
+    x_cf = xb.transpose(1, 2).contiguous()
+    k_cf = kb.reshape(w, e, f).permute(2, 1, 0).contiguous().requires_grad_()
+
+    def library():
+        y = F.conv1d(x_cf, k_cf, None, padding=w - 1).float()
+        return torch.relu(y + bias[None, :, None]).max(2).values
+
+    lib_y = library()
+    if not (lib_y - out).abs().max().item() <= 2e-2 * max(
+            1.0, out.abs().max().item()):
+        raise AssertionError("the bf16 library yardstick computes another "
+                             "function")
+
+    def lib_dg():
+        return torch.autograd.grad(lib_y, (k_cf,), g, retain_graph=True)
+
+    flops = 2.0 * b * (t + w - 1) * w * e * f
+    nbytes = 2.0 * (b * t * e + w * e * f) + 4.0 * f + 8.0 * b * f
+    t_ops, t_bytes = flops / PEAK_BF16_FLOP_S, nbytes / PEAK_BYTES_S
+    x32, k32 = xb.float(), kb.float()
+    fwd = dict(ms=_median_ms(torch, lambda: textcnn.textcnn_pool_forward_bf16(
+                   xb, kb, bias, w)),
+               plain_ms=_median_ms(torch, lambda: textcnn
+                                   .textcnn_pool_bf16_reference(xb, kb, bias,
+                                                                w)),
+               library_ms=_median_ms(torch, library),
+               f32_kernel_ms=_median_ms(torch, lambda: textcnn
+                                        .textcnn_pool_forward(x32, k32,
+                                                              bias, w)),
+               bound_ms=1e3 * max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               gflop=flops / 1e9, mbytes=nbytes / 1e6)
+    nz = g != 0
+    dg_b = _dg_bound(torch, g, idx, t, e, w)
+    # the bound's x bytes at 2 a value, the rest as counted
+    cells = dg_b["cells"]
+    dflops = 2.0 * int(nz.sum()) * w * e
+    dbytes = 2.0 * cells * e + 4.0 * (2 * b * f + w * e * f)
+    d_ops, d_bytes = dflops / PEAK_BF16_FLOP_S, dbytes / PEAK_BYTES_S
+    dg = dict(ms=_median_ms(torch, lambda: textcnn.textcnn_pool_bwd_dg_bf16(
+                  xb, g, idx, w)),
+              plain_ms=_median_ms(torch, lambda: textcnn
+                                  .textcnn_pool_bf16_dg_reference(xb, g, idx,
+                                                                  w)),
+              library_ms=_median_ms(torch, lib_dg),
+              f32_kernel_ms=_median_ms(torch, lambda: textcnn
+                                       .textcnn_pool_bwd_dg(x32, g, idx, w)),
+              bound_ms=1e3 * max(d_ops, d_bytes),
+              bound_by="operations" if d_ops >= d_bytes else "bytes",
+              mflop=dflops / 1e6, mbytes=dbytes / 1e6)
+    for name, r in (("textcnn_pool_fwd_bf16", fwd),
+                    ("textcnn_pool_bwd_dg_bf16", dg)):
+        print(f"{name} at B=256 T=1000 E=64 F=100 W=3: {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
+              f"ms, the f32 kernel on the bf16 values {r['f32_kernel_ms']:.4f}"
+              f" ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return {"fwd": fwd, "dg": dg}
+
+
+def bf16_models(torch, textcnn, ds, device) -> dict:
+    """deepconn and deepconn++ at compute_dtype="bfloat16", full width,
+    from the e2e_ref.npz init params: the first 512 test predictions
+    against JAX's XLA branch at bf16 (bf16_ref.npz, within 1e-3), then 8
+    deepconn++ steps at dropout 0 against the fixture within
+    `_steps_vs_ref`'s bounds (FLIP_SHARE). Returns the launch counts of
+    the two runs."""
+    import numpy as np
+
+    from reviews4rec_torch.config import HyperParams
+    from reviews4rec_torch.data import Batcher
+    from reviews4rec_torch.models import build_model
+    from reviews4rec_torch.train.loop import make_optimizer
+    from reviews4rec_torch.utils.device import to_device
+    from reviews4rec_torch.utils.io import load_npz
+    from reviews4rec_torch.weights import load_flax_params
+
+    ref = load_npz(str(BF16_FIXTURE))
+    init = load_npz(str(FIXTURE))
+    geom = json.loads(str(ref["geometry"]))
+    rows, steps = geom.pop("serve_rows"), geom.pop("steps")
+    models = {}
+    for mt in MODELS:
+        hp = ds.apply_to(HyperParams(model_type=mt, **geom))
+        model = build_model(hp, ds.word_vectors, device=device)
+        load_flax_params(model, _subtree(init, f"{mt}/params/"))
+        models[mt] = (hp, model)
+    test = [to_device(bt, device) for bt, _ in zip(
+        Batcher(ds.materialize(models["deepconn"][0], "test"), 256),
+        range(rows // 256))]
+    hp, model = models["deepconn++"]
+    train = [lambda b=bt: to_device(b, device) for bt, _ in zip(
+        Batcher(ds.materialize(hp, "train"), hp.batch_size), range(steps))]
+    _reset(textcnn)
+    for mt, (hp, model) in models.items():
+        model.eval()
+        with torch.no_grad():
+            pred = torch.cat([model(bt) for bt in test]).cpu().numpy()
+        err = float(np.abs(pred - ref[f"{mt}/serve_pred"]).max())
+        print(f"{mt} bf16 serving, {len(pred)} test rows vs JAX: max|err| "
+              f"{err:.3e}")
+        if not (np.isfinite(pred).all() and err <= 1e-3):
+            raise AssertionError(f"{mt}: bf16 predictions off by {err}")
+    _steps_vs_ref(torch, model, make_optimizer(hp, model), train, ref,
+                  "deepconn++", "bf16 training steps", flips=FLIP_SHARE)
+    launches = dict(textcnn.launches)
+    print(f"bf16 path: launches {launches}")
+    if not (launches[textcnn.FWD_BF16] and launches[textcnn.BWD_DG_BF16]):
+        raise AssertionError("the bf16 path launched no bf16 kernel")
+    if launches[textcnn.FWD] or launches[textcnn.BWD_DG]:
+        raise AssertionError("the bf16 path launched an f32 kernel")
+    return launches
+
+
+# ---------------------------------------------------------------------
+# the neighborhood models: the per-example SGD kernel
+# ---------------------------------------------------------------------
+NEIGHBOR_MODELS = ("baseline", "SVD", "SVD++", "NMF", "kNN")
+SGD_CUT = 5000
+
+
+def _sgd_inputs(torch, ds, device, variant, ref, n=None):
+    """(args, state, kwargs) of an SGD fit of `variant` from JAX's init in
+    the fixture, on the first n train examples (all without n)."""
+    import numpy as np
+
+    from reviews4rec_torch.models import neighbors as nb
+    from reviews4rec_torch.ops import neighbors as sgd_ops
+
+    tr = ds.splits["train"]
+    sl = slice(None, n)
+
+    def t(a, dt):
+        return torch.as_tensor(np.ascontiguousarray(a[sl]), dtype=dt,
+                               device=device)
+
+    args = (t(tr.user, torch.int32), t(tr.item, torch.int32),
+            t(tr.rating, torch.float32))
+    state = {k: torch.as_tensor(ref[f"{variant}/init/{k}"], device=device)
+             .contiguous() for k in sgd_ops.KEYS[variant]}
+    kw = {}
+    if variant == "SVD++":
+        pad, cnt = nb.rated_lists(ds)
+        kw = dict(rated_pad=torch.as_tensor(pad, device=device),
+                  rated_count=torch.as_tensor(cnt, device=device))
+    return args, state, kw
+
+
+def check_sgd(torch, ds, device) -> dict:
+    """The SGD kernel against its plain version on a cut (1 epoch of the
+    first 5000 train examples, from JAX's init), each variant: state
+    within 1e-5. Times both on the cut (the SVD row feeds the kernels
+    line), beside the bound of the same work and a chain of dependent
+    read-modify-writes of one float (the latency of one update)."""
+    from reviews4rec_torch.ops import neighbors as sgd_ops
+    from reviews4rec_torch.utils.io import load_npz
+
+    ref = load_npz(str(NEIGHBORS_FIXTURE))
+    mu = float(ds.splits["train"].rating.mean())
+    res = {"max_abs_err": 0.0}
+    for variant in ("baseline", "SVD", "SVD++"):
+        args, state, kw = _sgd_inputs(torch, ds, device, variant, ref,
+                                      SGD_CUT)
+        lr = 0.007 if variant == "SVD++" else 0.005
+        fit = lambda: sgd_ops.sgd_fit(  # noqa: E731
+            *args, {k: v.clone() for k, v in state.items()}, variant, 1, mu,
+            lr, 0.02, **kw)
+        got = fit()
+        want = sgd_ops.sgd_fit_reference(*args, state, variant, 1, mu, lr,
+                                         0.02, **kw)
+        torch.cuda.synchronize()
+        err = max((got[k] - want[k]).abs().max().item() for k in got)
+        print(f"neighbors_sgd {variant}, 1 epoch of {SGD_CUT} examples: "
+              f"max|state err| {err:.3e} against the plain version")
+        if not err <= 1e-5:
+            raise AssertionError(f"neighbors_sgd disagrees ({variant})")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        ms = _median_ms(torch, fit, n=10, warm=1)
+        plain_ms = _median_ms(torch, lambda: sgd_ops.sgd_fit_reference(
+            *args, state, variant, 1, mu, lr, 0.02, **kw), n=1, warm=0)
+        k = state["p"].shape[1] if "p" in state else 0
+        rows = sum(v.numel() for v in state.values())
+        extra = (int(kw["rated_count"][args[0].long()].sum()) * k
+                 if variant == "SVD++" else 0)
+        # the stream once, the state read and written once; FLOP of the
+        # dot products and updates (and the implicit sums and y updates)
+        nbytes = 12.0 * SGD_CUT + 8.0 * rows
+        flops = SGD_CUT * (10.0 + 8.0 * k) + 6.0 * extra
+        t_ops, t_bytes = flops / PEAK_F32_FLOP_S, nbytes / PEAK_BYTES_S
+        res[variant] = dict(ms=ms, plain_ms=plain_ms,
+                            bound_ms=1e3 * max(t_ops, t_bytes),
+                            bound_by="operations" if t_ops >= t_bytes
+                            else "bytes", library_ms=None,
+                            us_per_update=1e3 * ms / SGD_CUT)
+        print(f"  {variant}: kernel {ms:.3f} ms ({res[variant]['us_per_update']:.3f}"
+              f" us an update), plain {plain_ms:.1f} ms; bound "
+              f"{res[variant]['bound_ms']:.5f} ms ({res[variant]['bound_by']})")
+    a = torch.zeros(1, device=device)
+    n = 100000
+    chain = _median_ms(torch, lambda: sgd_ops.rmw_chain(a, n), n=5, warm=1)
+    res["rmw_ns"] = 1e6 * chain / n
+    res["latency_bound_ms"] = res["rmw_ns"] * SGD_CUT / 1e6
+    print(f"  one dependent read-modify-write of a global float: "
+          f"{res['rmw_ns']:.1f} ns; {SGD_CUT} of them: "
+          f"{res['latency_bound_ms']:.4f} ms")
+    return res
+
+
+def neighbors_fits(torch, ds, device) -> dict:
+    """The five models fitted on the whole e2e corpus from JAX's init
+    (neighbors_ref.npz): final state and test predictions within 1e-4,
+    `run_neighbor`'s metrics beside JAX's (baseline and kNN draw nothing:
+    test MSE within 1e-4 of JAX's). Prints each SGD fit's seconds and
+    us an update. Returns the launch counts of the fits."""
+    import numpy as np
+
+    from reviews4rec_torch.config import HyperParams
+    from reviews4rec_torch.models import neighbors as nb
+    from reviews4rec_torch.ops import neighbors as sgd_ops
+    from reviews4rec_torch.utils.io import load_npz
+
+    ref = load_npz(str(NEIGHBORS_FIXTURE))
+    geom = json.loads(str(ref["geometry"]))
+    te = ds.splits["test"]
+    sgd_ops.launches[sgd_ops.SGD] = 0
+    out = {}
+    for mt in NEIGHBOR_MODELS:
+        hp = ds.apply_to(HyperParams(model_type=mt, **geom))
+        init = ({k[len(mt) + 6:]: v for k, v in ref.items()
+                 if k.startswith(f"{mt}/init/")} or None)
+        predict, secs = _timed(torch, lambda: nb.fit(hp, ds, device=device,
+                                                     init=init))
+        pred, pred_s = _timed(torch, lambda: predict(te.user, te.item))
+        perr = float(np.abs(pred - ref[f"{mt}/test_pred"]).max())
+        serr = 0.0
+        state = getattr(predict, "state", {})
+        for k, v in state.items():
+            serr = max(serr, float(np.abs(v.cpu().numpy()
+                                          - ref[f"{mt}/final/{k}"]).max()))
+        metrics, _, _ = nb.run_neighbor(hp, ds, device=device, init=init)
+        want = json.loads(str(ref[f"{mt}/metrics"]))
+        updates = hp.surprise_epochs * len(ds.splits["train"])
+        per = (f", {1e6 * secs / updates:.3f} us an update"
+               if mt in ("baseline", "SVD", "SVD++") else "")
+        print(f"{mt}: fit {secs:.3f} s{per}, test predictions {pred_s:.3f} "
+              f"s; final state max|err| "
+              f"{serr:.3e}, test predictions max|err| {perr:.3e}; metrics "
+              f"{metrics}, JAX {want}")
+        if not (serr <= 1e-4 and perr <= 1e-4):
+            raise AssertionError(f"{mt}: the fit differs from JAX's")
+        if not abs(metrics["MSE"] - want["MSE"]) <= 1e-4 + 1e-9:
+            raise AssertionError(f"{mt}: test MSE differs from JAX's")
+        out[mt] = dict(fit_s=secs, predict_s=pred_s, state_err=serr,
+                       pred_err=perr,
+                       metrics=metrics)
+    launches = dict(sgd_ops.launches)
+    print(f"neighbors path: launches {launches}")
+    if launches[sgd_ops.SGD] < 6:
+        raise AssertionError("the SGD fits launched the kernel too few times")
+    return launches
+
+
+# ---------------------------------------------------------------------
+# HFT: energy, the L-BFGS M-step and EM on the card
+# ---------------------------------------------------------------------
+# HFT's gradient at the e2e size against JAX's f32 one, of each tensor's
+# max: JAX's own f32 gradient of gamma_i lies 9.7e-6 of its max from the
+# float64 value of the same energy (the item-topic term's counts of up to
+# thousands cancel), and the port's f32 sums in another order land
+# 1.9e-5 from JAX's on the CPU
+HFT_GRAD_TOL = 5e-5
+# EM iterations of the card's HFT run. JAX's own run on this corpus
+# (latent_reg 4.0, on the CPU) has test MSE 0.5889, 0.5851, 0.5711 and
+# 0.5655 after 1 to 4 iterations, against the offset+bias anchor 0.5819:
+# below it from the third
+HFT_EM_ITERS = 4
+
+
+def hft_phase(torch, ds, device) -> None:
+    """At the fixture's params and counts on the e2e corpus (latent_reg
+    4.0): the energy at JAX's first M-step result within 1e-5 relative,
+    its gradient within `HFT_GRAD_TOL` of each tensor's max; the first M-step (20
+    L-BFGS iterations) from JAX's counts, its value at the start of each
+    iteration against JAX's; then `HFT_EM_ITERS` EM iterations, test MSE
+    below the offset+bias anchor they print, and seconds an EM
+    iteration."""
+    import numpy as np
+
+    from reviews4rec_torch.config import HyperParams
+    from reviews4rec_torch.models import hft
+    from reviews4rec_torch.train import lbfgs
+    from reviews4rec_torch.utils.io import load_npz
+    from reviews4rec_torch.weights import hft_params
+
+    ref = load_npz(str(HFT_FIXTURE))
+    geom = json.loads(str(ref["geometry"]))
+    hp = ds.apply_to(HyperParams(model_type="HFT", **geom))
+    data = hft.build_hft_data(hp, ds, device=device)
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    counts = {k: t(ref[f"counts/{k}"]) for k in ("word_topic", "item_topic",
+                                                 "topic_counts")}
+    if tuple(counts["word_topic"].shape) != (data.num_words, hp.latent_size):
+        raise AssertionError("the HFT dictionary differs from JAX's")
+    energy = hft.make_energy(data, hp)
+
+    def params_of(prefix, dtype=torch.float32):
+        return hft_params({k[len(prefix):]: v for k, v in ref.items()
+                           if k.startswith(prefix)}, ref["background"],
+                          device, dtype)
+
+    m_ref, bg = params_of("m_step/")
+    value, grad = lbfgs.value_and_grad(lambda p: energy(p, counts, bg), m_ref)
+    verr = abs(float(value) - float(ref["energy"])) / abs(float(ref["energy"]))
+    gerr = max(float((grad[k].cpu() - torch.as_tensor(ref[f"grad/{k}"]))
+                     .abs().max()) / max(float(np.abs(ref[f"grad/{k}"])
+                                               .max()), 1e-30)
+               for k in grad)
+    print(f"HFT energy at JAX's M-step result: {float(value):.6e} (JAX "
+          f"{float(ref['energy']):.6e}, rel err {verr:.2e}); gradient max "
+          f"err {gerr:.2e} of each max")
+    if not (verr <= 1e-5 and gerr <= HFT_GRAD_TOL):
+        raise AssertionError("HFT energy or gradient differs from JAX's")
+    # the algorithm: the M-step in float64 against JAX's under x64
+    data64 = hft.build_hft_data(hp, ds, device=device, dtype=torch.float64)
+    t64 = lambda a: torch.as_tensor(a, dtype=torch.float64,  # noqa: E731
+                                    device=device)
+    energy64 = hft.make_energy(data64, hp)
+    c64 = {k: t64(v) for k, v in counts.items()}
+    init64, bg64 = params_of("init/", torch.float64)
+    (_, values64), secs = _timed(torch, lambda: lbfgs.minimize(
+        lambda p: energy64(p, c64, bg64), init64, hp.hft_grad_iters))
+    rel64 = np.abs(np.array([float(v) for v in values64]) - ref["values_f64"]) \
+        / np.abs(ref["values_f64"])
+    print(f"HFT first M-step in float64 ({hp.hft_grad_iters} L-BFGS "
+          f"iterations, {secs:.2f} s): max relative err to JAX's (x64) per "
+          f"iteration {rel64.max():.2e}")
+    if not rel64.max() <= 1e-9:
+        raise AssertionError("the float64 M-step differs from JAX's")
+    # in float32, as the EM runs it: the trajectories part after a few
+    # iterations (f32 sums of an energy of ~3e6 in another order move the
+    # line search's trial points): the first value equal to 1e-6, every
+    # value below the one before, the last within 1e-2 of JAX's
+    init, _ = params_of("init/")
+    (params, values), secs = _timed(torch, lambda: lbfgs.minimize(
+        lambda p: energy(p, counts, bg), init, hp.hft_grad_iters))
+    got = np.array([float(v) for v in values])
+    rel = np.abs(got - ref["values"]) / np.abs(ref["values"])
+    print(f"HFT first M-step in float32 ({secs:.2f} s): values "
+          f"{np.round(got, 3).tolist()}; relative err to JAX's per "
+          f"iteration {np.array2string(rel, precision=1)}")
+    if not (rel[0] <= 1e-6 and rel[-1] <= 1e-2
+            and (np.diff(got) < 0).all()):
+        raise AssertionError("the float32 M-step's values differ from "
+                             "JAX's")
+    anchor = []
+
+    def verbose(msg):
+        if msg.startswith("Error w/ offset and bias"):
+            anchor.append(float(msg.split("=")[-1].split("/")[-1]))
+
+    trainer, secs = _timed(torch, lambda: hft.HFTTrainer(
+        hp.replace(hft_em_iters=HFT_EM_ITERS), ds, verbose=verbose,
+        device=device).fit())
+    mse = trainer.best_errors["test"]
+    print(f"HFT {HFT_EM_ITERS} EM iterations: {secs:.2f} s with the data "
+          f"build ({secs / HFT_EM_ITERS:.2f} s an iteration); test MSE "
+          f"{mse:.4f}, offset+bias "
+          f"anchor {anchor[0]:.4f}, HR@1 {trainer.ranking(trainer.params)}")
+    if not (np.isfinite(mse) and mse < anchor[0]):
+        raise AssertionError("HFT's test MSE is not below its anchor")
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--e2e-full", action="store_true",
@@ -4057,7 +4588,8 @@ def main(argv=None) -> None:
                              "0..N-1, plus one from the JAX init when N > 1")
     parser.add_argument("--only", default=None,
                         help="comma-separated phases of " + ",".join(PHASES))
-    e2e_choices = MODELS + REVIEW_MODELS + MF_E2E_MODELS + ("MPCN",)
+    e2e_choices = (MODELS + REVIEW_MODELS + MF_E2E_MODELS + ("MPCN",)
+                   + NON_SGD_E2E_MODELS)
     parser.add_argument("--models", default=",".join(MODELS),
                         help="with --e2e-full: comma-separated models of "
                              + ",".join(e2e_choices))
@@ -4081,13 +4613,15 @@ def main(argv=None) -> None:
     try:
         from reviews4rec_torch.data import ReviewDataset
         from reviews4rec_torch.ops import _build, textcnn
+        from reviews4rec_torch.ops import neighbors as sgd_ops
     except ImportError as exc:
         fail(f"the reviews4rec_torch package is not beside this script "
              f"({exc})")
     for need in (CORPUS_DIR / "corpus.npz", FIXTURE, TRAIN_FIXTURE,
                  ENTITY_FIXTURE, INIT_FIXTURE, REVIEW_FIXTURE,
                  REVIEW_TRAIN_FIXTURE, REVIEW_ENTITY_FIXTURE, MF_FIXTURE,
-                 FACTORIZED_FIXTURE, MPCN_FIXTURE, E2E_STATE):
+                 FACTORIZED_FIXTURE, MPCN_FIXTURE, BF16_FIXTURE,
+                 NEIGHBORS_FIXTURE, HFT_FIXTURE, E2E_STATE):
         if not need.exists():
             fail(f"missing {need.relative_to(ROOT)}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4180,6 +4714,17 @@ def main(argv=None) -> None:
     if "rank_train" in want:
         paths["rank_train"], rank_grid = rank_train(torch, textcnn, ds,
                                                     device)
+    # compute_dtype="bfloat16": the bf16 forward and dG alone
+    if "bf16" in want:
+        bf16_err = check_bf16(torch, textcnn)
+        bf16 = time_bf16(torch, textcnn)
+        paths["bf16"] = bf16_models(torch, textcnn, ds, device)
+    # the neighborhood models: the SGD kernel, once a fit; HFT runs none
+    if "neighbors" in want:
+        sgd = check_sgd(torch, ds, device)
+        sgd_paths = {"neighbors": neighbors_fits(torch, ds, device)}
+    if "hft" in want:
+        hft_phase(torch, ds, device)
     if want != set(PHASES):
         print(f"partial run of {sorted(want)}: no result line")
         return
@@ -4231,6 +4776,35 @@ def main(argv=None) -> None:
         k: rank_grid[k] for k in ("device_ms", "bound_ms", "bound_by",
                                   "tf32x3_ms", "plain_ms", "max_abs_err")}
     kernels[1]["rank_grid_max_abs_err"] = rank_grid["dg_max_abs_err"]
+    # the kernels that replace no Pallas function: the bf16 sources of
+    # the forward and dG (JAX's XLA TextCNN branch at bf16) and the SGD
+    # kernel (`_sgd_fit`'s lax.scan)
+    xla_branch = "reviews4rec_tpu/models/layers.py:174-187"
+    for name, numbers, err in ((textcnn.FWD_BF16, bf16["fwd"],
+                                bf16_err["fwd"]),
+                               (textcnn.BWD_DG_BF16, bf16["dg"],
+                                bf16_err["dg"])):
+        by_path = {path: counts[name] for path, counts in paths.items()}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": src.format(textcnn.SOURCE[name]),
+            "replaces": xla_branch, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": err,
+            "ms": numbers["ms"], "plain_ms": numbers["plain_ms"],
+            "bound_ms": numbers["bound_ms"], "bound_by": numbers["bound_by"],
+            "library_ms": numbers["library_ms"],
+            "f32_kernel_ms": numbers["f32_kernel_ms"]})
+    kernels.append({
+        "name": sgd_ops.SGD, "route": "cuda", "source": src.format(sgd_ops.SGD),
+        "replaces": "reviews4rec_tpu/models/neighbors.py:51-113",
+        "launches": sgd_paths["neighbors"][sgd_ops.SGD],
+        "launches_by_path": {p: c[sgd_ops.SGD] for p, c in sgd_paths.items()},
+        "max_abs_err": sgd["max_abs_err"],
+        **{k: sgd["SVD"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
+        "timed_work": f"SVD, 1 epoch of the first {SGD_CUT} train examples",
+        "latency_bound_ms": sgd["latency_bound_ms"],
+        "by_variant": {v: sgd[v] for v in ("baseline", "SVD", "SVD++")}})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,11 +3,13 @@
 - `run` trains `hp.model_type` and reports the full metric set, as the
   JAX package's `api.run` does: the id models (bias_only, MF_dot, MF,
   GMF, MLP, NeuMF, the last in its three phases), deepconn, deepconn++,
-  NARRE, transnet, transnet++ and MPCN (the non-SGD families raise
-  `NotImplementedError` naming their ROADMAP.md item); transnet adds
-  `MSE_right` and `MSE_transform`. Under a ranking `hp.loss` (CE, BPR,
-  HINGE; not transnet) the model trains on sampled candidate grids and
-  keeps the epoch of best val HR@1; the test metrics are the same set.
+  NARRE, transnet, transnet++ and MPCN; transnet adds `MSE_right` and
+  `MSE_transform`. The neighbor family (baseline, SVD, SVD++, NMF, kNN)
+  goes to `models.neighbors.run_neighbor` and the topic family (HFT) to
+  `models.hft.run_hft`, as in the JAX package. Under a ranking `hp.loss`
+  (CE, BPR, HINGE; not transnet) the model trains on sampled candidate
+  grids and keeps the epoch of best val HR@1; the test metrics are the
+  same set.
 - `finalize` scores a model the way the JAX package's `api._finalize`
   does: test MSE with the count-vs-MSE maps, HR@1 on the stored 1+5
   candidate sets and, with `hp.eval_num_negs > 0`, the k > num_negs
@@ -129,16 +131,24 @@ def run(hp: HyperParams, dataset: Optional[ReviewDataset] = None,
         hp = hp.replace(rating_max=20.0)
     start = time.time()
     stats: Dict = {}
-    if hp.model_type == "NeuMF":
-        model = _train_neumf(hp, dataset, quiet, device)
+    if hp.family == "neighbor":
+        from .models.neighbors import run_neighbor
+        metrics, ucm, icm = run_neighbor(hp, dataset, device=device)
+    elif hp.family == "topic":
+        from .models.hft import run_hft
+        metrics, ucm, icm = run_hft(hp, dataset, quiet=quiet, device=device)
     else:
-        model = build_model(hp, dataset.word_vectors, device=device)
-        best, _ = train_complete(
-            hp, model, dataset, quiet=quiet,
-            checkpoint_path=checkpoint_path(hp) if hp.save_model else None,
-            stats=stats)
-        model.load_state_dict(best)
-    metrics, ucm, icm = finalize(hp, model, dataset, device=device)
+        if hp.model_type == "NeuMF":
+            model = _train_neumf(hp, dataset, quiet, device)
+        else:
+            model = build_model(hp, dataset.word_vectors, device=device)
+            best, _ = train_complete(
+                hp, model, dataset, quiet=quiet,
+                checkpoint_path=(checkpoint_path(hp) if hp.save_model
+                                 else None),
+                stats=stats)
+            model.load_state_dict(best)
+        metrics, ucm, icm = finalize(hp, model, dataset, device=device)
     if "train_examples_per_s" in stats:
         metrics["train_examples_per_s"] = stats["train_examples_per_s"]
     metrics["dataset"] = hp.dataset

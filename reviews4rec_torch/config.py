@@ -112,12 +112,13 @@ class HyperParams:
     # embedding_lookup, use_pallas with pallas_fuse_gather (the fused word
     # gather, `ops.textcnn.textcnn_pool_embed`), scan_steps (S steps per
     # dispatch, a CUDA-graph replay on the card), the cache_* switches and
-    # pallas_fuse_rows. The port computes in f32: a TextCNN model with
-    # compute_dtype other than float32 and without use_pallas (the JAX
-    # package's XLA branch, which casts the conv operands) raises, naming
-    # Queue 1 item 18; under use_pallas, where the JAX kernels choose their
-    # own dot dtype, it stays f32. seq_parallel raises the JAX package's
-    # ValueErrors, and on a mesh with a model axis names item 13.
+    # pallas_fuse_rows, and compute_dtype: without use_pallas (the JAX
+    # package's XLA branch, which casts the conv operands) a TextCNN model
+    # computes its conv on bf16 operands at "bfloat16" and raises, naming
+    # Queue 1 item 18, at any dtype but float32 and bfloat16; under
+    # use_pallas, where the JAX kernels choose their own dot dtype, it
+    # stays f32. seq_parallel raises the JAX package's ValueErrors, and on
+    # a mesh with a model axis names item 13.
     mesh_shape: Tuple[int, ...] = (1, 1)
     mesh_axes: Tuple[str, ...] = ("data", "model")
     compute_dtype: str = "float32"

@@ -82,7 +82,19 @@
 // The ids form's bound counts the bytes of the winning windows' ids and
 // of the distinct table rows they touch (chip_smoke.py, on the run's
 // data).
+//
+// bf16 x, `textcnn_pool_bwd_dg_bf16`: the dK of the JAX package's XLA
+// TextCNN branch at `compute_dtype="bfloat16"`
+// (reviews4rec_tpu/models/layers.py:174-187; an XLA dot there, no Pallas
+// kernel). The plain-x body reads x as bf16 (8-byte vectors of 4, or
+// single values) and g in f32, and sums in f32 in the same fixed order.
+// JAX's cotangent of `kernel.astype(bfloat16)` is the f32 sum rounded to
+// bf16 once, so each dK value is rounded to nearest even at its store
+// (`__float2bfloat16_rn`) and written as the f32 that holds it; the
+// slices' partial sums stay unrounded. db (PyTorch's sum of g) is not
+// rounded: the bias is added in f32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -131,13 +143,35 @@ __device__ __forceinline__ void load_vec(const float* p, float (&v)[kVec]) {
   }
 }
 
+// bf16 x: 4 values in one 8-byte load, or one
+template <int kVec>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&v)[kVec]) {
+  if constexpr (kVec == 4) {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
+    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
+    v[0] = __low2float(lo); v[1] = __high2float(lo);
+    v[2] = __low2float(hi); v[3] = __high2float(hi);
+  } else {
+    v[0] = __bfloat162float(p[0]);
+  }
+}
+
+// a dK value as stored: f32, or for bf16 x the f32 of its bf16 rounding
+template <typename Tx>
+__device__ __forceinline__ float stored(float sum) {
+  if constexpr (sizeof(Tx) == 2) return __bfloat162float(__float2bfloat16_rn(sum));
+  return sum;
+}
+
 // kSrc == kRows: x is a [N, T, E] table and batch row b reads x[rows[b]].
 // kSrc == kIds: x is a [N, E] word table, `rows` holds ids [B, T] and doc
 // position p of batch row b is x[rows[b * T + p]].
 // kVec: floats a lane loads at once (4 needs E % 4 == 0 and aligned x).
-template <int kSrc, int kVec>
+// Tx: float, or __nv_bfloat16 for the bf16 form (kPlain only).
+template <int kSrc, int kVec, typename Tx>
 __global__ void __launch_bounds__(kThreads, 4)
-textcnn_pool_bwd_dg_kernel(const float* __restrict__ x, const int* __restrict__ rows,
+textcnn_pool_bwd_dg_kernel(const Tx* __restrict__ x, const int* __restrict__ rows,
                            const float* __restrict__ g, const int* __restrict__ idx,
                            const int* __restrict__ skip, float* __restrict__ dk,
                            float* __restrict__ partial, int* __restrict__ counter, int N,
@@ -233,7 +267,7 @@ textcnn_pool_bwd_dg_kernel(const float* __restrict__ x, const int* __restrict__ 
           const int p = row.p0 + tap[v];
           in[u][v] = has[v] && row.g != 0.f && p >= 0 && p < T &&
                      (p < row.lo || p >= row.hi);
-          const float* src = x + base + off[v];
+          const Tx* src = x + base + off[v];
           if constexpr (kSrc == kIds) {
             // tap[v]'s word: E floats of its table row, at the same
             // offset within the tap
@@ -271,7 +305,7 @@ textcnn_pool_bwd_dg_kernel(const float* __restrict__ x, const int* __restrict__ 
 #pragma unroll
       for (int k = 0; k < kWarps; ++k) sum += red[k][threadIdx.x];
       if (slices == 1) {
-        dk[(size_t)j * F + f] = sum;
+        dk[(size_t)j * F + f] = stored<Tx>(sum);
       } else {
         partial[((size_t)s * F + f) * span + j] = sum;
       }
@@ -290,13 +324,13 @@ textcnn_pool_bwd_dg_kernel(const float* __restrict__ x, const int* __restrict__ 
   for (int j = threadIdx.x; j < span; j += kThreads) {
     float sum = 0.f;
     for (int k = 0; k < slices; ++k) sum += __ldcg(&partial[((size_t)k * F + f) * span + j]);
-    dk[(size_t)j * F + f] = sum;
+    dk[(size_t)j * F + f] = stored<Tx>(sum);
   }
   if (threadIdx.x == 0) counter[f] = 0;
 }
 
-template <int kSrc>
-int launch(const float* x, const int* rows, const float* g, const int* idx, const int* skip,
+template <int kSrc, typename Tx = float>
+int launch(const Tx* x, const int* rows, const float* g, const int* idx, const int* skip,
            float* dk, float* partial, int* counter, int N, int B, int T, int E, int F, int W,
            void* stream) {
   if (N <= 0 || B <= 0 || T <= 0 || E <= 0 || F <= 0 || W <= 0)
@@ -309,11 +343,11 @@ int launch(const float* x, const int* rows, const float* g, const int* idx, cons
     return (int)cudaErrorInvalidValue;
   if (kSrc == kIds && W > kMaxIdsWindow) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (E % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) {
-    textcnn_pool_bwd_dg_kernel<kSrc, 4><<<(unsigned)blocks, kThreads, 0, st>>>(
+  if (E % 4 == 0 && reinterpret_cast<uintptr_t>(x) % (4 * sizeof(Tx)) == 0) {
+    textcnn_pool_bwd_dg_kernel<kSrc, 4, Tx><<<(unsigned)blocks, kThreads, 0, st>>>(
         x, rows, g, idx, skip, dk, partial, counter, N, B, T, E, F, W, per_warp);
   } else {
-    textcnn_pool_bwd_dg_kernel<kSrc, 1><<<(unsigned)blocks, kThreads, 0, st>>>(
+    textcnn_pool_bwd_dg_kernel<kSrc, 1, Tx><<<(unsigned)blocks, kThreads, 0, st>>>(
         x, rows, g, idx, skip, dk, partial, counter, N, B, T, E, F, W, per_warp);
   }
   return (int)cudaGetLastError();
@@ -364,6 +398,16 @@ int textcnn_pool_bwd_dg_ids_f32(const float* table, const int* ids, const float*
                                 int B, int T, int E, int F, int W, void* stream) {
   return launch<kIds>(table, ids, g, idx, nullptr, dk, partial, counter, V, B, T, E, F, W,
                       stream);
+}
+
+// bf16 x: x [B, T, E] bf16 (bit patterns), the rest as
+// `textcnn_pool_bwd_dg_f32`; each dK value is the f32 sum rounded to bf16
+// (nearest even), stored as f32.
+int textcnn_pool_bwd_dg_bf16(const void* x, const float* g, const int* idx, const int* skip,
+                             float* dk, float* partial, int* counter, int B, int T, int E, int F,
+                             int W, void* stream) {
+  return launch<kPlain>(static_cast<const __nv_bfloat16*>(x), nullptr, g, idx, skip, dk,
+                        partial, counter, B, B, T, E, F, W, stream);
 }
 
 const char* textcnn_pool_bwd_dg_error_string(int code) {

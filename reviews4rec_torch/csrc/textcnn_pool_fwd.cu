@@ -126,7 +126,31 @@
 // Bytes at the serving shape: 1.0 MB of ids and the 8921 x 64 table
 // (2.3 MB, which stays in L2) in place of 65.5 MB of x a tower; the
 // operations, and so the bound, are the plain kernel's.
+//
+// bf16 operands, `textcnn_pool_fwd_bf16`: the forward of the JAX package's
+// XLA TextCNN branch at `compute_dtype="bfloat16"`
+// (reviews4rec_tpu/models/layers.py:174-187), which casts x and K to bf16
+// and accumulates in f32. It is not a Pallas kernel there; here it is a
+// kernel of its own, with a body of its own (below the f32 one):
+// - x [B, T, E] and K [W*E, F] are read as bf16, bias in f32; out is f32
+//   and idx int32 with the same first-argmax rule as the f32 kernel.
+// - One `mma.sync.aligned.m16n8k16` bf16 pass with f32 accumulation per
+//   k-step (a bf16 product is exact in f32), where the f32 body makes
+//   three TF32 passes of half the depth.
+// - Simple and right first: a block per (batch row, filter chunk); K is
+//   staged once per block in shared memory as [filter][W*E16] bf16 (E16 =
+//   E padded to 16 with zeros), so a B fragment is one 32-bit load of two
+//   consecutive k; tiles of 16 starts a warp are filled by plain 16-byte
+//   (E % 8 == 0, aligned x) or 2-byte loads and a barrier, without the
+//   cp.async ring. Row pitches of E16 + 8 and W*E16 + 8 bf16 put the
+//   lanes of a fragment load in 32 distinct banks.
+// - Bound at the serving shape (B=256, T=1000, E=64, F=100, W=3): bytes
+//   2*B*T*E + 2*W*E*F + 4*F + 8*B*F = 33.3 MB, 0.0099 ms at 3.35 TB/s;
+//   operations 2*B*(T+W-1)*W*E*F = 9.85 GFLOP, 0.0100 ms at the 989
+//   TFLOP/s of dense bf16: about even, so either may bound it.
+//   chip_smoke.py computes both from the run's shapes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -567,6 +591,254 @@ int dispatch(const float* x, const int* rows, const float* k, const float* bias,
   }
 }
 
+
+// ---------------------------------------------------------------------
+// bf16 operands (`textcnn_pool_fwd_bf16`)
+// ---------------------------------------------------------------------
+
+constexpr int kBfMaxNTiles = 13;  // n8 tiles a block: 104 filters
+
+__host__ __device__ constexpr int pad16(int e) { return (e + 15) & ~15; }
+// pitches in bf16 elements: 8 past a multiple of 16, so a row is 4 words
+// past a multiple of 8 words and the 8 rows of a fragment hit 8 bank
+// groups of 4
+__host__ __device__ constexpr int bf_x_pitch(int e) { return pad16(e) + 8; }
+__host__ __device__ constexpr int bf_k_pitch(int e, int window) {
+  return window * pad16(e) + 8;
+}
+
+// bytes of shared memory of one bf16 block: K [nt*8][k pitch], the x
+// tile [warps*16 + W - 1][x pitch], the bias and the warps' merge
+size_t bf_smem_bytes(int e, int window, int nt, int warps) {
+  const size_t kbytes = 2 * (size_t)nt * 8 * bf_k_pitch(e, window);
+  const size_t xbytes = 2 * (size_t)(warps * kStartsPerWarp + window - 1) * bf_x_pitch(e);
+  const size_t merge = 8 * (size_t)warps * nt * 8;
+  return ((kbytes + 15) & ~(size_t)15) + ((xbytes + 15) & ~(size_t)15) + 4 * (size_t)nt * 8 +
+         merge;
+}
+
+// d += a * b: a 16x16 bf16 (row), b 16x8 bf16 (col), d 16x8 f32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Block: blockDim.x / 32 warps of 16 starts each, batch row blockIdx.x,
+// filters [blockIdx.y * nt * 8, + nt * 8). x and k are bf16 bit patterns.
+__global__ void __launch_bounds__(kMaxWarps * 32)
+textcnn_pool_fwd_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ k,
+                             const float* __restrict__ bias, const int* __restrict__ skip,
+                             float* __restrict__ out, int* __restrict__ idx, int T, int E,
+                             int F, int W, int nt, int vec16) {
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int warps = nthreads / 32;
+  const int e16 = pad16(E);
+  const int kcs = e16 / 16;  // k-steps per tap
+  const int xp = bf_x_pitch(E);
+  const int kp = bf_k_pitch(E, W);
+  const int starts = warps * kStartsPerWarp;
+  const int tile_rows = starts + W - 1;
+  const int t_out = T + W - 1;
+  const int nf = nt * 8;
+  const int f0 = blockIdx.y * nf;
+  const int b = blockIdx.x;
+
+  extern __shared__ uint4 smem16[];
+  uint16_t* ks = reinterpret_cast<uint16_t*>(smem16);  // [nf][kp]
+  const size_t kbytes = (2 * (size_t)nf * kp + 15) & ~(size_t)15;
+  uint16_t* xs = reinterpret_cast<uint16_t*>(reinterpret_cast<char*>(smem16) + kbytes);
+  const size_t xbytes = (2 * (size_t)tile_rows * xp + 15) & ~(size_t)15;
+  float* bs = reinterpret_cast<float*>(reinterpret_cast<char*>(xs) + xbytes);  // [nf]
+  float* merge_v = bs + nf;                                                   // [warps][nf]
+  int* merge_i = reinterpret_cast<int*>(merge_v + warps * nf);
+
+  // K transposed to [filter][w*E16 + e], zero past E and F
+  for (int i = tid; i < nf * W * e16; i += nthreads) {
+    const int n = i / (W * e16);
+    const int r = i - n * (W * e16);
+    const int w = r / e16;
+    const int e = r - w * e16;
+    const int f = f0 + n;
+    ks[n * kp + r] = e < E && f < F ? k[(size_t)(w * E + e) * F + f] : (uint16_t)0;
+  }
+  for (int i = tid; i < nf; i += nthreads) bs[i] = f0 + i < F ? bias[f0 + i] : 0.f;
+  const int lo = skip != nullptr ? skip[2 * b] : 0;
+  const int hi = skip != nullptr ? lo + skip[2 * b + 1] : 0;
+  const uint16_t* xb = x + (size_t)b * T * E;
+
+  float best[kBfMaxNTiles][2];
+  int best_s[kBfMaxNTiles][2];
+#pragma unroll
+  for (int j = 0; j < kBfMaxNTiles; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      best[j][c] = -1.f;  // every valid start gives relu(.) >= 0
+      best_s[j][c] = 0;
+    }
+
+  for (int s0 = 0; s0 < t_out; s0 += starts) {
+    __syncthreads();  // the previous tile is read (and K, bias written)
+    const int word0 = s0 - (W - 1);
+    if (vec16) {
+      const int per_row = e16 / 8;
+      for (int i = tid; i < tile_rows * per_row; i += nthreads) {
+        const int row = i / per_row;
+        const int c = 8 * (i - row * per_row);
+        const int word = word0 + row;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (word >= 0 && word < T && (word < lo || word >= hi) && c < E)
+          v = __ldg(reinterpret_cast<const uint4*>(xb + (size_t)word * E + c));
+        *reinterpret_cast<uint4*>(xs + row * xp + c) = v;
+      }
+    } else {
+      for (int i = tid; i < tile_rows * e16; i += nthreads) {
+        const int row = i / e16;
+        const int c = i - row * e16;
+        const int word = word0 + row;
+        xs[row * xp + c] = word >= 0 && word < T && (word < lo || word >= hi) && c < E
+                               ? xb[(size_t)word * E + c]
+                               : (uint16_t)0;
+      }
+    }
+    __syncthreads();
+
+    float acc[kBfMaxNTiles][4];
+#pragma unroll
+    for (int j = 0; j < kBfMaxNTiles; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+    const uint16_t* xw = xs + (size_t)warp * kStartsPerWarp * xp;
+    for (int w = 0; w < W; ++w) {
+      for (int kc = 0; kc < kcs; ++kc) {
+        // A: rows w + {g, g+8}, columns kc*16 + 2*tq + {0, 1, 8, 9}
+        const uint16_t* ap = xw + (size_t)(w + g) * xp + kc * 16 + 2 * tq;
+        const uint32_t a0 = *reinterpret_cast<const uint32_t*>(ap);
+        const uint32_t a1 = *reinterpret_cast<const uint32_t*>(ap + 8 * xp);
+        const uint32_t a2 = *reinterpret_cast<const uint32_t*>(ap + 8);
+        const uint32_t a3 = *reinterpret_cast<const uint32_t*>(ap + 8 * xp + 8);
+        // B: k = w*E16 + kc*16 + 2*tq + {0, 1} and + 8, filter 8j + g
+        const uint16_t* bp = ks + (size_t)g * kp + w * e16 + kc * 16 + 2 * tq;
+#pragma unroll
+        for (int j = 0; j < kBfMaxNTiles; ++j) {
+          if (j < nt) {
+            const uint16_t* bj = bp + (size_t)j * 8 * kp;
+            mma_bf16(acc[j], a0, a1, a2, a3, *reinterpret_cast<const uint32_t*>(bj),
+                     *reinterpret_cast<const uint32_t*>(bj + 8));
+          }
+        }
+      }
+    }
+
+    // running max over this thread's starts g and g + 8, in order
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int s = s0 + warp * kStartsPerWarp + g + 8 * half;
+      if (s >= t_out) continue;
+#pragma unroll
+      for (int j = 0; j < kBfMaxNTiles; ++j) {
+        if (j >= nt) continue;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float v = fmaxf(acc[j][2 * half + c] + bs[8 * j + 2 * tq + c], 0.f);
+          if (v > best[j][c]) {
+            best[j][c] = v;
+            best_s[j][c] = s;
+          }
+        }
+      }
+    }
+  }
+
+  // merge the 8 lanes of each column, then the warps, the lower start
+  // winning on equal values
+#pragma unroll
+  for (int j = 0; j < kBfMaxNTiles; ++j) {
+    if (j < nt) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float v = best[j][c];
+        int s = best_s[j][c];
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+          const int os = __shfl_xor_sync(0xffffffffu, s, off);
+          if (ov > v || (ov == v && os < s)) {
+            v = ov;
+            s = os;
+          }
+        }
+        if (g == 0) {
+          merge_v[warp * nf + 8 * j + 2 * tq + c] = v;
+          merge_i[warp * nf + 8 * j + 2 * tq + c] = s;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int col = tid; col < nf; col += nthreads) {
+    const int f = f0 + col;
+    if (f >= F) continue;
+    float v = merge_v[col];
+    int s = merge_i[col];
+    for (int ow = 1; ow < warps; ++ow) {
+      const float ov = merge_v[ow * nf + col];
+      const int os = merge_i[ow * nf + col];
+      if (ov > v || (ov == v && os < s)) {
+        v = ov;
+        s = os;
+      }
+    }
+    out[(size_t)b * F + f] = v;
+    idx[(size_t)b * F + f] = s;
+  }
+}
+
+// the first of 8, 4, 2, 1 warps, and for it the fewest filter chunks,
+// whose bf16 block fits in `max_smem`; nt = 0 if none does
+Config choose_bf16(int E, int F, int W, int max_smem) {
+  const int total = (F + 7) / 8;
+  for (int warps = kMaxWarps; warps >= 1; warps /= 2)
+    for (int chunks = 1; chunks <= total; ++chunks) {
+      const int nt = (total + chunks - 1) / chunks;
+      if (nt > kBfMaxNTiles) continue;
+      const size_t smem = bf_smem_bytes(E, W, nt, warps);
+      if (smem <= (size_t)max_smem) return {warps, nt, (total + nt - 1) / nt, smem};
+    }
+  return {1, 0, 0, bf_smem_bytes(E, W, 1, 1)};
+}
+
+int launch_bf16(const uint16_t* x, const uint16_t* k, const float* bias, const int* skip,
+                float* out, int* idx, int B, int T, int E, int F, int W, cudaStream_t stream) {
+  if (B <= 0 || T <= 0 || E <= 0 || F <= 0 || W < 1 || W > kMaxWindow || B > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  const Config cfg = choose_bf16(E, F, W, max_smem);
+  if (cfg.nt == 0 || cfg.chunks > 65535) return (int)cudaErrorInvalidConfiguration;
+  static size_t smem_set = 0;
+  if (cfg.smem > smem_set) {
+    err = cudaFuncSetAttribute(textcnn_pool_fwd_bf16_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cfg.smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = cfg.smem;
+  }
+  const int vec16 = E % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  textcnn_pool_fwd_bf16_kernel<<<dim3(B, cfg.chunks), cfg.warps * 32, cfg.smem, stream>>>(
+      x, k, bias, skip, out, idx, T, E, F, W, cfg.nt, vec16);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -605,6 +877,21 @@ int textcnn_pool_fwd_ids_f32(const float* table, const int* ids, const float* k,
                              const float* bias, float* out, int* idx, int V, int B, int T,
                              int E, int F, int W, void* stream) {
   return dispatch<kIds>(table, ids, k, bias, nullptr, out, idx, V, B, T, E, F, W, stream);
+}
+
+// bf16 operands: x [B, T, E] and k [W*E, F] as bf16 (bit patterns),
+// bias [F] f32, skip [B, 2] int32 or null, all contiguous; out [B, F] f32
+// and idx [B, F] int32. W <= 8.
+int textcnn_pool_fwd_bf16(const void* x, const void* k, const float* bias, const int* skip,
+                          float* out, int* idx, int B, int T, int E, int F, int W,
+                          void* stream) {
+  return launch_bf16(static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(k), bias,
+                     skip, out, idx, B, T, E, F, W, static_cast<cudaStream_t>(stream));
+}
+
+// The least shared memory a bf16 block needs at this E and W.
+size_t textcnn_pool_fwd_bf16_smem_bytes(int e, int window) {
+  return bf_smem_bytes(e, window, 1, 1);
 }
 
 const char* textcnn_pool_fwd_error_string(int code) {

@@ -7,7 +7,7 @@ import warnings
 
 import torch
 
-from ..config import ALL_MODELS, ID_MODELS, HyperParams
+from ..config import ID_MODELS, HyperParams
 from ..utils.device import DeviceLike, resolve_device
 
 # the TextCNN towers over the frozen word table (the JAX package's
@@ -70,15 +70,19 @@ def _check_seq_parallel(hp: HyperParams) -> None:
         "ROADMAP.md Queue 1 item 13")
 
 
-def _check_compute_dtype(hp: HyperParams) -> None:
-    """The JAX package's XLA TextCNN branch (no `use_pallas`) casts the
-    conv operands to `hp.compute_dtype`. The port's TextCNN computes in
-    f32, so it refuses any other dtype there. The Pallas branches choose
-    their own dot dtype, and under `use_pallas` the port keeps f32."""
-    if hp.compute_dtype != "float32" and not hp.use_pallas:
+def _conv_dtype(hp: HyperParams) -> str:
+    """The TextCNN's conv operand type. The JAX package's XLA TextCNN
+    branch (no `use_pallas`) casts the conv operands to
+    `hp.compute_dtype`; the port's TextCNN takes float32 and bfloat16
+    there and refuses any other dtype. The Pallas branches choose their
+    own dot dtype, and under `use_pallas` the port keeps f32."""
+    if hp.use_pallas:
+        return "float32"
+    if hp.compute_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(
             f"compute_dtype={hp.compute_dtype!r}: the TextCNN computes in "
-            f"float32 only: ROADMAP.md Queue 1 item 18")
+            f"float32 or bfloat16 only: ROADMAP.md Queue 1 item 18")
+    return hp.compute_dtype
 
 
 def _id_model(hp: HyperParams, gen: torch.Generator) -> torch.nn.Module:
@@ -124,7 +128,7 @@ def build_model(hp: HyperParams, word_vectors=None,
     if mt == "MPCN":
         return _mpcn(hp, word_vectors, gen).to(dev)
     if mt in _TEXTCNN_MODELS:
-        _check_compute_dtype(hp)
+        dtype = _conv_dtype(hp)
         if word_vectors is None:
             raise ValueError(f"{mt} needs the corpus word vectors")
         rows = (hp.num_user_rows, hp.num_item_rows, hp.latent_size,
@@ -132,7 +136,8 @@ def build_model(hp: HyperParams, word_vectors=None,
         # the fused word gather, as the JAX package sets it
         # (`models/__init__.py`: `fuse_gather` under `use_pallas`)
         kw = dict(generator=gen,
-                  fuse_gather=bool(hp.use_pallas and hp.pallas_fuse_gather))
+                  fuse_gather=bool(hp.use_pallas and hp.pallas_fuse_gather),
+                  compute_dtype=dtype)
         if mt == "NARRE":
             from .narre import NARRE
             model = NARRE(*rows, **kw)
@@ -143,8 +148,9 @@ def build_model(hp: HyperParams, word_vectors=None,
             from .deepconn import DeepCoNN
             model = DeepCoNN(*rows, use_fm=(mt == "deepconn"), **kw)
         return model.to(dev)
-    if mt not in ALL_MODELS:
-        raise ValueError(f"unknown model_type {mt!r}")
-    raise NotImplementedError(
-        f"{mt!r} is not ported to PyTorch yet: ROADMAP.md Queue 1 item 12 "
-        f"(non-SGD families)")
+    # the neighbor and topic families fit by their own runners
+    # (`models.neighbors.run_neighbor`, `models.hft.run_hft`): the JAX
+    # package's words
+    raise ValueError(
+        f"{mt!r} is not an SGD model; use hft.HFTTrainer or "
+        f"neighbors.fit_predict for it")

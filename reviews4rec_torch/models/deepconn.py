@@ -24,7 +24,8 @@ class DeepCoNN(nn.Module):
                  latent_size: int, word_vectors: np.ndarray,
                  dropout: float = 0.6, use_fm: bool = True,
                  generator: Optional[torch.Generator] = None,
-                 fuse_gather: bool = False):
+                 fuse_gather: bool = False,
+                 compute_dtype: str = "float32"):
         super().__init__()
         # frozen word table: a buffer, so no optimizer ever sees it
         self.register_buffer("word_vectors", torch.as_tensor(
@@ -33,9 +34,11 @@ class DeepCoNN(nn.Module):
         L = latent_size
         self.use_fm = use_fm
         self.user_conv = TextCNN(e, L, dropout, generator=generator,
-                                 fuse_gather=fuse_gather)
+                                 fuse_gather=fuse_gather,
+                                 compute_dtype=compute_dtype)
         self.item_conv = TextCNN(e, L, dropout, generator=generator,
-                                 fuse_gather=fuse_gather)
+                                 fuse_gather=fuse_gather,
+                                 compute_dtype=compute_dtype)
         self.global_bias = nn.Parameter(torch.full((1,), 4.0))
         if use_fm:
             self.fm = FM(2 * L, 8, generator=generator)

@@ -78,16 +78,23 @@ class TextCNN(nn.Module):
     with a `table` and no skip span go to `textcnn_pool_embed`, whose
     kernels read each word from the table, in place of `table[ids]` and
     the plain-x op; the JAX TextCNN takes its fused gather under the same
-    condition. The two give the same bits."""
+    condition. The two give the same bits.
+
+    `compute_dtype` "bfloat16" (`hp.compute_dtype` without `use_pallas`,
+    the JAX TextCNN's XLA branch): rows and ids are gathered first, and
+    the conv runs on the bf16 values of x and K with f32 sums
+    (`textcnn_pool(..., dtype=torch.bfloat16)`)."""
 
     def __init__(self, embed_size: int, latent_size: int,
                  dropout: float = 0.6, num_filters: int = 100,
                  window: int = 3,
                  generator: Optional[torch.Generator] = None,
-                 fuse_gather: bool = False):
+                 fuse_gather: bool = False, compute_dtype: str = "float32"):
         super().__init__()
         self.window = window
         self.fuse_gather = fuse_gather
+        self.dtype = {"float32": torch.float32,
+                      "bfloat16": torch.bfloat16}[compute_dtype]
         self.conv_kernel = nn.Parameter(nn.init.xavier_uniform_(
             torch.empty(window * embed_size, num_filters),
             generator=generator))
@@ -108,7 +115,9 @@ class TextCNN(nn.Module):
         # example b reads row rows[b] (hp.pallas_fuse_rows). A float
         # [N, T, E] table goes to the row-gathered kernels, which read
         # the rows themselves; int [N, T] ids are gathered first.
-        if rows is not None and x.is_floating_point() and x.dim() == 3:
+        bf16 = self.dtype == torch.bfloat16
+        if (rows is not None and x.is_floating_point() and x.dim() == 3
+                and not bf16):
             y, _ = textcnn_pool_rows(x, rows.to(torch.int32).contiguous(),
                                      self.conv_kernel, self.conv_bias,
                                      self.window, skip)
@@ -116,14 +125,14 @@ class TextCNN(nn.Module):
         if rows is not None:
             x = x[rows.long()]
         if table is not None and not x.is_floating_point():
-            if self.fuse_gather and skip is None:
+            if self.fuse_gather and skip is None and not bf16:
                 y, _ = textcnn_pool_embed(x.to(torch.int32).contiguous(),
                                           table, self.conv_kernel,
                                           self.conv_bias, self.window)
                 return self.dropout(self.fc(y), generator)
             x = table[x]
         y, _ = textcnn_pool(x.contiguous(), self.conv_kernel,
-                            self.conv_bias, self.window, skip)
+                            self.conv_bias, self.window, skip, self.dtype)
         return self.dropout(self.fc(y), generator)
 
 

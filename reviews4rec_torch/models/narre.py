@@ -27,7 +27,8 @@ class NARRE(nn.Module):
                  latent_size: int, word_vectors: np.ndarray,
                  dropout: float = 0.6,
                  generator: Optional[torch.Generator] = None,
-                 fuse_gather: bool = False):
+                 fuse_gather: bool = False,
+                 compute_dtype: str = "float32"):
         super().__init__()
         # frozen word table: a buffer, so no optimizer ever sees it
         self.register_buffer("word_vectors", torch.as_tensor(
@@ -39,9 +40,11 @@ class NARRE(nn.Module):
         self.item_embedding = nn.Parameter(nn.init.xavier_uniform_(
             torch.empty(num_item_rows, L), generator=generator))
         self.user_conv = TextCNN(e, L, dropout, generator=generator,
-                                 fuse_gather=fuse_gather)
+                                 fuse_gather=fuse_gather,
+                                 compute_dtype=compute_dtype)
         self.item_conv = TextCNN(e, L, dropout, generator=generator,
-                                 fuse_gather=fuse_gather)
+                                 fuse_gather=fuse_gather,
+                                 compute_dtype=compute_dtype)
         self.att_user = ScorerMLP(2 * L, L, dropout, generator=generator)
         self.att_item = ScorerMLP(2 * L, L, dropout, generator=generator)
         self.dropout = Dropout(dropout)

@@ -36,7 +36,8 @@ class TransNet(nn.Module):
                  latent_size: int, word_vectors: np.ndarray,
                  dropout: float = 0.6, plus: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 fuse_gather: bool = False):
+                 fuse_gather: bool = False,
+                 compute_dtype: str = "float32"):
         super().__init__()
         # frozen word table: a buffer, so no optimizer ever sees it
         self.register_buffer("word_vectors", torch.as_tensor(
@@ -44,7 +45,8 @@ class TransNet(nn.Module):
         e = self.word_vectors.shape[1]
         L = latent_size
         self.plus = plus
-        fuse = dict(generator=generator, fuse_gather=fuse_gather)
+        fuse = dict(generator=generator, fuse_gather=fuse_gather,
+                    compute_dtype=compute_dtype)
         self.source_user_conv = TextCNN(e, L, dropout, **fuse)
         self.source_item_conv = TextCNN(e, L, dropout, **fuse)
         self.project_fc0 = _linear(2 * L, L, generator)

@@ -50,6 +50,22 @@ inside the skip span.
 The three forms of the forward and of the dG share one kernel body each,
 so the rows and ids forms give the bits of the plain-x kernels on
 `table[rows]` and `table[ids]`.
+
+- `textcnn_pool(..., dtype=torch.bfloat16)`: the op with bf16 operands,
+  as the JAX package's XLA TextCNN branch computes it at
+  `compute_dtype="bfloat16"` (`reviews4rec_tpu/models/layers.py:174-187`),
+  a `TextCNNPoolBF16` autograd function. x and K are cast to bf16, the
+  conv sums in f32 and the bias is added in f32. Its forward is
+  `textcnn_pool_fwd_bf16` (`csrc/textcnn_pool_fwd.cu`, one bf16
+  `mma.sync` pass); its dK is `textcnn_pool_bwd_dg_bf16`
+  (`csrc/textcnn_pool_bwd_dg.cu`, the dG body on bf16 x), each value the
+  f32 sum rounded to bf16 once, as JAX's cotangent of
+  `kernel.astype(bfloat16)` is; db is the f32 sum of g, unrounded. Where
+  x needs a gradient, dx is the f32 dx kernel on the bf16 values of K,
+  rounded to bf16 (the cotangent of `x.astype(bfloat16)`). The plain
+  versions: `textcnn_pool_bf16_reference` (the f32 plain forward on the
+  bf16 values) and `textcnn_pool_bf16_dg_reference` (the f32 plain dG on
+  the bf16 values of x, rounded to bf16).
 """
 
 from __future__ import annotations
@@ -67,15 +83,33 @@ FWD, BWD_DG, BWD_DX = "textcnn_pool_fwd", "textcnn_pool_bwd_dg", \
     "textcnn_pool_bwd_dx"
 FWD_ROWS, BWD_DG_ROWS = "textcnn_pool_fwd_rows", "textcnn_pool_bwd_dg_rows"
 FWD_IDS, BWD_DG_IDS = "textcnn_pool_fwd_ids", "textcnn_pool_bwd_dg_ids"
-KERNELS = (FWD, BWD_DG, BWD_DX, FWD_ROWS, BWD_DG_ROWS, FWD_IDS, BWD_DG_IDS)
+FWD_BF16, BWD_DG_BF16 = "textcnn_pool_fwd_bf16", "textcnn_pool_bwd_dg_bf16"
+KERNELS = (FWD, BWD_DG, BWD_DX, FWD_ROWS, BWD_DG_ROWS, FWD_IDS, BWD_DG_IDS,
+           FWD_BF16, BWD_DG_BF16)
 # the source `csrc/<source>.cu` that holds each kernel's entry point
 SOURCE = {FWD: FWD, BWD_DG: BWD_DG, BWD_DX: BWD_DX, FWD_ROWS: FWD,
-          BWD_DG_ROWS: BWD_DG, FWD_IDS: FWD, BWD_DG_IDS: BWD_DG}
-# (pointer, int) argument counts of each `<name>_f32`, before its stream
+          BWD_DG_ROWS: BWD_DG, FWD_IDS: FWD, BWD_DG_IDS: BWD_DG,
+          FWD_BF16: FWD, BWD_DG_BF16: BWD_DG}
+# (pointer, int) argument counts of each entry point, before its stream
 _ARGS = {FWD: (6, 5), BWD_DG: (7, 5), BWD_DX: (6, 5), FWD_ROWS: (7, 6),
-         BWD_DG_ROWS: (8, 6), FWD_IDS: (6, 6), BWD_DG_IDS: (7, 6)}
+         BWD_DG_ROWS: (8, 6), FWD_IDS: (6, 6), BWD_DG_IDS: (7, 6),
+         FWD_BF16: (6, 5), BWD_DG_BF16: (7, 5)}
 # the sizes each source's `<source>_smem_bytes` takes, in order
 _SMEM_ARGS = {FWD: ("E", "W"), BWD_DG: ("E", "W"), BWD_DX: ("W", "F")}
+
+
+
+def _entry(name: str) -> str:
+    """The C entry point of kernel `name`: `<name>` for the bf16 kernels,
+    `<name>_f32` for the others."""
+    return name if name.endswith("_bf16") else f"{name}_f32"
+
+
+def _smem_fn(name: str) -> str:
+    """The C function that gives the shared memory of kernel `name`."""
+    return ("textcnn_pool_fwd_bf16_smem_bytes" if name == FWD_BF16
+            else f"{SOURCE[name]}_smem_bytes")
+
 
 # kernel launches since the counts were last set to 0
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -210,26 +244,50 @@ def textcnn_pool_embed_backward_reference(
         g.sum(0)
 
 
+def textcnn_pool_bf16_reference(x: torch.Tensor, kernel: torch.Tensor,
+                                bias: torch.Tensor, window: int = 3,
+                                skip: Optional[torch.Tensor] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, idx) of the op on the bf16 values of x and K (any float
+    type), summed in f32: the plain version of the bf16 forward kernel."""
+    return textcnn_pool_reference(_bf16_values(x), _bf16_values(kernel),
+                                  bias, window, skip)
+
+
+def textcnn_pool_bf16_dg_reference(x: torch.Tensor, g: torch.Tensor,
+                                   idx: torch.Tensor, window: int = 3,
+                                   skip: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
+    """dK [W*E, F] f32 of the op on the bf16 values of x, summed in f32
+    and rounded to bf16 once: the plain version of the bf16 dG kernel."""
+    return _bf16_values(_dg_reference(_bf16_values(x), g, idx, window,
+                                      skip))
+
+
+def _bf16_values(t: torch.Tensor) -> torch.Tensor:
+    """The f32 tensor of t's bf16 rounding (to nearest even)."""
+    return t.to(torch.bfloat16).float()
+
+
 # ---------------------------------------------------------------------
 # kernel wrappers: the plain version for a CPU tensor, else the kernel
 # ---------------------------------------------------------------------
 def _library(name: str) -> ctypes.CDLL:
     """The built library of kernel `name`'s source, its entry points
-    typed: `<name>_f32(pointers, [N,] B, T, E, F, W, stream)` and the
-    source's `<source>_smem_bytes(*_SMEM_ARGS[source])` and
+    typed: `_entry(name)(pointers, [N,] B, T, E, F, W, stream)`, its
+    `_smem_fn(name)(*_SMEM_ARGS[source])` and the source's
     `<source>_error_string(code)`."""
     src = SOURCE[name]
     lib = _build.load(src)
     typed = getattr(lib, "_typed", set())
     if name not in typed:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn = getattr(lib, f"{name}_f32")
+        fn = getattr(lib, _entry(name))
         pointers, ints = _ARGS[name]
         fn.argtypes = [p] * pointers + [i] * ints + [p]
         fn.restype = i
-        getattr(lib, f"{src}_smem_bytes").argtypes = [i] * len(
-            _SMEM_ARGS[src])
-        getattr(lib, f"{src}_smem_bytes").restype = ctypes.c_size_t
+        getattr(lib, _smem_fn(name)).argtypes = [i] * len(_SMEM_ARGS[src])
+        getattr(lib, _smem_fn(name)).restype = ctypes.c_size_t
         getattr(lib, f"{src}_error_string").argtypes = [i]
         getattr(lib, f"{src}_error_string").restype = ctypes.c_char_p
         if src == FWD:
@@ -244,17 +302,17 @@ def _library(name: str) -> ctypes.CDLL:
 
 def _launch(name: str, ref: torch.Tensor, pointers,
             dims: Dict[str, int]) -> None:
-    """Launch `<name>_f32` with the sizes `dims` ([N,] B, T, E, F, W, in
-    that order) on the current stream of `ref`'s device, raise with the
+    """Launch `_entry(name)` with the sizes `dims` ([N,] B, T, E, F, W,
+    in that order) on the current stream of `ref`'s device, raise with the
     shape and shared-memory figure if CUDA refuses it, and count the
     launch."""
     lib = _library(name)
     src = SOURCE[name]
     with torch.cuda.device(ref.device):
         stream = torch.cuda.current_stream(ref.device).cuda_stream
-        err = getattr(lib, f"{name}_f32")(*pointers, *dims.values(), stream)
+        err = getattr(lib, _entry(name))(*pointers, *dims.values(), stream)
     if err != 0:
-        smem = getattr(lib, f"{src}_smem_bytes")(
+        smem = getattr(lib, _smem_fn(name))(
             *(dims[k] for k in _SMEM_ARGS[src]))
         shape = ", ".join(f"{k}={v}" for k, v in dims.items())
         raise RuntimeError(
@@ -319,8 +377,10 @@ def _check_skip(skip: Optional[torch.Tensor], b: int) -> None:
                          f"{skip.dtype} {tuple(skip.shape)}")
 
 
-def _check_forward(x, kernel, bias, window, skip, rows=None) -> None:
-    """x is [B, T, E], or with `rows` [B] int32 a [N, T, E] table."""
+def _check_forward(x, kernel, bias, window, skip, rows=None,
+                   dtype=torch.float32) -> None:
+    """x is [B, T, E], or with `rows` [B] int32 a [N, T, E] table; x and
+    the kernel of type `dtype`, the bias f32."""
     if x.dim() != 3:
         raise ValueError(f"x must be [B, T, E] (a table [N, T, E] with "
                          f"rows), got {tuple(x.shape)}")
@@ -335,11 +395,10 @@ def _check_forward(x, kernel, bias, window, skip, rows=None) -> None:
     if tuple(bias.shape) != (f,):
         raise ValueError(f"bias must be [{f}], got {tuple(bias.shape)}")
     _check_skip(skip, b)
-    f32 = torch.float32
     _check_cuda("textcnn_pool", [("x", x), ("kernel", kernel),
                                  ("bias", bias), ("skip", skip),
                                  ("rows", rows)],
-                [f32, f32, f32, torch.int32, torch.int32])
+                [dtype, dtype, torch.float32, torch.int32, torch.int32])
     if min(x.shape[0], b, t, e, f) < 1:
         raise ValueError(f"empty operand: {x.shape[0]} rows, B={b}, "
                          f"T={t}, E={e}, F={f}")
@@ -552,6 +611,55 @@ def textcnn_pool_bwd_dg_ids(ids: torch.Tensor, table: torch.Tensor,
     return dk
 
 
+def textcnn_pool_forward_bf16(x: torch.Tensor, kernel: torch.Tensor,
+                              bias: torch.Tensor, window: int = 3,
+                              skip: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, idx) without autograd from bf16 x [B, T, E] and K [W*E, F]
+    and f32 bias: the plain version on the CPU, else the bf16 source of
+    `csrc/textcnn_pool_fwd.cu` (W <= 8)."""
+    if x.device.type == "cpu":
+        return textcnn_pool_bf16_reference(x, kernel, bias, window, skip)
+    _check_forward(x, kernel, bias, window, skip, dtype=torch.bfloat16)
+    b, t, e = x.shape
+    f = kernel.shape[1]
+    max_window = _library(FWD_BF16).textcnn_pool_fwd_max_window()
+    if not 1 <= window <= max_window:
+        raise ValueError(f"window {window} outside the kernel's "
+                         f"1..{max_window}")
+    out = torch.empty((b, f), dtype=torch.float32, device=x.device)
+    idx = torch.empty((b, f), dtype=torch.int32, device=x.device)
+    _launch(FWD_BF16, x, (x.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
+                          _ptr(skip), out.data_ptr(), idx.data_ptr()),
+            dict(B=b, T=t, E=e, F=f, W=window))
+    return out, idx
+
+
+def textcnn_pool_bwd_dg_bf16(x: torch.Tensor, g: torch.Tensor,
+                             idx: torch.Tensor, window: int = 3,
+                             skip: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """dK [W*E, F] f32 holding bf16 values, from bf16 x [B, T, E], the
+    gated f32 g [B, F] and idx: the plain version on the CPU, else the
+    bf16 instantiation of `csrc/textcnn_pool_bwd_dg.cu`."""
+    if x.device.type == "cpu":
+        return textcnn_pool_bf16_dg_reference(x, g, idx, window, skip)
+    if x.dim() != 3 or g.dim() != 2 or x.shape[0] != g.shape[0]:
+        raise ValueError(f"x [B, T, E] and g [B, F] expected, got "
+                         f"{tuple(x.shape)} and {tuple(g.shape)}")
+    _check_backward(BWD_DG_BF16, g, idx, ("g", g), skip, window)
+    _check_cuda(BWD_DG_BF16, [("x", x)], [torch.bfloat16])
+    b, t, e = x.shape
+    f = g.shape[1]
+    dk = torch.empty((window * e, f), dtype=torch.float32, device=x.device)
+    partial, counter = _dg_workspace(x, b, f, window * e)
+    _launch(BWD_DG_BF16, x, (x.data_ptr(), g.data_ptr(), idx.data_ptr(),
+                             _ptr(skip), dk.data_ptr(), _ptr(partial),
+                             _ptr(counter)),
+            dict(B=b, T=t, E=e, F=f, W=window))
+    return dk
+
+
 class TextCNNPool(torch.autograd.Function):
     """(out, idx) of the op, differentiable in x, K and b. The backward
     computes dx only when x needs it (the JAX op's `need_dx`); a tower
@@ -633,10 +741,47 @@ class TextCNNPoolEmbed(torch.autograd.Function):
         return None, None, dk, g.sum(0), None
 
 
+class TextCNNPoolBF16(torch.autograd.Function):
+    """(out, idx) of the op on the bf16 values of x and K, differentiable
+    in x, K and b: dK is the bf16 dG kernel's (bf16 values in f32), dx
+    (only when x needs it) the f32 dx kernel on the bf16 values of K,
+    rounded to bf16, and db the f32 sum of the gated g."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias, window, skip):
+        xb = x.to(torch.bfloat16).contiguous()
+        kb = kernel.to(torch.bfloat16).contiguous()
+        out, idx = textcnn_pool_forward_bf16(xb, kb, bias, window, skip)
+        ctx.window = window
+        ctx.save_for_backward(xb, kb, out, idx, skip)
+        ctx.mark_non_differentiable(idx)
+        return out, idx
+
+    @staticmethod
+    def backward(ctx, g_out, _g_idx):
+        xb, kb, out, idx, skip = ctx.saved_tensors
+        w = ctx.window
+        g = torch.where(out > 0, g_out, torch.zeros((), dtype=g_out.dtype,
+                                                    device=g_out.device))
+        g = g.contiguous()
+        dx = (_bf16_values(textcnn_pool_bwd_dx(g, idx, kb.float(),
+                                               xb.shape[1], w, skip))
+              if ctx.needs_input_grad[0] else None)
+        dk = (textcnn_pool_bwd_dg_bf16(xb, g, idx, w, skip)
+              if ctx.needs_input_grad[1] else None)
+        return dx, dk, g.sum(0), None, None
+
+
 def textcnn_pool(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-                 window: int = 3, skip: Optional[torch.Tensor] = None
+                 window: int = 3, skip: Optional[torch.Tensor] = None,
+                 dtype: torch.dtype = torch.float32
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out [B, F] f32, idx [B, F] int32); see the module docstring."""
+    """(out [B, F] f32, idx [B, F] int32); see the module docstring.
+    `dtype` is the conv's operand type: float32 or bfloat16."""
+    if dtype == torch.bfloat16:
+        return TextCNNPoolBF16.apply(x, kernel, bias, window, skip)
+    if dtype != torch.float32:
+        raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
     return TextCNNPool.apply(x, kernel, bias, window, skip)
 
 

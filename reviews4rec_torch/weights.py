@@ -9,11 +9,16 @@ FM's `fm_V`, TENSOR's `weights_T` [d, k, d], the `<prefix>_kernel` /
 `<prefix>_bias` of D-ATT's convs (whose torch modules carry the flax
 auto-names, `_Conv1D_0`, ...). `word_vectors` becomes the model's frozen
 buffer.
+
+The non-SGD families have no module: `neighbor_state` carries the JAX
+package's neighbor state dicts (`bu`, `bi`, `p`, `q`, `y`; NMF's `p`,
+`q`) and `hft_params` HFT's params (and background) across, as f32
+tensors on a device.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,3 +68,29 @@ def load_flax_params(model: torch.nn.Module, tree: Mapping) -> None:
                              "model's frozen table")
         state["word_vectors"] = own["word_vectors"]
     model.load_state_dict(state, strict=True)
+
+
+def _tensors(tree: Mapping, keys, device, dtype) -> Dict[str, torch.Tensor]:
+    return {k: torch.tensor(np.asarray(tree[k]), dtype=dtype, device=device)
+            for k in keys}
+
+
+def neighbor_state(state: Mapping, device=None,
+                   dtype: torch.dtype = torch.float32
+                   ) -> Dict[str, torch.Tensor]:
+    """A JAX neighbor state dict (`_sgd_fit`'s `bu`, `bi`, `p`, `q`, `y`,
+    or `_nmf_fit`'s `p`, `q`; numpy or JAX arrays) as tensors, every key
+    it holds."""
+    return _tensors(state, list(state), device, dtype)
+
+
+def hft_params(params: Mapping, background=None, device=None,
+               dtype: torch.dtype = torch.float32
+               ) -> Tuple[Dict[str, torch.Tensor], Optional[torch.Tensor]]:
+    """JAX HFT params (`alpha`, `kappa`, `beta_u`, `beta_i`, `gamma_u`,
+    `gamma_i`, `topic_words`) and, if given, the background, as tensors."""
+    keys = ("alpha", "kappa", "beta_u", "beta_i", "gamma_u", "gamma_i",
+            "topic_words")
+    bg = (None if background is None else torch.tensor(
+        np.asarray(background), dtype=dtype, device=device))
+    return _tensors(params, keys, device, dtype), bg

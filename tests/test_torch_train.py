@@ -259,10 +259,10 @@ def test_run_returns_the_jax_metric_keys_and_restores(dataset, port_dataset,
 
 @pytest.mark.parametrize("option,item", [
     (dict(cache_doc_embeds=True, mesh_shape=(2, 1)), "Queue 1 item 13"),
-    (dict(compute_dtype="bfloat16"), "Queue 1 item 18"),
+    (dict(compute_dtype="float16"), "Queue 1 item 18"),
     (dict(mesh_shape=(2, 1)), "Queue 1 item 13"),
     (dict(seq_parallel=True, mesh_shape=(1, 2)), "Queue 1 item 13"),
-    (dict(model_type="HFT"), "Queue 1 item 12"),
+    (dict(model_type="HFT", mesh_shape=(2, 1)), "Queue 1 item 13"),
 ])
 def test_unported_options_raise(option, item, port_dataset, tmp_path):
     hp = port_dataset.apply_to(PortHP(
@@ -302,20 +302,20 @@ def test_seq_parallel_raises_jax_s_error(mt, option, dataset, port_dataset):
 
 
 @pytest.mark.parametrize("mt", ["deepconn", "NARRE", "transnet++"])
-def test_bf16_compute_dtype_is_refused(mt, dataset, port_dataset):
-    """JAX's XLA TextCNN branch computes its conv in bf16 under
+def test_bf16_compute_dtype_matches_jax(mt, dataset, port_dataset):
+    """JAX's XLA TextCNN branch computes its conv on bf16 operands under
     `compute_dtype="bfloat16"` (its outputs move off the f32 ones); the
-    port, which computes in f32, refuses it there, naming item 18. Under
-    `use_pallas` the JAX kernels pick their own dot dtype and the port
-    builds, in f32."""
+    port's bf16 TextCNN gives JAX's bf16 outputs within 1e-5. float16
+    stays refused there, naming item 18. Under `use_pallas` the JAX
+    kernels pick their own dot dtype and the port builds, in f32."""
     geom = dict(GEOM, model_type=mt, dropout=0.0, narre_num_reviews=4,
                 narre_num_words=16)
     jh = dataset.apply_to(JaxHP(**geom))
     jm = jax_build(jh, dataset.word_vectors)
     jm16 = jax_build(jh.replace(compute_dtype="bfloat16"),
                      dataset.word_vectors)
-    batch = jax.tree_util.tree_map(jnp.asarray, next(iter(Batcher(
-        dataset.materialize(jh, "test"), 8))))
+    host = next(iter(Batcher(dataset.materialize(jh, "test"), 8)))
+    batch = jax.tree_util.tree_map(jnp.asarray, host)
     params = jm.init({"params": jax.random.PRNGKey(0)}, batch,
                      train=False)["params"]
 
@@ -325,9 +325,17 @@ def test_bf16_compute_dtype_is_refused(mt, dataset, port_dataset):
 
     assert np.abs(out(jm16) - out(jm)).max() > 1e-6
     ph = port_dataset.apply_to(PortHP(**geom, compute_dtype="bfloat16"))
+    tm = port_build(ph, port_dataset.word_vectors, device="cpu")
+    load_flax_params(tm, params)
+    tm.eval()
+    with torch.no_grad():
+        got = tm(to_device(host, CPU))
+    got = got[0] if isinstance(got, tuple) else got
+    np.testing.assert_allclose(got.numpy(), out(jm16), atol=1e-5, rtol=0)
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.md Queue 1 item 18"):
-        port_build(ph, port_dataset.word_vectors, device="cpu")
+        port_build(ph.replace(compute_dtype="float16"),
+                   port_dataset.word_vectors, device="cpu")
     port_build(ph.replace(use_pallas=True), port_dataset.word_vectors,
                device="cpu")
     port_build(ph.replace(model_type="MF_dot"), device="cpu")
