@@ -889,7 +889,8 @@ def _per_launch(torch, fn, n: int = 100) -> dict:
     """ms a launch of `fn` over n back-to-back calls, from CUDA events
     (`launch_ms`: the host's launch rate where it is the slower), and
     the device time a launch of the kernels it runs, from the profiler
-    over n more calls (`device_ms`)."""
+    over n more calls (`device_ms`: each kernel's mean over its recorded
+    launches, summed)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -907,8 +908,10 @@ def _per_launch(torch, fn, n: int = 100) -> dict:
             fn()
         torch.cuda.synchronize()
     rows, _ = _device_rows(torch, prof)
+    # each kernel's mean over the launches the profiler recorded: late in
+    # a long run it may record fewer than n
     return {"launch_ms": a.elapsed_time(z) / n,
-            "device_ms": sum(r[0] for r in rows) / 1e3 / n}
+            "device_ms": sum(r[0] / r[2] for r in rows) / 1e3}
 
 
 # ---------------------------------------------------------------------
@@ -4093,19 +4096,44 @@ def _print_rows_times(textcnn, rows) -> None:
 # ---------------------------------------------------------------------
 # compute_dtype="bfloat16": the bf16 forward and dG kernels
 # ---------------------------------------------------------------------
+def _split_tie_case(torch, b, t, e, f, w, seed):
+    """Random words with one strong window planted at several starts on
+    both sides of the bf16 body's tile boundaries (multiples of 128
+    starts): equal windows tie exactly, and the lowest start must win."""
+    x, k, bias = _random_case(torch, b, t, e, f, w, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    strong = 4.0 * torch.randn(b, w, e, generator=g)
+    for start in (10, 127, 128, 130, 255, 256, 300, 511, 512, 640):
+        if start + w <= t:
+            x[:, start:start + w] = strong
+    return x, k, bias
+
+
 def _bf16_cases():
-    """(name, maker, (B, T, E, F, W)) of the bf16 kernel checks."""
+    """(name, maker, (B, T, E, F, W), skip spans) of the bf16 kernel
+    checks: the main path's shapes, ties, the edges of the tiling (128
+    window starts a tile, a block walking whole rows) and of E."""
     s = SERVE_SHAPE
+    serve = (s["b"], s["t"], s["e"], s["f"], s["w"])
     return [
-        ("B=256 T=1000 E=64 F=100 W=3", _random_case,
-         (s["b"], s["t"], s["e"], s["f"], s["w"])),
+        ("B=256 T=1000 E=64 F=100 W=3", _random_case, serve, None),
         ("NARRE B=2560 T=100", _random_case,
-         (NARRE_SHAPE["b"], NARRE_SHAPE["t"], s["e"], s["f"], s["w"])),
-        ("B=37", _random_case, (37, s["t"], s["e"], s["f"], s["w"])),
-        ("forced ties", _tie_case, (8, 300, s["e"], s["f"], s["w"])),
-        ("real-valued ties", _real_tie_case, (8, 300, s["e"], s["f"], s["w"])),
-        ("E=5 F=129 W=8", _random_case, (7, 130, 5, 129, 8)),
-        ("E=256 W=5", _random_case, (4, 200, 256, s["f"], 5)),
+         (NARRE_SHAPE["b"], NARRE_SHAPE["t"], s["e"], s["f"], s["w"]), None),
+        ("B=37", _random_case, (37, s["t"], s["e"], s["f"], s["w"]), None),
+        ("forced ties", _tie_case, (8, 300, s["e"], s["f"], s["w"]), None),
+        ("real-valued ties", _real_tie_case, (8, 300, s["e"], s["f"], s["w"]),
+         None),
+        ("E=5 F=129 W=8", _random_case, (7, 130, 5, 129, 8), None),
+        ("E=256 W=5", _random_case, (4, 200, 256, s["f"], 5), None),
+        ("T=1", _random_case, (4, 1, s["e"], s["f"], s["w"]), None),
+        ("T=7", _random_case, (4, 7, s["e"], s["f"], s["w"]), None),
+        ("T=129 (131 starts: a tile and 3)", _random_case,
+         (6, 129, s["e"], s["f"], s["w"]), None),
+        ("skip spans across tile boundaries", _random_case,
+         (6, s["t"], s["e"], s["f"], s["w"]),
+         [[120, 20], [250, 10], [0, 0], [500, 257], [127, 2], [0, 1000]]),
+        ("exact ties across tile boundaries", _split_tie_case,
+         (8, 700, s["e"], s["f"], s["w"]), None),
     ]
 
 
@@ -4125,38 +4153,52 @@ def check_bf16(torch, textcnn) -> dict:
     autograd function: the card's against the plain one on the CPU,
     equal or one bf16 ulp apart."""
     worst = {"fwd": 0.0, "dg": 0.0}
-    for j, (name, make, (b, t, e, f, w)) in enumerate(_bf16_cases()):
+    for j, (name, make, (b, t, e, f, w), spans) in enumerate(_bf16_cases()):
         x, k, bias = (a.cuda() for a in make(torch, b, t, e, f, w, seed=j))
+        skip = (None if spans is None else
+                torch.tensor(spans, dtype=torch.int32, device="cuda"))
         xb, kb = x.to(torch.bfloat16), k.to(torch.bfloat16)
-        out, idx = textcnn.textcnn_pool_forward_bf16(xb, kb, bias, w)
+        out, idx = textcnn.textcnn_pool_forward_bf16(xb, kb, bias, w, skip)
         ref_out, ref_idx = textcnn.textcnn_pool_bf16_reference(xb, kb, bias,
-                                                               w)
+                                                               w, skip)
         torch.cuda.synchronize()
+        # the words the plain version sees: the skip spans zeroed
+        xm = xb.float()
+        if skip is not None:
+            pos = torch.arange(t, device="cuda")[None, :]
+            lo, ln = skip[:, :1], skip[:, 1:]
+            xm = torch.where(((pos >= lo) & (pos < lo + ln))[..., None], 0.0,
+                             xm)
         err = (out - ref_out).abs().max().item()
         scale = max(1.0, ref_out.abs().max().item())
         moved = (idx != ref_idx).nonzero()
-        gap = 0.0
+        gap, later = 0.0, 0
         if len(moved):
             rows, cols = moved[:, 0], moved[:, 1]
-            a, c = (_window_f64(torch, xb.float(), kb.float(), bias, w, rows,
-                                cols, s_[rows, cols]) for s_ in (idx, ref_idx))
+            a, c = (_window_f64(torch, xm, kb.float(), bias, w, rows, cols,
+                                s_[rows, cols]) for s_ in (idx, ref_idx))
             gap = (a - c).abs().max().item()
-        ties = _exact_ties(torch, xb.float(), kb.float(), bias, w, ref_out)
+            # equal windows: the lower start must win
+            later = int(((a == c) & (idx[rows, cols] > ref_idx[rows, cols]))
+                        .sum())
+        ties = _exact_ties(torch, xm, kb.float(), bias, w, ref_out)
         g = torch.randn(b, f, generator=torch.Generator().manual_seed(j))
         g = torch.where(out > 0, g.cuda(), 0.0)
-        dk = textcnn.textcnn_pool_bwd_dg_bf16(xb, g, ref_idx, w)
-        ref_dk = textcnn.textcnn_pool_bf16_dg_reference(xb, g, ref_idx, w)
+        dk = textcnn.textcnn_pool_bwd_dg_bf16(xb, g, ref_idx, w, skip)
+        ref_dk = textcnn.textcnn_pool_bf16_dg_reference(xb, g, ref_idx, w,
+                                                        skip)
         torch.cuda.synchronize()
         diff = (dk - ref_dk).abs()
         share = (diff > 0).float().mean().item()
         ulp_ok = bool((diff <= _bf16_ulp(torch, ref_dk) * 1.0001).all())
         print(f"textcnn_pool_fwd_bf16 {name}: max|out err| {err:.3e}, idx "
               f"differs at {len(moved)} of {idx.numel()} (windows within "
-              f"{gap:.1e} in float64), exact window ties {ties}; "
+              f"{gap:.1e} in float64; a later start of an equal window "
+              f"{later}), exact window ties {ties}; "
               f"textcnn_pool_bwd_dg_bf16: dK one bf16 ulp apart at "
               f"{share:.4%} of {dk.numel()}, max|diff| "
               f"{diff.max().item():.3e}")
-        if not (err <= 1e-5 * scale and gap <= 1e-5 * scale):
+        if not (err <= 1e-5 * scale and gap <= 1e-5 * scale and later == 0):
             raise AssertionError(f"bf16 forward disagrees ({name})")
         if not (ulp_ok and share <= 0.01):
             raise AssertionError(f"bf16 dG disagrees ({name})")
@@ -4257,12 +4299,29 @@ def time_bf16(torch, textcnn) -> dict:
               bound_ms=1e3 * max(d_ops, d_bytes),
               bound_by="operations" if d_ops >= d_bytes else "bytes",
               mflop=dflops / 1e6, mbytes=dbytes / 1e6)
+    # a launch over 100 back-to-back calls: CUDA events and the
+    # profiler's device time, the kernel and the f32 kernel on the values
+    fwd.update({f"{k}_100": v for k, v in _per_launch(
+        torch, lambda: textcnn.textcnn_pool_forward_bf16(xb, kb, bias, w))
+        .items()})
+    fwd["f32_device_ms_100"] = _per_launch(
+        torch, lambda: textcnn.textcnn_pool_forward(x32, k32, bias,
+                                                    w))["device_ms"]
+    dg.update({f"{k}_100": v for k, v in _per_launch(
+        torch, lambda: textcnn.textcnn_pool_bwd_dg_bf16(xb, g, idx, w))
+        .items()})
+    dg["f32_device_ms_100"] = _per_launch(
+        torch, lambda: textcnn.textcnn_pool_bwd_dg(x32, g, idx,
+                                                   w))["device_ms"]
     for name, r in (("textcnn_pool_fwd_bf16", fwd),
                     ("textcnn_pool_bwd_dg_bf16", dg)):
-        print(f"{name} at B=256 T=1000 E=64 F=100 W=3: {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
-              f"ms, the f32 kernel on the bf16 values {r['f32_kernel_ms']:.4f}"
-              f" ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        print(f"{name} at B=256 T=1000 E=64 F=100 W=3: {r['ms']:.4f} ms a "
+              f"single call, {r['launch_ms_100']:.4f} ms a launch over 100 "
+              f"back-to-back ({r['device_ms_100']:.4f} ms device), plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, the "
+              f"f32 kernel on the bf16 values {r['f32_kernel_ms']:.4f} ms "
+              f"({r['f32_device_ms_100']:.4f} ms device over 100); bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     return {"fwd": fwd, "dg": dg}
 
 
@@ -4354,12 +4413,124 @@ def _sgd_inputs(torch, ds, device, variant, ref, n=None):
     return args, state, kw
 
 
+def _sgd_case(torch, users: int, items: int, k: int, lists, n: int,
+              seed: int) -> tuple:
+    """(stream, state, rated_pad, rated_count) on the CPU of a synthetic SGD
+    problem: `lists` the users' item lists (repeats allowed), a stream of
+    n random (user, item, rating) examples, N(0, 0.1) factors."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    width = max(1, max(len(x) for x in lists))
+    pad = np.zeros((users, width), np.int32)
+    for u, x in enumerate(lists):
+        pad[u, :len(x)] = x
+    cnt = np.array([len(x) for x in lists], np.float32)
+    stream = (torch.from_numpy(rng.integers(0, users, n).astype(np.int32)),
+              torch.from_numpy(rng.integers(0, items, n).astype(np.int32)),
+              torch.from_numpy(rng.integers(1, 6, n).astype(np.float32)))
+    state = {"bu": torch.from_numpy(0.1 * rng.standard_normal(users)
+                                    .astype(np.float32)),
+             "bi": torch.from_numpy(0.1 * rng.standard_normal(items)
+                                    .astype(np.float32))}
+    for key, rows in (("p", users), ("q", items), ("y", items)):
+        state[key] = torch.from_numpy(
+            0.1 * rng.standard_normal((rows, k)).astype(np.float32))
+    return stream, state, torch.from_numpy(pad), torch.from_numpy(cnt)
+
+
+def _sgd_cases():
+    """(name, variants, users, items, K, lists maker, examples, epochs) of
+    the synthetic card cases of the SGD kernel: what the corpus lacks."""
+    import numpy as np
+
+    def rand_lists(users, items, mean, seed):
+        rng = np.random.default_rng(seed)
+        return [list(rng.integers(0, items, rng.integers(0, 2 * mean + 1)))
+                for _ in range(users)]
+
+    def dups(users, items, seed):
+        lists = rand_lists(users, items, 12, seed)
+        lists[0] = [3, 9, 3, 7, 11, 7, 7, 2]      # 3 twice, 7 three times
+        lists[1] = [5] * 6 + [6]                  # one item six times
+        return lists
+
+    def long_list(users, items, seed):
+        lists = rand_lists(users, items, 10, seed)
+        rng = np.random.default_rng(seed)
+        # 300 items, past every register chunk (48 slots at K = 10, 16 at
+        # K = 33), some of them repeated across chunks
+        lists[0] = list(rng.permutation(items)[:290]) + [4, 4, 17, 4] + \
+            list(rng.integers(0, items, 6))
+        return lists
+
+    return [
+        ("repeated items, K=10", ("SVD++",), 40, 30, 10, dups, 600, 2),
+        ("a 300-item list, K=10", ("SVD++",), 30, 400, 10, long_list, 400, 2),
+        ("a 300-item list, K=33", ("SVD++",), 30, 400, 33, long_list, 300, 2),
+        ("K=1", ("SVD", "SVD++"), 64, 80, 1,
+         lambda u, i, s: rand_lists(u, i, 15, s), 500, 2),
+        ("K=33", ("SVD", "SVD++"), 64, 80, 33,
+         lambda u, i, s: rand_lists(u, i, 15, s), 400, 2),
+        ("K=128", ("SVD", "SVD++"), 64, 80, 128,
+         lambda u, i, s: rand_lists(u, i, 15, s), 300, 2),
+        # U = 10^5, I = 6 x 10^4: no array fits in shared memory
+        ("global state, U=100000 I=60000 K=10",
+         ("baseline", "SVD", "SVD++"), 100000, 60000, 10,
+         lambda u, i, s: rand_lists(u, i, 8, s), 400, 2),
+    ]
+
+
+def check_sgd_cases(torch, device) -> float:
+    """The SGD kernel on `_sgd_cases` against its plain version on the CPU
+    (state within 1e-5), and two launches bitwise equal. Prints each
+    case's placement in shared memory."""
+    from reviews4rec_torch.ops import neighbors as sgd_ops
+
+    worst = 0.0
+    for j, (name, variants, U, I, k, make, n, epochs) in enumerate(
+            _sgd_cases()):
+        stream, state0, pad, cnt = _sgd_case(torch, U, I, k,
+                                             make(U, I, j), n, j)
+        mu = float(stream[2].mean())
+        for variant in variants:
+            keys = sgd_ops.KEYS[variant]
+            kw = ({"rated_pad": pad, "rated_count": cnt}
+                  if variant == "SVD++" else {})
+            want = sgd_ops.sgd_fit_reference(
+                *stream, {x: state0[x] for x in keys}, variant, epochs, mu,
+                0.007, 0.02, **kw)
+            dev_kw = {x: v.to(device) for x, v in kw.items()}
+            runs = []
+            for _ in range(2):
+                st = {x: state0[x].to(device).contiguous() for x in keys}
+                runs.append(sgd_ops.sgd_fit(
+                    *(a.to(device) for a in stream), st, variant, epochs, mu,
+                    0.007, 0.02, **dev_kw))
+            torch.cuda.synchronize()
+            err = max((runs[0][x].cpu() - want[x]).abs().max().item()
+                      for x in keys)
+            same = all(torch.equal(runs[0][x], runs[1][x]) for x in keys)
+            placed = sgd_ops.placement(variant, U, I,
+                                       k if variant != "baseline" else 0)
+            print(f"neighbors_sgd {variant}, {name} ({epochs} epochs of {n}; "
+                  f"shared memory {','.join(placed) or 'none'}): max|state "
+                  f"err| {err:.3e}, two launches bitwise equal {same}")
+            if not (err <= 1e-5 and same):
+                raise AssertionError(f"neighbors_sgd disagrees ({variant}, "
+                                     f"{name})")
+            worst = max(worst, err)
+    return worst
+
+
 def check_sgd(torch, ds, device) -> dict:
     """The SGD kernel against its plain version on a cut (1 epoch of the
     first 5000 train examples, from JAX's init), each variant: state
-    within 1e-5. Times both on the cut (the SVD row feeds the kernels
-    line), beside the bound of the same work and a chain of dependent
-    read-modify-writes of one float (the latency of one update)."""
+    within 1e-5, two launches bitwise equal; then on the synthetic cases.
+    Times both on the cut (the SVD row feeds the kernels line, with
+    SVD++'s us an update beside it), beside the bound of the same work
+    and a chain of dependent read-modify-writes of one float (the
+    latency of one step)."""
     from reviews4rec_torch.ops import neighbors as sgd_ops
     from reviews4rec_torch.utils.io import load_npz
 
@@ -4373,14 +4544,16 @@ def check_sgd(torch, ds, device) -> dict:
         fit = lambda: sgd_ops.sgd_fit(  # noqa: E731
             *args, {k: v.clone() for k, v in state.items()}, variant, 1, mu,
             lr, 0.02, **kw)
-        got = fit()
+        got, again = fit(), fit()
         want = sgd_ops.sgd_fit_reference(*args, state, variant, 1, mu, lr,
                                          0.02, **kw)
         torch.cuda.synchronize()
         err = max((got[k] - want[k]).abs().max().item() for k in got)
+        same = all(torch.equal(got[k], again[k]) for k in got)
         print(f"neighbors_sgd {variant}, 1 epoch of {SGD_CUT} examples: "
-              f"max|state err| {err:.3e} against the plain version")
-        if not err <= 1e-5:
+              f"max|state err| {err:.3e} against the plain version, two "
+              f"launches bitwise equal {same}")
+        if not (err <= 1e-5 and same):
             raise AssertionError(f"neighbors_sgd disagrees ({variant})")
         res["max_abs_err"] = max(res["max_abs_err"], err)
         ms = _median_ms(torch, fit, n=10, warm=1)
@@ -4400,9 +4573,11 @@ def check_sgd(torch, ds, device) -> dict:
                             bound_by="operations" if t_ops >= t_bytes
                             else "bytes", library_ms=None,
                             us_per_update=1e3 * ms / SGD_CUT)
-        print(f"  {variant}: kernel {ms:.3f} ms ({res[variant]['us_per_update']:.3f}"
+        print(f"  {variant}: kernel {ms:.3f} ms ({res[variant]['us_per_update']:.4f}"
               f" us an update), plain {plain_ms:.1f} ms; bound "
               f"{res[variant]['bound_ms']:.5f} ms ({res[variant]['bound_by']})")
+    res["max_abs_err"] = max(res["max_abs_err"],
+                             check_sgd_cases(torch, device))
     a = torch.zeros(1, device=device)
     n = 100000
     chain = _median_ms(torch, lambda: sgd_ops.rmw_chain(a, n), n=5, warm=1)
@@ -4410,7 +4585,10 @@ def check_sgd(torch, ds, device) -> dict:
     res["latency_bound_ms"] = res["rmw_ns"] * SGD_CUT / 1e6
     print(f"  one dependent read-modify-write of a global float: "
           f"{res['rmw_ns']:.1f} ns; {SGD_CUT} of them: "
-          f"{res['latency_bound_ms']:.4f} ms")
+          f"{res['latency_bound_ms']:.4f} ms; an update takes "
+          + ", ".join(f"{v} {1e3 * res[v]['us_per_update'] / res['rmw_ns']:.2f}"
+                      for v in ("baseline", "SVD", "SVD++"))
+          + " of them")
     return res
 
 
@@ -4793,7 +4971,9 @@ def main(argv=None) -> None:
             "ms": numbers["ms"], "plain_ms": numbers["plain_ms"],
             "bound_ms": numbers["bound_ms"], "bound_by": numbers["bound_by"],
             "library_ms": numbers["library_ms"],
-            "f32_kernel_ms": numbers["f32_kernel_ms"]})
+            "f32_kernel_ms": numbers["f32_kernel_ms"],
+            "device_ms": numbers["device_ms_100"],
+            "f32_device_ms": numbers["f32_device_ms_100"]})
     kernels.append({
         "name": sgd_ops.SGD, "route": "cuda", "source": src.format(sgd_ops.SGD),
         "replaces": "reviews4rec_tpu/models/neighbors.py:51-113",
@@ -4804,6 +4984,8 @@ def main(argv=None) -> None:
                                       "bound_by", "library_ms")},
         "timed_work": f"SVD, 1 epoch of the first {SGD_CUT} train examples",
         "latency_bound_ms": sgd["latency_bound_ms"],
+        "svdpp_us_per_update": sgd["SVD++"]["us_per_update"],
+        "rmw_chain_ns": sgd["rmw_ns"],
         "by_variant": {v: sgd[v] for v in ("baseline", "SVD", "SVD++")}})
     print(card)
     print(json.dumps({"kernels": kernels}))

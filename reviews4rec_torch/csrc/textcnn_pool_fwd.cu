@@ -133,17 +133,46 @@
 // and accumulates in f32. It is not a Pallas kernel there; here it is a
 // kernel of its own, with a body of its own (below the f32 one):
 // - x [B, T, E] and K [W*E, F] are read as bf16, bias in f32; out is f32
-//   and idx int32 with the same first-argmax rule as the f32 kernel.
+//   and idx int32.
 // - One `mma.sync.aligned.m16n8k16` bf16 pass with f32 accumulation per
 //   k-step (a bf16 product is exact in f32), where the f32 body makes
 //   three TF32 passes of half the depth.
-// - Simple and right first: a block per (batch row, filter chunk); K is
-//   staged once per block in shared memory as [filter][W*E16] bf16 (E16 =
-//   E padded to 16 with zeros), so a B fragment is one 32-bit load of two
-//   consecutive k; tiles of 16 starts a warp are filled by plain 16-byte
-//   (E % 8 == 0, aligned x) or 2-byte loads and a barrier, without the
-//   cp.async ring. Row pitches of E16 + 8 and W*E16 + 8 bf16 put the
-//   lanes of a fragment load in 32 distinct banks.
+// - The body: persistent blocks, two an SM and filter chunk, each walking
+//   whole batch rows as one flat sequence of (row, tile) items, so no
+//   row is split across blocks and the first-argmax merge stays inside
+//   the block (lanes by shuffle, warps through a ring stage, the lower
+//   start winning on equal values). A block's 8 warps are 2 filter
+//   groups (7 n8 tiles, 56 filters, each) of 4 warps that take 32 starts
+//   each (two m16 tiles, so each B fragment feeds two mma): tiles of 128
+//   starts. That holds a thread to 128 registers, so two blocks (16
+//   warps) share an SM and one's loads and merges run under the other's
+//   mma. At the serving shape every block takes one row.
+// - x tiles (128 + W - 1 word rows of E16 bf16) in a 3-stage ring filled
+//   by 16-byte `cp.async.cg` copies (zero-fill for the padding words, the
+//   skip span, the E tail and rows past T), so tile it + 2 loads while
+//   tile it runs its mma; E % 8 != 0 (or x not 16-byte aligned) takes
+//   2-byte copies into the same ring. A thread's first (row, chunk) of a
+//   tile and its stride are computed once: no division per copy.
+// - K staged once a block as [w*E16 + e][filter] bf16 by 8-byte
+//   `cp.async` copies along its rows (coalesced, one division a row);
+//   B fragments by `ldmatrix.x4.trans` (two n8 tiles a load; a warp's
+//   7th by `.x2`), A fragments by `ldmatrix.x4` at row offset w of the x tile,
+//   so the W taps share one tile. Row pitches of 8 x an odd number of
+//   bf16 put the 8 rows of each `ldmatrix` in 8 distinct bank groups.
+// - The running max takes the raw window sums: relu(fl(sum + bias))
+//   rises with the sum, so bias and ReLU are applied once a row, to the
+//   max: out is bitwise the max over starts of relu(fl(sum + bias)). idx
+//   is the first start of the largest sum, or 0 where out is 0 (every
+//   start then gives 0). It can differ from the first start reaching out
+//   only where two different sums round to the same value once the bias
+//   is added: a near-tie within an ulp of out.
+// - What it reaches: PERF.md keeps chip_smoke.py's device time a launch
+//   against the bound below. Every warp reloads K's B fragments from
+//   shared memory for each 32 starts it takes, the running max costs
+//   about a third of the mma loop, and blocks spend a sizeable part of
+//   their time before their first mma (the first tiles and K arriving,
+//   all SMs at once). `wgmma` (K read from shared memory by descriptor,
+//   accumulators of 64 starts a warpgroup) is the next step.
 // - Bound at the serving shape (B=256, T=1000, E=64, F=100, W=3): bytes
 //   2*B*T*E + 2*W*E*F + 4*F + 8*B*F = 33.3 MB, 0.0099 ms at 3.35 TB/s;
 //   operations 2*B*(T+W-1)*W*E*F = 9.85 GFLOP, 0.0100 ms at the 989
@@ -596,43 +625,86 @@ int dispatch(const float* x, const int* rows, const float* k, const float* bias,
 // bf16 operands (`textcnn_pool_fwd_bf16`)
 // ---------------------------------------------------------------------
 
-constexpr int kBfMaxNTiles = 13;  // n8 tiles a block: 104 filters
+constexpr int kBfWarpTiles = 7;  // n8 tiles a warp: 56 filters
+constexpr int kBfMaxNTiles = 2 * kBfWarpTiles;  // a block: two filter groups of warps
+constexpr int kBfStages = 3;      // the x ring
+constexpr int kBfMTiles = 2;      // m16 tiles of starts a warp
+constexpr int kBfStartsPerWarp = 16 * kBfMTiles;
+
+// the block's warps: wn() filter groups of wm() warps that take
+// consecutive ranges of starts
+__host__ __device__ constexpr int bf_groups_n(int nt) { return nt > kBfWarpTiles ? 2 : 1; }
 
 __host__ __device__ constexpr int pad16(int e) { return (e + 15) & ~15; }
-// pitches in bf16 elements: 8 past a multiple of 16, so a row is 4 words
-// past a multiple of 8 words and the 8 rows of a fragment hit 8 bank
-// groups of 4
+// pitches in bf16 elements, each 8 x an odd number: a row is then an odd
+// number of 16-byte units, and the 8 rows an `ldmatrix` reads fall in 8
+// distinct 16-byte bank groups
 __host__ __device__ constexpr int bf_x_pitch(int e) { return pad16(e) + 8; }
-__host__ __device__ constexpr int bf_k_pitch(int e, int window) {
-  return window * pad16(e) + 8;
+__host__ __device__ constexpr int bf_k_pitch(int nt) {
+  return bf_groups_n(nt) == 1 ? kBfWarpTiles * 8 : 2 * kBfWarpTiles * 8 + 8;
 }
 
-// bytes of shared memory of one bf16 block: K [nt*8][k pitch], the x
-// tile [warps*16 + W - 1][x pitch], the bias and the warps' merge
+// bytes of one stage of the bf16 x ring: the tile's word rows, or the
+// merge of the warps' (value, start) per filter at a row's end
+__host__ __device__ constexpr size_t bf_stage_bytes(int e, int window, int nt, int warps) {
+  return 2 * (size_t)(warps / bf_groups_n(nt) * kBfStartsPerWarp + window - 1) *
+                     bf_x_pitch(e) >
+                 8 * (size_t)(warps / bf_groups_n(nt)) * nt * 8
+             ? 2 * (size_t)(warps / bf_groups_n(nt) * kBfStartsPerWarp + window - 1) *
+                   bf_x_pitch(e)
+             : 8 * (size_t)(warps / bf_groups_n(nt)) * nt * 8;
+}
+// bytes of K staged as [W*E16][k pitch] bf16: every warp's 7 n-tiles lie
+// inside a row
+__host__ __device__ constexpr size_t bf_k_bytes(int e, int window, int nt) {
+  return 2 * (size_t)window * pad16(e) * bf_k_pitch(nt);
+}
+// bytes of shared memory of one bf16 block: K, the x ring, the bias
 size_t bf_smem_bytes(int e, int window, int nt, int warps) {
-  const size_t kbytes = 2 * (size_t)nt * 8 * bf_k_pitch(e, window);
-  const size_t xbytes = 2 * (size_t)(warps * kStartsPerWarp + window - 1) * bf_x_pitch(e);
-  const size_t merge = 8 * (size_t)warps * nt * 8;
-  return ((kbytes + 15) & ~(size_t)15) + ((xbytes + 15) & ~(size_t)15) + 4 * (size_t)nt * 8 +
-         merge;
+  return ((bf_k_bytes(e, window, nt) + 15) & ~(size_t)15) +
+         kBfStages * ((bf_stage_bytes(e, window, nt, warps) + 15) & ~(size_t)15) +
+         4 * (size_t)nt * 8;
 }
 
 // d += a * b: a 16x16 bf16 (row), b 16x8 bf16 (col), d 16x8 f32
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// four 8x8 bf16 matrices from shared memory, lane l giving row l % 8 of
+// matrix l / 8; .trans hands each lane a column pair instead of a row pair
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes));
 }
 
-// Block: blockDim.x / 32 warps of 16 starts each, batch row blockIdx.x,
-// filters [blockIdx.y * nt * 8, + nt * 8). x and k are bf16 bit patterns.
-__global__ void __launch_bounds__(kMaxWarps * 32)
+// Persistent blocks: grid (blocks, filter chunks), block x walking batch
+// rows x, x + gridDim.x, ... as one flat sequence of (row, tile) items,
+// tiles of warps x 16 window starts. x and k are bf16 bit patterns.
+template <int W>
+__global__ void __launch_bounds__(kMaxWarps * 32, 2)
 textcnn_pool_fwd_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ k,
                              const float* __restrict__ bias, const int* __restrict__ skip,
-                             float* __restrict__ out, int* __restrict__ idx, int T, int E,
-                             int F, int W, int nt, int vec16) {
+                             float* __restrict__ out, int* __restrict__ idx, int B, int T,
+                             int E, int F, int nt, int vec, int kvec) {
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int lane = tid & 31;
@@ -640,114 +712,172 @@ textcnn_pool_fwd_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __r
   const int g = lane >> 2;
   const int tq = lane & 3;
   const int warps = nthreads / 32;
+  const int wgm = warps / bf_groups_n(nt);  // warps a filter group
+  const int wm = warp % wgm;                // this warp's range of starts
+  const int wn = warp / wgm;                // and its filter group
   const int e16 = pad16(E);
-  const int kcs = e16 / 16;  // k-steps per tap
+  const int kcs = e16 / 16;  // k-steps a tap
   const int xp = bf_x_pitch(E);
-  const int kp = bf_k_pitch(E, W);
-  const int starts = warps * kStartsPerWarp;
+  const int kp = bf_k_pitch(nt);
+  const int starts = wgm * kBfStartsPerWarp;  // a tile
   const int tile_rows = starts + W - 1;
   const int t_out = T + W - 1;
+  const int n_tiles = (t_out + starts - 1) / starts;
   const int nf = nt * 8;
   const int f0 = blockIdx.y * nf;
-  const int b = blockIdx.x;
 
   extern __shared__ uint4 smem16[];
-  uint16_t* ks = reinterpret_cast<uint16_t*>(smem16);  // [nf][kp]
-  const size_t kbytes = (2 * (size_t)nf * kp + 15) & ~(size_t)15;
-  uint16_t* xs = reinterpret_cast<uint16_t*>(reinterpret_cast<char*>(smem16) + kbytes);
-  const size_t xbytes = (2 * (size_t)tile_rows * xp + 15) & ~(size_t)15;
-  float* bs = reinterpret_cast<float*>(reinterpret_cast<char*>(xs) + xbytes);  // [nf]
-  float* merge_v = bs + nf;                                                   // [warps][nf]
-  int* merge_i = reinterpret_cast<int*>(merge_v + warps * nf);
+  uint16_t* ks = reinterpret_cast<uint16_t*>(smem16);  // [W*E16][kp]
+  char* ring = reinterpret_cast<char*>(smem16) + ((bf_k_bytes(E, W, nt) + 15) & ~(size_t)15);
+  const size_t stage = (bf_stage_bytes(E, W, nt, warps) + 15) & ~(size_t)15;
+  float* bs = reinterpret_cast<float*>(ring + kBfStages * stage);  // [nf]
 
-  // K transposed to [filter][w*E16 + e], zero past E and F
-  for (int i = tid; i < nf * W * e16; i += nthreads) {
-    const int n = i / (W * e16);
-    const int r = i - n * (W * e16);
+  // K as [w*E16 + e][f]: rows of 4-filter (8-byte) copies, zero past E,
+  // F and the chunk, and the slack past its end
+  for (int r = warp; r < W * e16; r += warps) {
     const int w = r / e16;
     const int e = r - w * e16;
-    const int f = f0 + n;
-    ks[n * kp + r] = e < E && f < F ? k[(size_t)(w * E + e) * F + f] : (uint16_t)0;
+    uint16_t* dst = ks + (size_t)r * kp;
+    if (kvec) {
+      for (int c = 4 * lane; c < kp; c += 128) {
+        const bool ok = e < E && f0 + c < F;
+        cp_async8(dst + c, ok ? k + (size_t)(w * E + e) * F + f0 + c : k, ok ? 8 : 0);
+      }
+    } else {
+      for (int c = lane; c < kp; c += 32) {
+        const bool ok = e < E && f0 + c < F && c < nf;
+        dst[c] = ok ? k[(size_t)(w * E + e) * F + f0 + c] : (uint16_t)0;
+      }
+    }
   }
+  cp_async_commit();
   for (int i = tid; i < nf; i += nthreads) bs[i] = f0 + i < F ? bias[f0 + i] : 0.f;
-  const int lo = skip != nullptr ? skip[2 * b] : 0;
-  const int hi = skip != nullptr ? lo + skip[2 * b + 1] : 0;
-  const uint16_t* xb = x + (size_t)b * T * E;
 
-  float best[kBfMaxNTiles][2];
-  int best_s[kBfMaxNTiles][2];
+  const int nrows = (B - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int items = nrows * n_tiles;
+  // this thread's first (row, chunk) of a tile's copies and its stride,
+  // without a division per copy
+  const int cpr = vec ? e16 / 8 : e16;  // copies a word row: 16 bytes or one bf16
+  const int first_row = tid / cpr, first_c = tid - first_row * cpr;
+  const int dr = nthreads / cpr, dc = nthreads - dr * cpr;
+
+  auto load_tile = [&](int it) {
+    const int r = it / n_tiles;
+    const int tile = it - r * n_tiles;
+    const int b = blockIdx.x + r * gridDim.x;
+    const int lo = skip != nullptr ? skip[2 * b] : 0;
+    const int hi = skip != nullptr ? lo + skip[2 * b + 1] : 0;
+    const uint16_t* xb = x + (size_t)b * T * E;
+    uint16_t* dst = reinterpret_cast<uint16_t*>(ring + (it % kBfStages) * stage);
+    const int word0 = tile * starts - (W - 1);
+    int row = first_row, c = first_c;
+    while (row < tile_rows) {
+      const int word = word0 + row;
+      const bool in = word >= 0 && word < T && (word < lo || word >= hi);
+      if (vec) {
+        const bool ok = in && 8 * c < E;
+        cp_async16(reinterpret_cast<float*>(dst + row * xp + 8 * c),
+                   reinterpret_cast<const float*>(ok ? xb + (size_t)word * E + 8 * c : x),
+                   ok ? 16 : 0);
+      } else {
+        dst[row * xp + c] = in && c < E ? xb[(size_t)word * E + c] : (uint16_t)0;
+      }
+      row += dr;
+      c += dc;
+      if (c >= cpr) {
+        c -= cpr;
+        ++row;
+      }
+    }
+  };
+
 #pragma unroll
-  for (int j = 0; j < kBfMaxNTiles; ++j)
+  for (int st = 0; st < kBfStages - 1; ++st) {
+    if (st < items) load_tile(st);
+    cp_async_commit();
+  }
+
+  float best[kBfWarpTiles][2];
+  int best_s[kBfWarpTiles][2];
+#pragma unroll
+  for (int j = 0; j < kBfWarpTiles; ++j)
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
-      best[j][c] = -1.f;  // every valid start gives relu(.) >= 0
+      best[j][c] = __int_as_float(0xff800000);  // -inf: the raw sums, before bias and ReLU
       best_s[j][c] = 0;
     }
 
-  for (int s0 = 0; s0 < t_out; s0 += starts) {
-    __syncthreads();  // the previous tile is read (and K, bias written)
-    const int word0 = s0 - (W - 1);
-    if (vec16) {
-      const int per_row = e16 / 8;
-      for (int i = tid; i < tile_rows * per_row; i += nthreads) {
-        const int row = i / per_row;
-        const int c = 8 * (i - row * per_row);
-        const int word = word0 + row;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (word >= 0 && word < T && (word < lo || word >= hi) && c < E)
-          v = __ldg(reinterpret_cast<const uint4*>(xb + (size_t)word * E + c));
-        *reinterpret_cast<uint4*>(xs + row * xp + c) = v;
-      }
-    } else {
-      for (int i = tid; i < tile_rows * e16; i += nthreads) {
-        const int row = i / e16;
-        const int c = i - row * e16;
-        const int word = word0 + row;
-        xs[row * xp + c] = word >= 0 && word < T && (word < lo || word >= hi) && c < E
-                               ? xb[(size_t)word * E + c]
-                               : (uint16_t)0;
-      }
-    }
-    __syncthreads();
+  // ldmatrix row addresses: A, row lane % 16 of the warp's 16 starts and
+  // k half lane / 16; B, k row (lane / 8 & 1) * 8 + lane % 8 of the
+  // k-step and n-tile pair half lane / 16
+  const uint32_t ks_base = smem_addr(ks);
+  const uint32_t a_off = 2u * ((wm * kBfStartsPerWarp + (lane & 15)) * xp + (lane >> 4) * 8);
+  const uint32_t b_off = 2u * ((((lane >> 3) & 1) * 8 + (lane & 7)) * kp + (lane >> 4) * 8 +
+                               wn * kBfWarpTiles * 8);
 
-    float acc[kBfMaxNTiles][4];
+  for (int it = 0; it < items; ++it) {
+    cp_async_wait<kBfStages - 2>();  // item it has landed, for this thread
+    __syncthreads();                 // for every thread; item it-1's stage is free
+    if (it + kBfStages - 1 < items) load_tile(it + kBfStages - 1);
+    cp_async_commit();
+
+    const int r = it / n_tiles;
+    const int tile = it - r * n_tiles;
+    char* xt = ring + (it % kBfStages) * stage;
+    const uint32_t xt_base = smem_addr(xt);
+
+    float acc[kBfMTiles][kBfWarpTiles][4];
 #pragma unroll
-    for (int j = 0; j < kBfMaxNTiles; ++j)
+    for (int mt = 0; mt < kBfMTiles; ++mt)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
-    const uint16_t* xw = xs + (size_t)warp * kStartsPerWarp * xp;
+      for (int j = 0; j < kBfWarpTiles; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mt][j][q] = 0.f;
+#pragma unroll
     for (int w = 0; w < W; ++w) {
       for (int kc = 0; kc < kcs; ++kc) {
-        // A: rows w + {g, g+8}, columns kc*16 + 2*tq + {0, 1, 8, 9}
-        const uint16_t* ap = xw + (size_t)(w + g) * xp + kc * 16 + 2 * tq;
-        const uint32_t a0 = *reinterpret_cast<const uint32_t*>(ap);
-        const uint32_t a1 = *reinterpret_cast<const uint32_t*>(ap + 8 * xp);
-        const uint32_t a2 = *reinterpret_cast<const uint32_t*>(ap + 8);
-        const uint32_t a3 = *reinterpret_cast<const uint32_t*>(ap + 8 * xp + 8);
-        // B: k = w*E16 + kc*16 + 2*tq + {0, 1} and + 8, filter 8j + g
-        const uint16_t* bp = ks + (size_t)g * kp + w * e16 + kc * 16 + 2 * tq;
+        // A: the warp's two m16 tiles of starts + w, k = kc*16 ..; the
+        // taps share one tile
+        uint32_t a[kBfMTiles][4];
 #pragma unroll
-        for (int j = 0; j < kBfMaxNTiles; ++j) {
-          if (j < nt) {
-            const uint16_t* bj = bp + (size_t)j * 8 * kp;
-            mma_bf16(acc[j], a0, a1, a2, a3, *reinterpret_cast<const uint32_t*>(bj),
-                     *reinterpret_cast<const uint32_t*>(bj + 8));
+        for (int mt = 0; mt < kBfMTiles; ++mt)
+          ldsm_x4(a[mt], xt_base + a_off + 2u * ((w + 16 * mt) * xp + kc * 16));
+        const uint32_t bk = ks_base + b_off + 2u * ((w * e16 + kc * 16) * kp);
+        // B: the warp's n-tiles 2jp and 2jp + 1 a load, each fragment
+        // feeding both m16 tiles; fixed offsets, no branch on nt (tiles
+        // past nt read finite values that are never used)
+#pragma unroll
+        for (int jp = 0; jp < kBfWarpTiles / 2; ++jp) {
+          uint32_t bq[4];
+          ldsm_x4_trans(bq, bk + 2u * (jp * 16));
+#pragma unroll
+          for (int mt = 0; mt < kBfMTiles; ++mt) {
+            mma_bf16(acc[mt][2 * jp], a[mt], bq[0], bq[1]);
+            mma_bf16(acc[mt][2 * jp + 1], a[mt], bq[2], bq[3]);
           }
         }
+        uint32_t bl[2];
+        ldsm_x2_trans(bl, bk + 2u * ((kBfWarpTiles - 1) * 8));
+#pragma unroll
+        for (int mt = 0; mt < kBfMTiles; ++mt)
+          mma_bf16(acc[mt][kBfWarpTiles - 1], a[mt], bl[0], bl[1]);
       }
     }
 
-    // running max over this thread's starts g and g + 8, in order
+    // running max of the raw sums over this thread's starts g, g + 8,
+    // g + 16, g + 24, in order; relu(fl(sum + bias)) rises with the sum,
+    // so bias and ReLU wait for the row's end
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int s = s0 + warp * kStartsPerWarp + g + 8 * half;
+    for (int h = 0; h < 2 * kBfMTiles; ++h) {
+      const int mt = h >> 1, half = h & 1;
+      const int s = tile * starts + wm * kBfStartsPerWarp + g + 8 * h;
       if (s >= t_out) continue;
 #pragma unroll
-      for (int j = 0; j < kBfMaxNTiles; ++j) {
-        if (j >= nt) continue;
+      for (int j = 0; j < kBfWarpTiles; ++j) {
+        if (wn * kBfWarpTiles + j >= nt) continue;
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          const float v = fmaxf(acc[j][2 * half + c] + bs[8 * j + 2 * tq + c], 0.f);
+          const float v = acc[mt][j][2 * half + c];
           if (v > best[j][c]) {
             best[j][c] = v;
             best_s[j][c] = s;
@@ -755,49 +885,64 @@ textcnn_pool_fwd_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __r
         }
       }
     }
-  }
 
-  // merge the 8 lanes of each column, then the warps, the lower start
-  // winning on equal values
+    if (tile != n_tiles - 1) continue;
+
+    // end of batch row: merge the 8 lanes of each column, then the warps
+    // in this tile's stage, once every warp is done reading it; the lower
+    // start wins on equal values
+    __syncthreads();
+    float* merge_v = reinterpret_cast<float*>(xt);  // [wgm][nf]
+    int* merge_i = reinterpret_cast<int*>(merge_v + wgm * nf);
 #pragma unroll
-  for (int j = 0; j < kBfMaxNTiles; ++j) {
-    if (j < nt) {
+    for (int j = 0; j < kBfWarpTiles; ++j) {
+      const int jn = wn * kBfWarpTiles + j;  // the block's n-tile
+      if (jn < nt) {
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        float v = best[j][c];
-        int s = best_s[j][c];
+        for (int c = 0; c < 2; ++c) {
+          float v = best[j][c];
+          int s = best_s[j][c];
 #pragma unroll
-        for (int off = 4; off < 32; off <<= 1) {
-          const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-          const int os = __shfl_xor_sync(0xffffffffu, s, off);
-          if (ov > v || (ov == v && os < s)) {
-            v = ov;
-            s = os;
+          for (int off = 4; off < 32; off <<= 1) {
+            const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+            const int os = __shfl_xor_sync(0xffffffffu, s, off);
+            if (ov > v || (ov == v && os < s)) {
+              v = ov;
+              s = os;
+            }
           }
-        }
-        if (g == 0) {
-          merge_v[warp * nf + 8 * j + 2 * tq + c] = v;
-          merge_i[warp * nf + 8 * j + 2 * tq + c] = s;
+          if (g == 0) {
+            merge_v[wm * nf + 8 * jn + 2 * tq + c] = v;
+            merge_i[wm * nf + 8 * jn + 2 * tq + c] = s;
+          }
+          best[j][c] = __int_as_float(0xff800000);
+          best_s[j][c] = 0;
         }
       }
     }
-  }
-  __syncthreads();
-  for (int col = tid; col < nf; col += nthreads) {
-    const int f = f0 + col;
-    if (f >= F) continue;
-    float v = merge_v[col];
-    int s = merge_i[col];
-    for (int ow = 1; ow < warps; ++ow) {
-      const float ov = merge_v[ow * nf + col];
-      const int os = merge_i[ow * nf + col];
-      if (ov > v || (ov == v && os < s)) {
-        v = ov;
-        s = os;
+    __syncthreads();
+    const int b = blockIdx.x + r * gridDim.x;
+    for (int col = tid; col < nf; col += nthreads) {
+      const int f = f0 + col;
+      if (f >= F) continue;
+      float v = merge_v[col];
+      int s = merge_i[col];
+      for (int ow = 1; ow < wgm; ++ow) {
+        const float ov = merge_v[ow * nf + col];
+        const int os = merge_i[ow * nf + col];
+        if (ov > v || (ov == v && os < s)) {
+          v = ov;
+          s = os;
+        }
       }
+      // out = relu(fl(max sum + bias)), the max over starts of
+      // relu(fl(sum + bias)); where it is 0 every start gives 0 and the
+      // first start wins
+      const float o = fmaxf(v + bs[col], 0.f);
+      out[(size_t)b * F + f] = o;
+      idx[(size_t)b * F + f] = o > 0.f ? s : 0;
     }
-    out[(size_t)b * F + f] = v;
-    idx[(size_t)b * F + f] = s;
+    // the next copies into this stage follow the next item's barrier
   }
 }
 
@@ -808,35 +953,57 @@ Config choose_bf16(int E, int F, int W, int max_smem) {
   for (int warps = kMaxWarps; warps >= 1; warps /= 2)
     for (int chunks = 1; chunks <= total; ++chunks) {
       const int nt = (total + chunks - 1) / chunks;
-      if (nt > kBfMaxNTiles) continue;
+      if (nt > kBfMaxNTiles || warps < bf_groups_n(nt)) continue;
       const size_t smem = bf_smem_bytes(E, W, nt, warps);
       if (smem <= (size_t)max_smem) return {warps, nt, (total + nt - 1) / nt, smem};
     }
   return {1, 0, 0, bf_smem_bytes(E, W, 1, 1)};
 }
 
+template <int W>
 int launch_bf16(const uint16_t* x, const uint16_t* k, const float* bias, const int* skip,
-                float* out, int* idx, int B, int T, int E, int F, int W, cudaStream_t stream) {
-  if (B <= 0 || T <= 0 || E <= 0 || F <= 0 || W < 1 || W > kMaxWindow || B > 0x7fffffff)
-    return (int)cudaErrorInvalidValue;
-  int dev = 0, max_smem = 0;
+                float* out, int* idx, int B, int T, int E, int F, cudaStream_t stream) {
+  int dev = 0, max_smem = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   const Config cfg = choose_bf16(E, F, W, max_smem);
   if (cfg.nt == 0 || cfg.chunks > 65535) return (int)cudaErrorInvalidConfiguration;
   static size_t smem_set = 0;
   if (cfg.smem > smem_set) {
-    err = cudaFuncSetAttribute(textcnn_pool_fwd_bf16_kernel,
+    err = cudaFuncSetAttribute(textcnn_pool_fwd_bf16_kernel<W>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cfg.smem);
     if (err != cudaSuccess) return (int)err;
     smem_set = cfg.smem;
   }
-  const int vec16 = E % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  textcnn_pool_fwd_bf16_kernel<<<dim3(B, cfg.chunks), cfg.warps * 32, cfg.smem, stream>>>(
-      x, k, bias, skip, out, idx, T, E, F, W, cfg.nt, vec16);
+  // two persistent blocks per SM and filter chunk
+  int blocks = 2 * sms / cfg.chunks;
+  blocks = blocks < 1 ? 1 : (blocks > B ? B : blocks);
+  const int vec = E % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int kvec = F % 4 == 0 && reinterpret_cast<uintptr_t>(k) % 8 == 0;
+  textcnn_pool_fwd_bf16_kernel<W><<<dim3(blocks, cfg.chunks), cfg.warps * 32, cfg.smem,
+                                    stream>>>(x, k, bias, skip, out, idx, B, T, E, F, cfg.nt,
+                                              vec, kvec);
   return (int)cudaGetLastError();
+}
+
+int dispatch_bf16(const uint16_t* x, const uint16_t* k, const float* bias, const int* skip,
+                  float* out, int* idx, int B, int T, int E, int F, int W,
+                  cudaStream_t stream) {
+  if (B <= 0 || T <= 0 || E <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
+  switch (W) {
+    case 1: return launch_bf16<1>(x, k, bias, skip, out, idx, B, T, E, F, stream);
+    case 2: return launch_bf16<2>(x, k, bias, skip, out, idx, B, T, E, F, stream);
+    case 3: return launch_bf16<3>(x, k, bias, skip, out, idx, B, T, E, F, stream);
+    case 4: return launch_bf16<4>(x, k, bias, skip, out, idx, B, T, E, F, stream);
+    case 5: return launch_bf16<5>(x, k, bias, skip, out, idx, B, T, E, F, stream);
+    case 6: return launch_bf16<6>(x, k, bias, skip, out, idx, B, T, E, F, stream);
+    case 7: return launch_bf16<7>(x, k, bias, skip, out, idx, B, T, E, F, stream);
+    case 8: return launch_bf16<8>(x, k, bias, skip, out, idx, B, T, E, F, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -885,8 +1052,8 @@ int textcnn_pool_fwd_ids_f32(const float* table, const int* ids, const float* k,
 int textcnn_pool_fwd_bf16(const void* x, const void* k, const float* bias, const int* skip,
                           float* out, int* idx, int B, int T, int E, int F, int W,
                           void* stream) {
-  return launch_bf16(static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(k), bias,
-                     skip, out, idx, B, T, E, F, W, static_cast<cudaStream_t>(stream));
+  return dispatch_bf16(static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(k), bias,
+                       skip, out, idx, B, T, E, F, W, static_cast<cudaStream_t>(stream));
 }
 
 // The least shared memory a bf16 block needs at this E and W.

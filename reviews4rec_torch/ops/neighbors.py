@@ -10,6 +10,10 @@ over the train stream there).
   `csrc/neighbors_sgd.cu` for the whole fit (adds one to
   `launches[SGD]`). The state dict is updated in place on the card and
   returned; the plain version works on clones.
+- `slot_table`: SVD++'s lists as (item, mult) slots, built once a fit;
+  both versions apply the y updates through it (`pack_slots`: the
+  kernel's packed form, with each example's list count).
+- `placement`: the state arrays the kernel keeps in shared memory.
 - `rmw_chain`: a yardstick, n dependent read-modify-writes of one float
   on the card (the latency that bounds the recurrence).
 
@@ -22,7 +26,7 @@ f32 (the pad slots past the count are skipped).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -33,6 +37,17 @@ VARIANTS = {"baseline": 0, "SVD": 1, "SVD++": 2}
 KEYS = {"baseline": ("bu", "bi"), "SVD": ("bu", "bi", "p", "q"),
         "SVD++": ("bu", "bi", "p", "q", "y")}
 MAX_FACTORS = 128
+# the arrays the kernel may keep in shared memory, in the order the host
+# places them (the most read first), and their bits in its `smem_mask`
+PLACE_ORDER = ("y", "q", "bi", "bu", "p")
+PLACE_BITS = {"bu": 1, "bi": 2, "p": 4, "q": 8, "y": 16}
+# the bytes of shared memory the state may take on an H100: its opt-in
+# 232,448 a block less the kernel's 2,048 for SVD++'s partial sums (what
+# `neighbors_sgd_smem_limit` gives there); the default budget
+H100_SMEM_BUDGET = 232448 - 2048
+# the kernel packs a slot as item | mult << 24 in an int32
+ITEM_LIMIT = 1 << 24
+MULT_LIMIT = 1 << 7
 
 # kernel launches since the count was last set to 0
 launches: Dict[str, int] = {SGD: 0}
@@ -53,10 +68,19 @@ def sgd_fit_reference(users: torch.Tensor, items: torch.Tensor,
     lr_t = torch.tensor(lr, dtype=f32, device=dev)
     reg_t = torch.tensor(reg, dtype=f32, device=dev)
     uu, ii = users.tolist(), items.tolist()
-    lists = counts = None
+    lists = firsts = None
     if variant == "SVD++":
-        counts = [int(c) for c in rated_count.tolist()]
-        lists = [rated_pad[u, :c].long() for u, c in enumerate(counts)]
+        table = slot_table(rated_pad, rated_count)
+        counts = rated_count.tolist()
+        lists, firsts = {}, {}
+        # per user of the stream: the list, and the first slot of each
+        # item with its item and multiplicity
+        for u in set(uu):
+            c = int(counts[u])
+            lists[u] = rated_pad[u, :c].long()
+            mult = table[u, :c, 1].long()
+            first = (mult > 0).nonzero().flatten()
+            firsts[u] = (first, table[u, first, 0].long(), mult[first])
     for _ in range(epochs):
         for n, (u, i) in enumerate(zip(uu, ii)):
             r = ratings[n]
@@ -82,17 +106,111 @@ def sgd_fit_reference(users: torch.Tensor, items: torch.Tensor,
                 st["p"][u] = pu + lr_t * (err * qi - reg_t * pu)
                 st["q"][i] = qi + lr_t * (err * (pu + imp) - reg_t * qi)
                 upd = lr_t * (err * sq * qi - reg_t * yj)
-                st["y"].index_add_(0, its, upd)
+                first, fitems, mult = firsts[u]
+                # an item listed m times: m equal updates, one after
+                # another (the items of one pass are distinct)
+                for rep in range(int(mult.max()) if len(mult) else 0):
+                    sel = mult > rep
+                    st["y"].index_add_(0, fitems[sel], upd[first[sel]])
     return st
+
+
+def slot_table(rated_pad: torch.Tensor, rated_count: torch.Tensor
+               ) -> torch.Tensor:
+    """[U, max_items, 2] int32 (item, mult) on the device of `rated_pad`:
+    the item of each slot, and at the first slot of an item among a
+    user's first `rated_count` slots its count there (0 at its later
+    slots and at the pad slots). JAX's `.at[items_u].add` gives an item
+    listed m times m updates; the kernel adds them at the first slot."""
+    U, width = rated_pad.shape
+    dev = rated_pad.device
+    pad = rated_pad.long()
+    valid = (torch.arange(width, device=dev)[None, :]
+             < rated_count.to(dev)[:, None])
+    # a stable sort puts each item's slots together, its first slot first;
+    # the pad slots sort last as one run of their own
+    key = torch.where(valid, pad, torch.full_like(pad, torch.iinfo(
+        torch.int64).max))
+    srt, order = torch.sort(key, dim=1, stable=True)
+    start = torch.ones_like(srt, dtype=torch.bool)
+    start[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    run = torch.cumsum(start.long(), dim=1) - 1
+    length = torch.zeros_like(srt).scatter_add_(1, run, torch.ones_like(srt))
+    mult_sorted = torch.where(start, length.gather(1, run),
+                              torch.zeros_like(srt))
+    mult = torch.zeros_like(srt).scatter_(1, order, mult_sorted)
+    mult = torch.where(valid, mult, torch.zeros_like(mult))
+    return torch.stack((pad, mult), dim=-1).to(torch.int32).contiguous()
+
+
+def state_bytes(name: str, num_users: int, num_items: int, k: int) -> int:
+    """Bytes of one state array in the kernel's shared memory (16-byte
+    aligned), as the kernel's `placed_bytes` counts them."""
+    rows = num_users if name in ("bu", "p") else num_items
+    cols = k if name in ("p", "q", "y") else 1
+    return (4 * rows * cols + 15) // 16 * 16
+
+
+def placement(variant: str, num_users: int, num_items: int, k: int,
+              budget: int = H100_SMEM_BUDGET) -> Tuple[str, ...]:
+    """The state arrays of `variant` the kernel keeps in shared memory:
+    in `PLACE_ORDER`, each that still fits in `budget` bytes (the card's
+    shared memory the state may take); the rest stay in global memory."""
+    placed, left = [], budget
+    for name in PLACE_ORDER:
+        if name not in KEYS[variant]:
+            continue
+        need = state_bytes(name, num_users, num_items, k)
+        if need <= left:
+            placed.append(name)
+            left -= need
+    return tuple(placed)
+
+
+def slot_step(k: int) -> int:
+    """The multiple the kernel's SVD++ slot table's width must be at K
+    factors: its slot groups (4 warps x 32 lanes over K rounded up to a
+    power of two, at most 32 lanes a row) x the slots a lane skips
+    together (4, 2 or 1 as a lane owns 1, 2 or 4 factors)."""
+    lanes = 1
+    while lanes < min(k, 32):
+        lanes *= 2
+    return 4 * 32 // lanes * (4 if k <= 32 else 2 if k <= 64 else 1)
+
+
+def pack_slots(table: torch.Tensor, rated_count: torch.Tensor,
+               users: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's form of `slot_table`: (slots [U, width] int32 of item
+    | mult << 24, width the longest list rounded up to a multiple of
+    `slot_step(k)`; meta [n] int32 of each example's list count, bit 30
+    set where the list repeats an item)."""
+    U, longest = table.shape[:2]
+    if table.shape[0] and int(table[..., 0].max()) >= ITEM_LIMIT:
+        raise ValueError(f"the kernel takes item ids below {ITEM_LIMIT}")
+    mult = table[..., 1]
+    if table.numel() and int(mult.max()) >= MULT_LIMIT:
+        raise ValueError(f"the kernel takes an item at most "
+                         f"{MULT_LIMIT - 1} times in a list")
+    step = slot_step(k)
+    width = -(-max(longest, 1) // step) * step
+    packed = torch.zeros(U, width, dtype=torch.int32, device=table.device)
+    packed[:, :longest] = table[..., 0] | (mult << 24)
+    rep = (mult > 1).any(dim=1).to(torch.int32)
+    cnt = rated_count.to(table.device).to(torch.int32)
+    meta = (cnt | (rep << 30))[users.long()]
+    return packed.contiguous(), meta.contiguous()
 
 
 def _library() -> ctypes.CDLL:
     lib = _build.load(SGD)
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.neighbors_sgd_fit.argtypes = ([p, p, p, i] + [p] * 7 + [i, p]
-                                          + [i, i, i, f, f, f, p])
+        lib.neighbors_sgd_fit.argtypes = ([p] * 5 + [i] + [p] * 6
+                                          + [i] * 6 + [f, f, f, i, p])
         lib.neighbors_sgd_fit.restype = i
+        lib.neighbors_sgd_smem_limit.argtypes = [ctypes.POINTER(i)]
+        lib.neighbors_sgd_smem_limit.restype = i
         lib.neighbors_sgd_rmw_chain.argtypes = [p, i, p]
         lib.neighbors_sgd_rmw_chain.restype = i
         lib.neighbors_sgd_error_string.argtypes = [i]
@@ -147,25 +265,56 @@ def sgd_fit(users: torch.Tensor, items: torch.Tensor, ratings: torch.Tensor,
         _check(name, ten, dtype, dev)
     for key in KEYS[variant]:
         _check(key, state[key], torch.float32, dev)
+    U, I = state["bu"].shape[0], state["bi"].shape[0]
     k = state["p"].shape[1] if "p" in state else 0
+    want = {"bu": (U,), "bi": (I,), "p": (U, k), "q": (I, k), "y": (I, k)}
+    for key in KEYS[variant]:
+        if tuple(state[key].shape) != want[key]:
+            raise ValueError(f"{key} must be {want[key]}, got "
+                             f"{tuple(state[key].shape)}")
+    if variant == "SVD++" and (rated_pad.dim() != 2
+                               or rated_pad.shape[0] != U
+                               or tuple(rated_count.shape) != (U,)):
+        raise ValueError(f"rated_pad must be [{U}, max_items] and "
+                         f"rated_count [{U}], got {tuple(rated_pad.shape)}, "
+                         f"{tuple(rated_count.shape)}")
     if k > MAX_FACTORS:
         raise ValueError(f"the kernel takes at most {MAX_FACTORS} factors, "
                          f"got {k}")
-    max_items = rated_pad.shape[1] if variant == "SVD++" else 0
-    scratch = (torch.empty(max_items * k, dtype=torch.float32, device=dev)
-               if variant == "SVD++" else None)
+    lim = 2 ** 31 - 64  # the kernel's indices are 32-bit
+    if max(n * epochs, U * k, I * k) >= lim:
+        raise ValueError(f"the kernel takes epochs * n, U * K and I * K "
+                         f"below {lim}, got {epochs} x {n}, {U} x {k}, "
+                         f"{I} x {k}")
+    slots = meta = sqs = None
+    width = 0
+    if variant == "SVD++":
+        slots, meta = pack_slots(slot_table(rated_pad, rated_count),
+                                 rated_count, users, k)
+        # each example's |I_u|^-1/2, as the plain version computes it
+        sqs = torch.rsqrt(torch.clamp(rated_count, min=1.0))[users.long()]
+        width = slots.shape[1]
+        if U * width >= lim:
+            raise ValueError(f"the kernel takes U * width below {lim}, got "
+                             f"{U} x {width}")
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
     lib = _library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.neighbors_sgd_fit(
-            ptr(users), ptr(items), ptr(ratings), n, ptr(state["bu"]),
-            ptr(state["bi"]), ptr(state.get("p")), ptr(state.get("q")),
-            ptr(state.get("y")), ptr(rated_pad), ptr(rated_count), max_items,
-            ptr(scratch), k, epochs, VARIANTS[variant], mu, lr, reg, stream)
+        limit = ctypes.c_int(0)
+        err = lib.neighbors_sgd_smem_limit(ctypes.byref(limit))
+        if err == 0:
+            mask = sum(PLACE_BITS[name] for name in
+                       placement(variant, U, I, k, limit.value))
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.neighbors_sgd_fit(
+                ptr(users), ptr(items), ptr(ratings), ptr(meta), ptr(sqs), n,
+                ptr(state["bu"]), ptr(state["bi"]), ptr(state.get("p")),
+                ptr(state.get("q")), ptr(state.get("y")), ptr(slots), U, I,
+                width, k, epochs, VARIANTS[variant], mu, lr, reg, mask,
+                stream)
     if err != 0:
         raise RuntimeError(f"{SGD} launch failed ({variant}, n={n}, K={k}): "
                            f"{lib.neighbors_sgd_error_string(err).decode()}")

@@ -115,6 +115,118 @@ def test_svdpp_duplicate_items_add_twice():
     np.testing.assert_array_equal(state["y"].numpy(), y0.numpy())
 
 
+def test_slot_table_marks_first_slots_with_their_count():
+    """(item, mult): an item's count among the user's first `cnt` slots at
+    its first slot, 0 at its later slots and at the pad slots (also where
+    a pad slot repeats a counted item)."""
+    pad = torch.tensor([[2, 2, 0, 5, 2, 0], [1, 3, 4, 0, 0, 0],
+                        [7, 7, 7, 7, 0, 0], [0, 0, 0, 0, 0, 0]],
+                       dtype=torch.int32)
+    cnt = torch.tensor([5.0, 3.0, 3.0, 0.0])
+    got = sgd_ops.slot_table(pad, cnt)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (4, 6, 2)
+    np.testing.assert_array_equal(got[..., 0].numpy(), pad.numpy())
+    np.testing.assert_array_equal(got[..., 1].numpy(), [
+        [3, 0, 1, 1, 0, 0], [1, 1, 1, 0, 0, 0], [3, 0, 0, 0, 0, 0],
+        [0, 0, 0, 0, 0, 0]])
+
+
+@pytest.mark.parametrize("k,step", [(1, 512), (6, 64), (10, 32), (32, 16),
+                                    (64, 8), (128, 4)])
+def test_pack_slots_for_the_kernel(k, step):
+    """The kernel's packed slots: item | mult << 24 in a table whose width
+    is the longest list rounded up to `slot_step(K)` slots (4 warps of
+    slot groups x the slots a lane skips together), and each example's
+    list count with bit 30 set where the list repeats an item."""
+    pad = torch.tensor([[2, 2, 0, 5, 2, 0], [1, 3, 4, 0, 0, 0],
+                        [7, 9, 8, 7, 0, 0]], dtype=torch.int32)
+    cnt = torch.tensor([5.0, 3.0, 3.0])
+    users = torch.tensor([2, 0, 1, 1, 0], dtype=torch.int32)
+    table = sgd_ops.slot_table(pad, cnt)
+    slots, meta = sgd_ops.pack_slots(table, cnt, users, k)
+    assert slots.dtype == meta.dtype == torch.int32
+    assert sgd_ops.slot_step(k) == step
+    assert slots.shape == (3, -(-6 // step) * step)
+    np.testing.assert_array_equal((slots[:, :6] & 0xffffff).numpy(),
+                                  pad.numpy())
+    np.testing.assert_array_equal((slots[:, :6] >> 24).numpy(),
+                                  table[..., 1].numpy())
+    assert int(slots[:, 6:].abs().sum()) == 0
+    # user 0 repeats item 2 among its first 5; user 2 repeats 7 only past
+    # its count of 3
+    np.testing.assert_array_equal(meta.numpy(), [3, 5 | 1 << 30, 3, 3,
+                                                 5 | 1 << 30])
+
+
+def _duplicate_lists(k, seed):
+    """A small SGD problem whose users list items more than once: user 0
+    lists item 3 twice, user 1 item 2 three times, user 4 one item five
+    times; JAX's init for `k` factors and a stream of 60 examples."""
+    rng = np.random.default_rng(seed)
+    U, I = 6, 9
+    lists = [[3, 5, 3], [2, 7, 2, 8, 2], [1], [0, 4, 6, 8, 1, 2],
+             [5, 5, 5, 5, 5, 0], [8, 3]]
+    width = max(len(x) for x in lists) + 2
+    pad = np.zeros((U, width), np.int32)
+    for u, x in enumerate(lists):
+        pad[u, :len(x)] = x
+    cnt = np.array([len(x) for x in lists], np.float32)
+    users = rng.integers(0, U, 60).astype(np.int32)
+    items = rng.integers(0, I, 60).astype(np.int32)
+    ratings = rng.integers(1, 6, 60).astype(np.float32)
+    return U, I, pad, cnt, users, items, ratings, jax_init("SVD++", seed, U,
+                                                           I, k)
+
+
+@pytest.mark.parametrize("k", [1, 4, 10])
+def test_svdpp_duplicate_lists_match_jax(k):
+    """The plain version, which applies the y updates through
+    `slot_table` (each item once, at its first slot, mult times), against
+    JAX's `_sgd_fit` over padded lists with repeated items: 4 epochs,
+    state within 1e-5."""
+    U, I, pad, cnt, users, items, ratings, init = _duplicate_lists(k, k)
+    mu = float(ratings.mean())
+    want = jax_nb._sgd_fit(jax.numpy.asarray(users), jax.numpy.asarray(items),
+                           jax.numpy.asarray(ratings), U, I, mu, epochs=4,
+                           variant="SVD++", factors=k, lr=0.007, reg=0.02,
+                           seed=k, rated_pad=jax.numpy.asarray(pad),
+                           rated_count=jax.numpy.asarray(cnt))
+    state = {key: torch.from_numpy(np.array(init[key]))
+             for key in sgd_ops.KEYS["SVD++"]}
+    got = sgd_ops.sgd_fit(torch.from_numpy(users), torch.from_numpy(items),
+                          torch.from_numpy(ratings), state, "SVD++", 4, mu,
+                          0.007, 0.02, torch.from_numpy(pad),
+                          torch.from_numpy(cnt))
+    for key in want:
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   atol=1e-5, err_msg=key)
+
+
+@pytest.mark.parametrize("variant,users,items,k,budget,expect", [
+    # the e2e corpus: SVD++'s whole state (237 KB) is over the H100's
+    # 225 KB left for state, so p stays global; SVD's (177 KB) and
+    # baseline's fit
+    ("SVD++", 2500, 1515, 10, None, ("y", "q", "bi", "bu")),
+    ("SVD", 2500, 1515, 10, None, ("q", "bi", "bu", "p")),
+    ("baseline", 2500, 1515, 0, None, ("bi", "bu")),
+    # 10^5 users: the user arrays stay global, the item arrays fit
+    ("SVD++", 100000, 1515, 10, None, ("y", "q", "bi")),
+    ("SVD", 100000, 1515, 10, None, ("q", "bi")),
+    ("baseline", 100000, 1515, 0, None, ("bi",)),
+    # and as many items: nothing fits, the kernel runs on global memory
+    ("SVD++", 100000, 100000, 10, None, ()),
+    # a smaller card: y alone, then q skipped but bi and bu taken
+    ("SVD++", 2500, 1515, 10, 70000, ("y", "bi")),
+])
+def test_placement_in_shared_memory(variant, users, items, k, budget,
+                                    expect):
+    kw = {} if budget is None else {"budget": budget}
+    got = sgd_ops.placement(variant, users, items, k, **kw)
+    assert got == expect
+    used = sum(sgd_ops.state_bytes(n, users, items, k) for n in got)
+    assert used <= (budget or sgd_ops.H100_SMEM_BUDGET)
+
+
 def test_nmf_matches_jax(dataset, port_dataset):
     U, I = dataset.num_users, dataset.num_items
     p, q = jax_nb._nmf_fit(*jax_nb._train_arrays(dataset), U, I, epochs=50,
