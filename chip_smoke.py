@@ -142,8 +142,25 @@
    `hft_ref.npz`, and in float32 (first value within 1e-6, decreasing,
    last within 1e-2: the f32 runs part after a few iterations), and 4
    EM iterations with test MSE below the offset+bias anchor (`hft`).
-18. Prints the card, one JSON line of kernel numbers and, last, the
+18. The command lines and the data layer (`cli`), in `build/cli_smoke/`
+   (removed at the end): a 20k-interaction dump of
+   `examples/e2e_realistic.py` through `python -m
+   reviews4rec_torch.data.preprocess` (in process, SGNS 3 epochs by the
+   torch backend on the card), every array of its corpus but the word
+   vectors bitwise JAX's (sha256 in `tests/torch_fixtures/prep_ref.npz`),
+   with the seconds of each stage and of the numpy SGNS backend on the
+   host; `_train_sgns_torch` on JAX's own draws of the fixture's small
+   case within 1e-4 of `_train_sgns_jax`, twice; `python -m
+   reviews4rec_torch` (in process) training deepconn at B=256, T=1000 1
+   epoch on the e2e corpus on the entity cache with `pallas_fuse_rows`
+   at `scan_steps` 10 (the rows kernels), then with the fused gather out
+   of core (the ids kernels, the native materializer writing the
+   store), each run's MSE, HR@1 and HR@10 within 1e-6 of `api.run`'s on
+   the same HyperParams (the second in RAM); the native materializer's
+   train split at T=1000 bitwise the numpy one's, both timed.
+19. Prints the card, one JSON line of kernel numbers and, last, the
    result line. Any failed check raises and the exit code is not 0.
+   Each phase prints the seconds since the start as it begins.
 
 The kernel launch counts are set to 0 just before each path (serving,
 3; training, 5; input gradient, 6; entity training against JAX, entity
@@ -152,7 +169,7 @@ review training and the review entity cache, 8; id-model serving and
 training, 9; the factorized index, 10; the fused gather's serving and
 training, 11; the scan groups, 12; MPCN serving and training, 13; each
 ranking case, 14; bf16 serving and steps, 15; the neighborhood fits,
-16) and read just after. A CUDA-graph
+16; each of the two CLI training runs, 18) and read just after. A CUDA-graph
 replay adds the launches counted while its group was captured.
 Without CUDA or the checkout around it, the script exits with an error
 and prints no result.
@@ -215,6 +232,18 @@ BF16_FIXTURE = ROOT / "tests" / "torch_fixtures" / "bf16_ref.npz"
 NEIGHBORS_FIXTURE = ROOT / "tests" / "torch_fixtures" / "neighbors_ref.npz"
 HFT_FIXTURE = ROOT / "tests" / "torch_fixtures" / "hft_ref.npz"
 E2E_STATE = ROOT / "data" / "e2e_state.json"
+# the `cli` phase: the sha256 of JAX's corpus of a 20k dump and a small
+# `_train_sgns_jax` case with its draws (make_prep_ref.py); its scratch
+# directory; the dump's size, SGNS epochs and the cut the numpy SGNS
+# backend is timed on; the SGNS body's bound against JAX (index_add_ on
+# CUDA adds in no fixed order) and the CLI metrics' against api.run
+PREP_FIXTURE = ROOT / "tests" / "torch_fixtures" / "prep_ref.npz"
+CLI_DIR = ROOT / "build" / "cli_smoke"
+PREP_DUMP = 20000
+PREP_W2V_EPOCHS = 3
+PREP_NUMPY_CUT = 8
+SGNS_TOL = 1e-4
+CLI_TOL = 1e-6
 MODELS = ("deepconn", "deepconn++")
 REVIEW_MODELS = ("NARRE", "transnet", "transnet++")
 MF_MODELS = ("bias_only", "MF_dot", "MF", "GMF", "MLP", "NeuMF")
@@ -271,7 +300,7 @@ PHASES = ("kernels", "rows", "serve", "train", "input_grad",
           "entity_vs_jax", "entity_train", "entity_serve", "review_serve",
           "review_train", "review_entity", "mf_serve", "mf_train",
           "factorized", "embed", "embed_train", "scan", "mpcn_serve",
-          "mpcn_train", "rank_train", "bf16", "neighbors", "hft")
+          "mpcn_train", "rank_train", "bf16", "neighbors", "hft", "cli")
 # untrained deepconn's test MSE on the e2e corpus (e2e_ref.npz): two
 # epochs of training must land below it
 UNTRAINED_MSE = 1.524
@@ -4756,6 +4785,272 @@ def hft_phase(torch, ds, device) -> None:
         raise AssertionError("HFT's test MSE is not below its anchor")
 
 
+# ---------------------------------------------------------------------
+# the command lines and the data layer (`cli`)
+# ---------------------------------------------------------------------
+def _digest(a) -> str:
+    import numpy as np
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def cli_preprocess(torch, device) -> None:
+    """(a) A 20k-interaction dump of `examples/e2e_realistic.py` through
+    the port's preprocessing CLI with the torch SGNS backend on the card:
+    every array of its corpus but `word_vectors` bitwise JAX's (sha256
+    in `prep_ref.npz`), `word_vectors` of JAX's shape and dtype, finite,
+    UNK row 0. Prints the seconds of each stage, and the numpy backend's
+    on the host beside the card's on the same cut of the pairs."""
+    import numpy as np
+
+    from examples.e2e_realistic import generate_dump
+    from reviews4rec_torch.data import preprocess as pp
+
+    ref = np.load(PREP_FIXTURE)
+    dump = CLI_DIR / "dump.json"
+    t0 = time.perf_counter()
+    generate_dump(str(dump), PREP_DUMP, seed=0)
+    gen_s = time.perf_counter() - t0
+    seen = {}
+    sgns = pp.train_word2vec
+
+    def timed_sgns(*args, **kw):
+        t = time.perf_counter()
+        out = sgns(*args, **kw)
+        seen["s"], seen["call"] = time.perf_counter() - t, (args, kw)
+        return out
+
+    pp.train_word2vec = timed_sgns
+    try:
+        t0 = time.perf_counter()
+        pp.main(["e2e20k", str(dump), "--out", str(CLI_DIR / "prep"),
+                 "--w2v-epochs", str(PREP_W2V_EPOCHS), "--w2v-backend",
+                 "torch"])
+        total = time.perf_counter() - t0
+    finally:
+        pp.train_word2vec = sgns
+    with np.load(CLI_DIR / "prep" / "e2e20k" / "5_core" / "corpus.npz") as f:
+        got = {k: f[k] for k in f.files}
+    names = [str(n) for n in ref["corpus_names"]]
+    if sorted(got) != names:
+        raise AssertionError(f"corpus arrays {sorted(got)}, JAX's {names}")
+    bad = []
+    for name, sha, shape, dt in zip(names, ref["corpus_sha256"],
+                                    ref["corpus_shapes"],
+                                    ref["corpus_dtypes"]):
+        a = got[name]
+        if (",".join(map(str, a.shape)) != str(shape) or a.dtype.str != dt
+                or (name != "word_vectors" and _digest(a) != str(sha))):
+            bad.append(name)
+    wv = got["word_vectors"]
+    if bad or not (np.isfinite(wv).all() and not wv[0].any()):
+        raise AssertionError(f"preprocessed arrays differ from JAX's: "
+                             f"{bad or 'word_vectors'}")
+    # the host loop on a cut of the same train texts, 1 epoch, beside
+    # the card's on that cut
+    args, kw = seen["call"]
+    cut = list(args[0][:len(args[0]) // PREP_NUMPY_CUT])
+    secs = {}
+    for backend in ("numpy", "torch"):
+        t0 = time.perf_counter()
+        sgns(cut, args[1], epochs=1, seed=0, backend=backend,
+             device=device)
+        secs[backend] = time.perf_counter() - t0
+    print(f"cli preprocess: dump of {PREP_DUMP} interactions generated in "
+          f"{gen_s:.2f} s; `python -m reviews4rec_torch.data.preprocess` "
+          f"{total:.2f} s: SGNS on the card ({PREP_W2V_EPOCHS} epochs) "
+          f"{seen['s']:.2f} s, tokenize / k-core / split / negatives / "
+          f"save {total - seen['s']:.2f} s; {len(names) - 1} arrays "
+          f"bitwise JAX's (sha256), word_vectors {wv.shape}; SGNS, 1 "
+          f"epoch of 1/{PREP_NUMPY_CUT} of the train texts: numpy "
+          f"backend on the host {secs['numpy']:.2f} s, torch on the card "
+          f"{secs['torch']:.2f} s")
+
+
+class _FixtureDraws:
+    """JAX's SGNS draws from `prep_ref.npz`, in `TorchDraws`' form."""
+
+    def __init__(self, torch, ref, device):
+        self.perm = torch.as_tensor(ref["sgns/perm"].astype("int64"),
+                                    device=device)
+        self.uniforms = torch.as_tensor(ref["sgns/uniform"], device=device)
+
+    def permutation(self, epoch, n):
+        assert n == self.perm.shape[1]
+        return self.perm[epoch]
+
+    def uniform(self, epoch, batch, shape):
+        return self.uniforms[epoch, batch]
+
+
+def cli_sgns(torch, device) -> None:
+    """(b) `_train_sgns_torch` on the card fed JAX's draws: within
+    `SGNS_TOL` of `_train_sgns_jax`'s table; two runs (`index_add_` on
+    CUDA adds in no fixed order) and their spread."""
+    import numpy as np
+
+    from reviews4rec_torch.data.preprocess import _train_sgns_torch
+
+    ref = np.load(PREP_FIXTURE)
+    dim, epochs, negatives, lr, seed = ref["sgns/params"]
+    outs = [_train_sgns_torch(
+        ref["sgns/centers"], ref["sgns/contexts"], ref["sgns/probs"],
+        ref["sgns/vec_in0"], int(dim), int(epochs), int(negatives),
+        float(lr), int(seed), device=device,
+        draws=_FixtureDraws(torch, ref, device)) for _ in range(2)]
+    errs = [float(np.abs(o - ref["sgns/out"]).max()) for o in outs]
+    spread = float(np.abs(outs[0] - outs[1]).max())
+    moved = float(np.abs(ref["sgns/out"] - ref["sgns/vec_in0"]).max())
+    print(f"cli SGNS body on JAX's draws ({len(ref['sgns/centers'])} "
+          f"pairs, {int(epochs)} epochs): max abs err to JAX's table "
+          f"{errs[0]:.2e} / {errs[1]:.2e} (table moved {moved:.3f}), two "
+          f"card runs {spread:.2e} apart")
+    if not max(errs) <= SGNS_TOL:
+        raise AssertionError("the SGNS body differs from JAX's")
+
+
+def _cli_main(argv) -> tuple:
+    """`python -m reviews4rec_torch` in process: (metrics of its JSON
+    line, its standard output)."""
+    import contextlib
+    import io
+
+    from reviews4rec_torch.__main__ import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    out = buf.getvalue()
+    if rc != 0:
+        raise AssertionError(f"the CLI returned {rc}:\n{out[-2000:]}")
+    return json.loads(out.strip().splitlines()[-1]), out
+
+
+def _same_metrics(what: str, got: dict, want: dict) -> None:
+    gaps = {k: abs(got[k] - want[k]) for k in ("MSE", "HR@1", "HR@10")}
+    print(f"  {what}: MSE {got['MSE']}, HR@1 {got['HR@1']}, HR@10 "
+          f"{got['HR@10']}; gaps {gaps}")
+    if not max(gaps.values()) <= CLI_TOL:
+        raise AssertionError(f"{what}: metrics differ by more than "
+                             f"{CLI_TOL}")
+
+
+def cli_train(torch, textcnn, device) -> dict:
+    """(c) The training CLI at full width (deepconn, B=256, T=1000) on a
+    copy of the e2e corpus: the entity cache on the rows kernels at
+    `scan_steps` 10, then the fused gather out of core on the ids
+    kernels, each with its kernels launched and its metrics equal to
+    `api.run`'s on the same HyperParams (the second run's: in RAM).
+    Returns the launches of each CLI run."""
+    import shutil
+
+    from reviews4rec_torch.__main__ import build_parser, hp_from_args
+    from reviews4rec_torch.api import run
+    from reviews4rec_torch.data import ReviewDataset
+
+    data = CLI_DIR / "data" / "e2e" / "5_core"
+    data.mkdir(parents=True)
+    shutil.copy(CORPUS_DIR / "corpus.npz", data / "corpus.npz")
+    common = ["--model_type", "deepconn", "--dataset", "e2e",
+              "--data_root", str(CLI_DIR / "data"), "--batch_size", "256",
+              "--input_length", "1000", "--epochs", "1",
+              "--log_dir", str(CLI_DIR / "logs"),
+              "--model_dir", str(CLI_DIR / "models"), "--use_pallas", "true",
+              "--json"]
+    runs = {
+        "cli_entity": (["--cache_doc_embeds", "true", "--cache_entity",
+                        "true", "--pallas_fuse_rows", "true",
+                        "--scan_steps", "10"],
+                       (textcnn.FWD_ROWS, textcnn.BWD_DG_ROWS), {}),
+        "cli_out_of_core": (["--pallas_fuse_gather", "true",
+                             "--out_of_core", "true"],
+                            (textcnn.FWD_IDS, textcnn.BWD_DG_IDS),
+                            {"out_of_core": False}),
+    }
+    paths = {}
+    for name, (flags, kernels, ref_change) in runs.items():
+        argv = common + flags
+        _reset(textcnn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, out = _cli_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        paths[name] = dict(textcnn.launches)
+        said = [ln for ln in out.splitlines() if ln.startswith("host records")]
+        print(f"{name}: python -m reviews4rec_torch {' '.join(flags)}: "
+              f"{wall:.1f} s; {said[0] if said else 'no host records'}; "
+              f"launches {paths[name]}")
+        if not all(paths[name][k] > 0 for k in kernels):
+            raise AssertionError(f"{name}: {kernels} did not launch")
+        if flags.count("--out_of_core") and \
+                not said[0].startswith("host records: native materializer"):
+            raise AssertionError("the out-of-core run did not take the "
+                                 "native materializer")
+        hp = hp_from_args(build_parser().parse_args(argv)).replace(
+            **ref_change)
+        want, _, _ = run(hp, ReviewDataset.load(str(data)), device=device)
+        _same_metrics(f"{name} against api.run"
+                      + (" in RAM" if ref_change else ""), got, want)
+    return paths
+
+
+def cli_native(ds) -> None:
+    """(d) The native materializer on the e2e corpus at T=1000: the train
+    split bitwise numpy's, both timed."""
+    import numpy as np
+
+    from reviews4rec_torch.config import HyperParams
+    from reviews4rec_torch.data import native
+    from reviews4rec_torch.data.corpus import ReviewDataset
+
+    if not native.available():
+        raise AssertionError("the native materializer does not build here")
+    hp = ds.apply_to(HyperParams(model_type="deepconn", dataset="e2e"))
+    secs, recs = {}, {}
+    numpy_only = staticmethod(lambda *a, **k: None)
+    for which in ("native", "numpy", "native"):
+        own = ReviewDataset.__dict__["_native_text"]
+        if which == "numpy":
+            ReviewDataset._native_text = numpy_only
+        try:
+            ds._cache.clear()
+            ds._flat()
+            t0 = time.perf_counter()
+            recs[which] = ds.materialize(hp, "train")
+            secs.setdefault(which, []).append(time.perf_counter() - t0)
+        finally:
+            ReviewDataset._native_text = own
+        if ds.materializer != which:
+            raise AssertionError(f"{ds.materializer} ran, not {which}")
+    ds._cache.clear()
+    same = all(np.array_equal(recs["native"][k], recs["numpy"][k])
+               for k in recs["numpy"])
+    print(f"cli materializer, train split at T=1000 "
+          f"({len(ds.splits['train'])} examples): native "
+          f"({native.num_threads()} threads) "
+          f"{' / '.join(f'{s:.2f}' for s in secs['native'])} s, numpy "
+          f"{secs['numpy'][0]:.2f} s; bitwise equal {same}")
+    if not same:
+        raise AssertionError("the native records differ from numpy's")
+
+
+def cli_phase(torch, textcnn, ds, device) -> dict:
+    """The `cli` phase: (a) to (d) in a scratch directory under build/,
+    removed at the end. Returns the CLI runs' launches."""
+    import shutil
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    try:
+        cli_preprocess(torch, device)
+        cli_sgns(torch, device)
+        paths = cli_train(torch, textcnn, device)
+        cli_native(ds)
+    finally:
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+    return paths
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--e2e-full", action="store_true",
@@ -4799,12 +5094,23 @@ def main(argv=None) -> None:
                  ENTITY_FIXTURE, INIT_FIXTURE, REVIEW_FIXTURE,
                  REVIEW_TRAIN_FIXTURE, REVIEW_ENTITY_FIXTURE, MF_FIXTURE,
                  FACTORIZED_FIXTURE, MPCN_FIXTURE, BF16_FIXTURE,
-                 NEIGHBORS_FIXTURE, HFT_FIXTURE, E2E_STATE):
+                 NEIGHBORS_FIXTURE, HFT_FIXTURE, E2E_STATE, PREP_FIXTURE,
+                 ROOT / "examples" / "e2e_realistic.py"):
         if not need.exists():
             fail(f"missing {need.relative_to(ROOT)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
+
+    start = time.perf_counter()
+    began = []   # (phase, seconds since the start) in the order run
+
+    def enter(phase: str) -> bool:
+        """Whether `phase` runs; if so, print the seconds since the start."""
+        if phase in want:
+            began.append((phase, time.perf_counter() - start))
+            print(f"[{began[-1][1]:.1f} s] phase {phase}", flush=True)
+        return phase in want
 
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
@@ -4816,7 +5122,7 @@ def main(argv=None) -> None:
         print(card)
         return
 
-    if "kernels" in want:
+    if enter("kernels"):
         count_hmma(_build)
         fwd_err = check_textcnn(torch, textcnn)
         fwd = time_textcnn(torch, textcnn)
@@ -4824,7 +5130,7 @@ def main(argv=None) -> None:
         bwd_err = check_backward(torch, textcnn)
         bwd = time_backward(torch, textcnn)
         _print_kernel_times(textcnn, fwd, bwd)
-    if "rows" in want:
+    if enter("rows"):
         rows_err = check_rows(torch, textcnn)
         rows = time_rows(torch, textcnn)
         _print_rows_times(textcnn, rows)
@@ -4835,74 +5141,82 @@ def main(argv=None) -> None:
     # the input-gradient path (dx), the entity cache with and without
     # pallas_fuse_rows (rows kernels), entity serving (plain-x forward)
     paths = {}
-    if "serve" in want:
+    if enter("serve"):
         paths["serve"] = serve(torch, textcnn, ds, device)
         profile_predict(torch, ds)
-    if "train" in want:
+    if enter("train"):
         train_vs_jax(torch, ds, device)
         paths["train"] = train_product(torch, textcnn, ds, device)
         profile_train(torch, ds, device)
-    if "input_grad" in want:
+    if enter("input_grad"):
         paths["input_grad"] = train_input_grad(torch, textcnn, ds, device)
-    if "entity_vs_jax" in want:
+    if enter("entity_vs_jax"):
         paths["train_entity_vs_jax"] = train_entity_vs_jax(torch, textcnn,
                                                            ds, device)
-    if "entity_train" in want:
+    if enter("entity_train"):
         paths["train_entity"] = train_entity_product(torch, textcnn, ds,
                                                      device)
         profile_train_entity(torch, ds, device)
-    if "entity_serve" in want:
+    if enter("entity_serve"):
         paths["serve_entity"] = serve_entity(torch, textcnn, ds, device)
     # NARRE, transnet and transnet++: the plain-x forward (serving) and
     # forward and dG (training, uncached and entity; their entity steps
     # read gathered docs, never the rows kernels)
-    if "review_serve" in want:
+    if enter("review_serve"):
         paths["review_serve"] = review_serve(torch, textcnn, ds, device)
-    if "review_train" in want:
+    if enter("review_train"):
         paths["review_train"] = review_train(torch, textcnn, ds, device)
-    if "review_entity" in want:
+    if enter("review_entity"):
         paths["review_entity"] = review_entity(torch, textcnn, ds, device)
         narre = profile_review_entity(torch, textcnn, ds, device)
     # the id models run no TextCNN kernel; the factorized index of the
     # TextCNN models runs the plain-x forward alone
-    if "mf_serve" in want:
+    if enter("mf_serve"):
         paths["mf_serve"] = mf_serve(torch, textcnn, ds, device)
-    if "mf_train" in want:
+    if enter("mf_train"):
         paths["mf_train"] = mf_train(torch, textcnn, ds, device)
-    if "factorized" in want:
+    if enter("factorized"):
         paths["factorized"], fac_shapes = factorized(torch, textcnn, ds,
                                                      device)
     # the fused word gather: the ids kernels alone on every tower over
     # word ids (serving, 8 steps, api.run on CUDA-graph groups)
-    if "embed" in want:
+    if enter("embed"):
         embed_err = check_embed(torch, textcnn, ds)
         embed = time_embed(torch, textcnn, ds)
         _print_embed_times(textcnn, embed)
-    if "embed_train" in want:
+    if enter("embed_train"):
         paths["embed_train"] = embed_train(torch, textcnn, ds, device)
     # scan_steps 10 as CUDA-graph replays: every kernel but the dx
-    if "scan" in want:
+    if enter("scan"):
         paths["scan"] = scan(torch, textcnn, ds, device)
     # MPCN runs no TextCNN kernel; the ranking steps of deepconn++ run the
     # plain-x forward and dG over candidate grids
-    if "mpcn_serve" in want:
+    if enter("mpcn_serve"):
         paths["mpcn_serve"] = mpcn_serve(torch, textcnn, ds, device)
-    if "mpcn_train" in want:
+    if enter("mpcn_train"):
         paths["mpcn_train"] = mpcn_train(torch, textcnn, ds, device)
-    if "rank_train" in want:
+    if enter("rank_train"):
         paths["rank_train"], rank_grid = rank_train(torch, textcnn, ds,
                                                     device)
     # compute_dtype="bfloat16": the bf16 forward and dG alone
-    if "bf16" in want:
+    if enter("bf16"):
         bf16_err = check_bf16(torch, textcnn)
         bf16 = time_bf16(torch, textcnn)
         paths["bf16"] = bf16_models(torch, textcnn, ds, device)
     # the neighborhood models: the SGD kernel, once a fit; HFT runs none
-    if "neighbors" in want:
+    if enter("neighbors"):
         sgd = check_sgd(torch, ds, device)
         sgd_paths = {"neighbors": neighbors_fits(torch, ds, device)}
-    if "hft" in want:
+    if enter("hft"):
         hft_phase(torch, ds, device)
+    # the command lines: the rows kernels (entity cache) and the ids
+    # kernels (fused gather, out of core), one CLI run each
+    if enter("cli"):
+        paths.update(cli_phase(torch, textcnn, ds, device))
+    done = time.perf_counter() - start
+    ends = [t for _, t in began[1:]] + [done]
+    print(f"[{done:.1f} s] phases done; seconds by phase: " + ", ".join(
+        f"{p} {e - t:.1f}" for (p, t), e in zip(began, ends)), flush=True)
     if want != set(PHASES):
         print(f"partial run of {sorted(want)}: no result line")
         return

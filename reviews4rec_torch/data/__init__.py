@@ -1,4 +1,5 @@
 from .batcher import Batcher
 from .corpus import ReviewDataset, Split
+from .synthetic import make_synthetic
 
-__all__ = ["Batcher", "ReviewDataset", "Split"]
+__all__ = ["Batcher", "ReviewDataset", "Split", "make_synthetic"]

@@ -24,20 +24,28 @@ The records are byte-identical to the JAX package's
   train, where the pair's own review sits in each doc: its (start, len)
   word span or its review row (`materialize_entity`), which the model
   masks in place instead of removing it.
+- the out-of-core record store (`hp.out_of_core`): the doc and
+  neighbor tensors of a split or a candidate grid are built
+  `hp.materialize_chunk_rows` examples at a time into .npy files under
+  `data_dir()/records/<tag>/` and returned memory-mapped, read-only;
+  byte-identical to the in-RAM records.
 
-Only the in-memory numpy materializer is here; the native (C++)
-materializer and the out-of-core record store are still to be ported.
+The records are assembled by the native (C++/OpenMP) materializer
+(`data/native.py`) where g++ builds it, else by the numpy one
+(`_python_text`), byte for byte the same; `materializer` names the one
+that ran last. `save` writes the `corpus.npz` both packages read.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..utils.io import load_npz
+from ..utils.io import load_npz, save_npz
 
 NEIGHBOR_SLOTS = 10
 
@@ -49,6 +57,15 @@ class Split:
     user: np.ndarray
     item: np.ndarray
     rating: np.ndarray
+
+    @classmethod
+    def from_triples(cls, triples: Sequence[Sequence[float]]) -> "Split":
+        if len(triples) == 0:
+            return cls(np.zeros(0, np.int32), np.zeros(0, np.int32),
+                       np.zeros(0, np.float32))
+        arr = np.asarray(triples, np.float64)
+        return cls(arr[:, 0].astype(np.int32), arr[:, 1].astype(np.int32),
+                   arr[:, 2].astype(np.float32))
 
     def __len__(self) -> int:
         return int(self.user.shape[0])
@@ -63,11 +80,38 @@ def _doc_layout(hp) -> Tuple[int, int]:
     return 1, hp.input_length
 
 
-def _not_ported(hp) -> None:
-    if hp.out_of_core:
-        raise NotImplementedError(
-            "the out-of-core record store is not ported yet (ROADMAP.md, "
-            "Queue 1: deferred data-layer pieces)")
+def _open_store(d: str) -> Dict[str, np.ndarray]:
+    """The arrays of a complete record store, memory-mapped read-only."""
+    with open(os.path.join(d, "manifest.json")) as fh:
+        names = json.load(fh)["arrays"]
+    return {k: np.load(os.path.join(d, k + ".npy"), mmap_mode="r")
+            for k in names}
+
+
+def _create_store(d: str, spec: Dict[str, Tuple[Tuple[int, ...], type]],
+                  id_arrays: Dict[str, np.ndarray]
+                  ) -> Dict[str, np.ndarray]:
+    """Writable .npy memmaps of `spec` under `d`, the id arrays filled."""
+    os.makedirs(d, exist_ok=True)
+    mm = {k: np.lib.format.open_memmap(os.path.join(d, k + ".npy"),
+                                       mode="w+", dtype=dt, shape=shape)
+          for k, (shape, dt) in spec.items()}
+    for k, v in id_arrays.items():
+        mm[k][:] = v
+    return mm
+
+
+def _seal_store(d: str, mm: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Flush the memmaps, then write the manifest: a store is valid only
+    once complete. Returns the store reopened read-only."""
+    for v in mm.values():
+        v.flush()
+    manifest = os.path.join(d, "manifest.json")
+    tmp = manifest + ".tmp"
+    with open(tmp, "w") as fh:
+        json.dump({"arrays": sorted(mm)}, fh)
+    os.replace(tmp, manifest)
+    return _open_store(d)
 
 
 class ReviewDataset:
@@ -115,7 +159,23 @@ class ReviewDataset:
         self._flat_store = None
         self._ti_arrays = None
         self._train_pair_keys = None
+        self.materializer: Optional[str] = None
         return self
+
+    # ------------------------------------------------------------------
+    def encode_text(self, text: str) -> np.ndarray:
+        """Tokenize NEW review text against the persisted vocabulary
+        (serving surface): letters-only tokens, unknown words -> UNK 0.
+        Needs a corpus saved with its vocabulary (any corpus either
+        package's preprocessing writes); older archives raise."""
+        from .tokenizer import tokenize
+
+        if self.vocab is None:
+            raise ValueError(
+                "this corpus was saved without its vocabulary map; "
+                "re-run preprocessing to enable encode_text")
+        return np.asarray([self.vocab.get(w, 0) for w in tokenize(text)],
+                          np.int32)
 
     # ------------------------------------------------------------------
     def apply_to(self, hp):
@@ -254,10 +314,20 @@ class ReviewDataset:
 
     # ------------------------------------------------------------------
     @staticmethod
+    def _native_text(flat, user, item, ui_idx, iu_idx, this_rev,
+                     rows, words, slots, user_pad, item_pad):
+        """The native materializer's records; None where it does not
+        build (then the numpy materializer runs)."""
+        from . import native
+        return native.materialize_records(
+            flat, user, item, ui_idx, iu_idx, this_rev,
+            rows, words, slots, user_pad, item_pad)
+
+    @staticmethod
     def _python_text(flat, user, item, ui_idx, iu_idx, this_rev,
                      rows, words, slots, user_pad, item_pad):
         """The numpy materializer: doc and neighbor tensors for parallel
-        example arrays."""
+        example arrays, byte-identical to `csrc/materialize.cc`'s."""
         tokens, rev_off = flat["tokens"], flat["rev_off"]
         u_off, u_other = flat["u_off"], flat["u_other"]
         i_revs, i_off, i_other = flat["i_revs"], flat["i_off"], flat["i_other"]
@@ -320,9 +390,13 @@ class ReviewDataset:
 
     def _text_records(self, hp, user, item, ui_idx, iu_idx, this_rev):
         rows, words = _doc_layout(hp)
-        out = self._python_text(self._flat(), user, item, ui_idx, iu_idx,
-                                this_rev, rows, words, NEIGHBOR_SLOTS,
-                                hp.user_pad_id, hp.item_pad_id)
+        flat = self._flat()
+        args = (flat, user, item, ui_idx, iu_idx, this_rev, rows, words,
+                NEIGHBOR_SLOTS, hp.user_pad_id, hp.item_pad_id)
+        out = self._native_text(*args)
+        self.materializer = "numpy" if out is None else "native"
+        if out is None:
+            out = self._python_text(*args)
         if rows == 1:
             for k in ("user_doc", "item_doc", "this_doc"):
                 out[k] = out[k].reshape(user.shape[0], words)
@@ -331,10 +405,12 @@ class ReviewDataset:
     # ------------------------------------------------------------------
     def materialize(self, hp, split: str) -> Dict[str, np.ndarray]:
         """Fixed-shape record tensors for one split under one model
-        layout (cached). Review families add doc and neighbor tensors."""
+        layout (cached). Review families add doc and neighbor tensors.
+        With `hp.out_of_core` they are built chunk by chunk into
+        memory-mapped .npy files instead of host RAM."""
         with_text = hp.family == "review"
-        if with_text:
-            _not_ported(hp)
+        if with_text and hp.out_of_core:
+            return self.materialize_to_disk(hp, split)
         key = (split, _doc_layout(hp) if with_text else "id",
                hp.user_pad_id if with_text else 0)
         if key in self._cache:
@@ -350,32 +426,99 @@ class ReviewDataset:
         self._cache[key] = recs
         return recs
 
+    @staticmethod
+    def _doc_tails(hp) -> Dict[str, Tuple[int, ...]]:
+        """Trailing shape of each doc and neighbor record of a layout."""
+        rows, words = _doc_layout(hp)
+        doc = (rows, words) if rows > 1 else (words,)
+        return {"user_doc": doc, "item_doc": doc, "this_doc": doc,
+                "users_who_gave": (NEIGHBOR_SLOTS,),
+                "items_reviewed": (NEIGHBOR_SLOTS,)}
+
+    def _fill_chunks(self, hp, out: Dict[str, np.ndarray], keys, n: int,
+                     inputs) -> None:
+        """Write the text records `keys` of `n` flattened examples
+        (`inputs` = user, item, ui_idx, iu_idx, this_rev) into `out`,
+        `hp.materialize_chunk_rows` examples at a time: the peak host
+        RAM is one chunk."""
+        chunk = max(1, int(hp.materialize_chunk_rows))
+        for start in range(0, n, chunk):
+            sl = slice(start, min(start + chunk, n))
+            recs = self._text_records(hp, *(a[sl] for a in inputs))
+            for k in keys:
+                out[k][sl] = recs[k]
+
+    def materialize_to_disk(self, hp, split: str,
+                            root: Optional[str] = None
+                            ) -> Dict[str, np.ndarray]:
+        """Out-of-core `materialize` of one rating split: the records
+        written chunk by chunk into `<root>/<tag>/*.npy` (root defaults
+        to `data_dir()/records`) and returned memory-mapped, read-only.
+        A complete store (its manifest written) is reopened as it is."""
+        rows, words = _doc_layout(hp)
+        root = root or os.path.join(hp.data_dir(), "records")
+        d = os.path.join(root, f"{split}_{rows}x{words}_p{hp.user_pad_id}")
+        if os.path.exists(os.path.join(d, "manifest.json")):
+            return _open_store(d)
+        sp = self.splits[split]
+        n = len(sp)
+        inputs = self._examples(split)
+        ids = {"user": inputs[0], "item": inputs[1],
+               "rating": sp.rating.astype(np.float32)}
+        tails = self._doc_tails(hp)
+        spec = {k: (v.shape, v.dtype) for k, v in ids.items()}
+        spec.update({k: ((n,) + t, np.int32) for k, t in tails.items()})
+        mm = _create_store(d, spec, ids)
+        self._fill_chunks(hp, mm, tails, n, inputs)
+        return _seal_store(d, mm)
+
+    def _disk_grid_store(self, hp, tag: str, ids: Dict[str, np.ndarray],
+                         *grid) -> Dict[str, np.ndarray]:
+        """Out-of-core candidate-grid store under `data_dir()/records`:
+        the `_grid_text_records` layout, each side assembled chunk by
+        chunk."""
+        d = os.path.join(hp.data_dir(), "records", tag)
+        if os.path.exists(os.path.join(d, "manifest.json")):
+            return _open_store(d)
+        tails = self._doc_tails(hp)
+        sides = self._grid_sides(*grid)
+        spec = {k: (v.shape, v.dtype) for k, v in ids.items()}
+        spec.update({k: (lead + tails[k], np.int32)
+                     for keys, lead, _ in sides for k in keys})
+        mm = _create_store(d, spec, ids)
+        for keys, lead, inputs in sides:
+            # C-order memmaps reshape to flat rows without a copy
+            flat = {k: mm[k].reshape((-1,) + tails[k]) for k in keys}
+            self._fill_chunks(hp, flat, keys, int(np.prod(lead)), inputs)
+        return _seal_store(d, mm)
+
     # In candidate grids the user side is identical across the C
     # candidates, so it is materialized once per row at lead [.., 1]
     # and broadcast inside the models.
     _USER_SIDE = ("user_doc", "items_reviewed")
     _ITEM_SIDE = ("item_doc", "this_doc", "users_who_gave")
 
-    def _grid_text_records(self, hp, user_rows, item_flat, ui_flat,
-                           iu_flat, this_flat, m, c):
-        """Doc/neighbor tensors for an [m, c] candidate grid: user side
-        once per row ([m, 1, ...]), item side per candidate
-        ([m, c, ...])."""
-        dummy_u = np.zeros(m * c, np.int32)
-        dummy_i = np.zeros(m, np.int32)
+    def _grid_sides(self, user_rows, item_flat, ui_flat, iu_flat,
+                    this_flat, m, c):
+        """(record keys, lead shape, example inputs) of each side of an
+        [m, c] candidate grid: the user side once per row, the item side
+        per candidate."""
         neg1_m = np.full(m, -1, np.int32)
-        uside = self._text_records(hp, user_rows, dummy_i,
-                                   ui_flat[::c].copy(), neg1_m, neg1_m)
-        iside = self._text_records(hp, dummy_u, item_flat,
-                                   np.full(m * c, -1, np.int32), iu_flat,
-                                   this_flat)
+        return ((self._USER_SIDE, (m, 1),
+                 (user_rows, np.zeros(m, np.int32), ui_flat[::c].copy(),
+                  neg1_m, neg1_m)),
+                (self._ITEM_SIDE, (m, c),
+                 (np.zeros(m * c, np.int32), item_flat,
+                  np.full(m * c, -1, np.int32), iu_flat, this_flat)))
+
+    def _grid_text_records(self, hp, *grid):
+        """Doc/neighbor tensors for an [m, c] candidate grid
+        (`_grid_sides`): user side [m, 1, ...], item side [m, c, ...]."""
         out = {}
-        for k in self._USER_SIDE:
-            v = uside[k]
-            out[k] = v.reshape((m, 1) + v.shape[1:])
-        for k in self._ITEM_SIDE:
-            v = iside[k]
-            out[k] = v.reshape((m, c) + v.shape[1:])
+        for keys, lead, inputs in self._grid_sides(*grid):
+            recs = self._text_records(hp, *inputs)
+            for k in keys:
+                out[k] = recs[k].reshape(lead + recs[k].shape[1:])
         return out
 
     def materialize_negs(self, hp,
@@ -384,16 +527,22 @@ class ReviewDataset:
         """Candidate-grid records for ranking eval: [M, C] ids (positive
         in column 0), plus doc tensors for review models: item side
         [M, C, ...], user side [M, 1, ...]. No leakage removal;
-        `this_doc` stays zero."""
+        `this_doc` stays zero. With `hp.out_of_core` the doc grids are
+        built chunk by chunk into the memory-mapped record store."""
         with_text = (hp.family == "review" if include_text is None
                      else include_text)
-        if with_text:
-            _not_ported(hp)
         m, c = self.neg_cands.shape
         user = np.repeat(self.neg_users, c).reshape(m, c).astype(np.int32)
         item = self.neg_cands.astype(np.int32)
         rating = np.zeros((m, c), np.float32)
         neg1 = np.full(m * c, -1, np.int32)
+        if with_text and hp.out_of_core:
+            rows, words = _doc_layout(hp)
+            return self._disk_grid_store(
+                hp, f"negs2_{rows}x{words}_p{hp.user_pad_id}_c{c}",
+                {"user": user, "item": item, "rating": rating},
+                self.neg_users.astype(np.int32), item.reshape(-1),
+                neg1, neg1, neg1, m, c)
         key = ("negs", _doc_layout(hp) if with_text else "id",
                hp.user_pad_id if with_text else 0)
         if key in self._cache:
@@ -453,11 +602,9 @@ class ReviewDataset:
         keeps that row's positive and columns 1..num_negs are items
         sampled uniformly outside the user's train/val/test
         interactions (the 1+99 protocol). Same [M, C] layout as
-        `materialize_negs`."""
+        `materialize_negs`; `hp.out_of_core` streams the doc grids."""
         with_text = (hp.family == "review" if include_text is None
                      else include_text)
-        if with_text:
-            _not_ported(hp)
         m = int(self.neg_users.shape[0])
         c = num_negs + 1
         rng = np.random.default_rng(seed)
@@ -490,6 +637,14 @@ class ReviewDataset:
         user = np.repeat(self.neg_users, c).reshape(m, c).astype(np.int32)
         rating = np.zeros((m, c), np.float32)
         neg1 = np.full(m * c, -1, np.int32)
+        if with_text and hp.out_of_core:
+            rows, words = _doc_layout(hp)
+            return self._disk_grid_store(
+                hp, f"widenegs_{rows}x{words}_p{hp.user_pad_id}"
+                    f"_c{c}_s{seed}",
+                {"user": user, "item": cands, "rating": rating},
+                self.neg_users.astype(np.int32), cands.reshape(-1),
+                neg1, neg1, neg1, m, c)
         key = ("wide_negs", _doc_layout(hp) if with_text else "id",
                hp.user_pad_id if with_text else 0, num_negs, seed)
         if key in self._cache:
@@ -511,13 +666,13 @@ class ReviewDataset:
         [N, C] layout of `materialize_negs`. For review models the pair's
         own review is removed from the user doc of every column and from
         the positive item's doc (column 0). Bitwise the JAX package's
-        arrays for the same seed (cached)."""
-        if hp.family == "review":
-            _not_ported(hp)
+        arrays for the same seed (cached; with `hp.out_of_core` the doc
+        grids go to the memory-mapped record store instead)."""
+        out_of_core = hp.family == "review" and hp.out_of_core
         key = ("train_negs", split,
                _doc_layout(hp) if hp.family == "review" else "id",
                hp.num_negs, seed)
-        if key in self._cache:
+        if not out_of_core and key in self._cache:
             return self._cache[key]
         sp = self.splits[split]
         tr = self.splits["train"]
@@ -558,6 +713,13 @@ class ReviewDataset:
             iu = np.full((n, k + 1), -1, np.int32)
             iu[:, 0] = iu0
             neg1 = np.full(n * (k + 1), -1, np.int32)
+            if out_of_core:
+                rows, words = _doc_layout(hp)
+                return self._disk_grid_store(
+                    hp, f"trainnegs2_{split}_{rows}x{words}"
+                        f"_p{hp.user_pad_id}_c{k + 1}_s{seed}",
+                    recs, sp.user.astype(np.int32), cands.reshape(-1),
+                    ui.reshape(-1), iu.reshape(-1), neg1, n, k + 1)
             recs.update(self._grid_text_records(
                 hp, sp.user.astype(np.int32), cands.reshape(-1),
                 ui.reshape(-1), iu.reshape(-1), neg1, n, k + 1))
@@ -718,6 +880,57 @@ class ReviewDataset:
         return recs
 
     # ------------------------------------------------------------------
+    # Persistence: one compressed `<path>/corpus.npz`, the archive both
+    # packages save and load.
+    # ------------------------------------------------------------------
+    def save(self, path: str) -> None:
+        arrays: Dict[str, np.ndarray] = {
+            "meta": np.asarray([self.num_users, self.num_items,
+                                self.num_words], np.int64),
+            "neg_users": self.neg_users, "neg_cands": self.neg_cands,
+            "word_vectors": self.word_vectors,
+        }
+        for s in ("train", "test", "val"):
+            sp = self.splits[s]
+            arrays[f"{s}_user"] = sp.user
+            arrays[f"{s}_item"] = sp.item
+            arrays[f"{s}_rating"] = sp.rating
+
+        # ragged user reviews, user-major
+        flat_revs = [r for revs in self.user_reviews for r in revs]
+        arrays["ur_tokens"] = (np.concatenate(flat_revs)
+                               if flat_revs else np.zeros(0, np.int32))
+        arrays["ur_lens"] = np.asarray([len(r) for r in flat_revs], np.int64)
+        arrays["ur_counts"] = np.asarray(
+            [len(revs) for revs in self.user_reviews], np.int64)
+        arrays["u_to_i"] = np.asarray(
+            [i for lst in self.u_to_i for i in lst], np.int32)
+        arrays["i_to_u"] = np.asarray(
+            [u for lst in self.i_to_u for u in lst], np.int32)
+        arrays["i_counts"] = np.asarray(
+            [len(lst) for lst in self.i_to_u], np.int64)
+
+        ti = sorted(self.this_index.items())
+        arrays["ti"] = np.asarray(
+            [[u, i, a, b] for (u, i), (a, b) in ti], np.int64).reshape(-1, 4)
+
+        tv = sorted(self.test_reviews.items())
+        arrays["tv_keys"] = np.asarray([[u, i] for (u, i), _ in tv],
+                                       np.int64).reshape(-1, 2)
+        tv_toks = [t for _, t in tv]
+        arrays["tv_tokens"] = (np.concatenate(tv_toks)
+                               if tv_toks else np.zeros(0, np.int32))
+        arrays["tv_lens"] = np.asarray([len(t) for t in tv_toks], np.int64)
+
+        if self.vocab is not None:
+            items = sorted(self.vocab.items(), key=lambda kv: kv[1])
+            arrays["vocab_words"] = np.asarray(
+                [w for w, j in items if j > 0], dtype=str)
+            arrays["vocab_ids"] = np.asarray(
+                [j for _, j in items if j > 0], np.int64)
+
+        save_npz(os.path.join(path, "corpus.npz"), **arrays)
+
     @classmethod
     def load(cls, path: str) -> "ReviewDataset":
         """Read `<path>/corpus.npz`, the archive either package saves."""

@@ -14,7 +14,7 @@ source net):
   `entity=True` the grids are id-only and their docs are gathered on the
   device from the entity tables (MPCN's: int ids, embedded by its
   trained table). MPCN, whose co-attention is pairwise, serves top-k
-  here only.
+  here only. `recommend` is its one-shot form.
 - `FactorizedRecommender`: runs the item tower once over the catalog at
   construction; a query encodes only its users and scores the catalog
   with the head split per side, exactly (the JAX package's seven
@@ -143,11 +143,13 @@ def save_predictions(hp: HyperParams, dataset: ReviewDataset,
 def _merge_topk(top_s: torch.Tensor, top_i: torch.Tensor,
                 scores: torch.Tensor, ids: torch.Tensor, k: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fold one chunk's [U, C] scores into the running [U, k] top-k."""
+    """Fold one chunk's [U, C] scores into the running [U, k] top-k.
+    Equal scores keep their order (`lax.top_k`'s): the running entries
+    first, so a slot no unmasked item fills keeps its -1."""
     cat_s = torch.cat([top_s, scores], dim=1)
     cat_i = torch.cat([top_i, ids[None].expand(scores.shape)], dim=1)
-    vals, pos = torch.topk(cat_s, k, dim=1)
-    return vals, torch.gather(cat_i, 1, pos)
+    vals, pos = torch.sort(cat_s, dim=1, descending=True, stable=True)
+    return vals[:, :k], torch.gather(cat_i, 1, pos[:, :k])
 
 
 def _empty_topk(n: int, k: int, dev: torch.device):
@@ -214,6 +216,20 @@ class Recommender:
             top_s, top_i = _merge_topk(top_s, top_i, scores,
                                        torch.from_numpy(chunk).to(dev), k)
         return top_i.cpu().numpy(), top_s.cpu().numpy()
+
+
+def recommend(hp: HyperParams, dataset: ReviewDataset,
+              users: np.ndarray, k: int = 10,
+              items: Optional[np.ndarray] = None,
+              exclude_seen: bool = True, item_chunk: int = 512,
+              model: Optional[torch.nn.Module] = None,
+              device: DeviceLike = None) -> Tuple[np.ndarray, np.ndarray]:
+    """One-shot `Recommender(...).topk(...)`: (item ids [U, k], scores
+    [U, k]). Hold a `Recommender` to serve many queries from one
+    restored model."""
+    rec = Recommender(hp, dataset, model=model, item_chunk=item_chunk,
+                      device=device)
+    return rec.topk(users, k=k, items=items, exclude_seen=exclude_seen)
 
 
 class FactorizedRecommender:

@@ -75,7 +75,7 @@ import torch
 from ..config import HyperParams
 from ..data.batcher import Batcher
 from ..data.corpus import NEIGHBOR_SLOTS, _doc_layout
-from ..utils.device import to_device
+from ..utils.device import host_tensor, to_device
 from ..utils.logging import file_write, log_end_epoch
 from .checkpoint import load_checkpoint, save_checkpoint
 from .evaluate import eval_ranking, evaluate, evaluate_cached
@@ -208,13 +208,8 @@ def _place(batch: Dict[str, np.ndarray], device: torch.device
     """Host batch -> device tensors; on CUDA through pinned memory, so
     the copy is asynchronous and overlaps the step before it."""
     pin = device.type == "cuda"
-    out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if pin:
-            t = t.pin_memory()
-        out[k] = t.to(device, non_blocking=pin)
-    return out
+    return {k: host_tensor(v, pin).to(device, non_blocking=pin)
+            for k, v in batch.items()}
 
 
 def _lookahead(it: Iterable, depth: int = 2) -> Iterator:
@@ -549,12 +544,12 @@ def build_doc_cache(records: Dict[str, np.ndarray], word_vectors,
             continue
         arr = np.ascontiguousarray(v)
         if k not in DOC_KEYS or k not in keys:
-            cache[k] = torch.from_numpy(arr).to(device)
+            cache[k] = host_tensor(arr).to(device)
             continue
         buf = torch.empty(arr.shape + (e,), dtype=dtype, device=device)
         step = max(1, chunk_words // max(int(np.prod(arr.shape[1:])), 1))
         for s in range(0, arr.shape[0], step):
-            ids = torch.from_numpy(arr[s:s + step].reshape(-1)).to(device)
+            ids = host_tensor(arr[s:s + step].reshape(-1)).to(device)
             torch.index_select(table, 0, ids.long(),
                                out=buf[s:s + step].view(-1, e))
         cache[k] = buf
@@ -764,6 +759,12 @@ def train_complete(hp: HyperParams, model: torch.nn.Module, dataset, *,
     else:
         train_recs = _model_records(model, dataset.materialize(hp, "train"))
         val_recs = _model_records(model, dataset.materialize(hp, "val"))
+    if hp.family == "review" and not use_entity:
+        store = (f", out of core under {hp.data_dir()}/records"
+                 if hp.out_of_core else "")
+        file_write(None, f"host records: "
+                         f"{dataset.materializer or 'no'} materializer"
+                         f"{store}", quiet=quiet)
     if use_cache and not use_entity:
         ck, idk = doc_cache_keys(hp.model_type, hp.cache_sides)
 

@@ -23,11 +23,24 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def host_tensor(a: np.ndarray, pin: bool = False) -> torch.Tensor:
+    """A CPU tensor of host array `a`: `a`'s own buffer where torch can
+    share it, else one copy. A read-only array (the memory-mapped record
+    store of `hp.out_of_core`) is copied, as torch tensors are writable;
+    `pin=True` copies `a` into pinned memory for an asynchronous H2D."""
+    a = np.ascontiguousarray(a)
+    if pin:
+        t = torch.empty(a.shape, pin_memory=True,
+                        dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype)
+        t.numpy()[...] = a
+        return t
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
 def to_device(batch: Dict[str, np.ndarray], device: torch.device
               ) -> Dict[str, torch.Tensor]:
     """Host numpy batch -> tensors on `device`."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
+    return {k: host_tensor(v).to(device) for k, v in batch.items()}
 
 
 def module_device(module: torch.nn.Module,

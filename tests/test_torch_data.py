@@ -101,8 +101,12 @@ def test_npz_io_round_trip(tmp_path):
     assert got["x"].tolist() == [0, 1, 2, 3, 4] and got["y"].shape == (2, 3)
 
 
-def test_out_of_core_is_not_ported(corpora):
-    _, pd = corpora
-    hp = pd.apply_to(PortHP(model_type="deepconn", out_of_core=True))
-    with pytest.raises(NotImplementedError):
-        pd.materialize(hp, "test")
+def test_out_of_core_is_not_ported(corpora, tmp_path):
+    """The out-of-core store is ported now: `hp.out_of_core` gives the
+    in-RAM records, memory-mapped (tests/test_torch_out_of_core.py)."""
+    jd, pd = corpora
+    jh, ph = _hps(model_type="deepconn", input_length=32,
+                  data_root=str(tmp_path))
+    disk = pd.materialize(pd.apply_to(ph).replace(out_of_core=True), "test")
+    assert all(isinstance(v, np.memmap) for v in disk.values())
+    _same(jd.materialize(jd.apply_to(jh), "test"), disk)

@@ -46,3 +46,12 @@ def test_sources_import_no_jax(path):
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, \
                 f"{path.name}:{node.lineno} imports {name}"
+
+
+def test_native_materializer_is_the_port_s_own():
+    """The C++ materializer the port builds is its own copy of the
+    source, built under build/, never into the JAX package's native/."""
+    from reviews4rec_torch.data import native
+    assert native.SOURCE == ROOT / "reviews4rec_torch" / "csrc" / \
+        "materialize.cc"
+    assert native.library_path().parent == ROOT / "build" / "native"
