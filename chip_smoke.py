@@ -158,7 +158,22 @@
    store), each run's MSE, HR@1 and HR@10 within 1e-6 of `api.run`'s on
    the same HyperParams (the second in RAM); the native materializer's
    train split at T=1000 bitwise the numpy one's, both timed.
-19. Prints the card, one JSON line of kernel numbers and, last, the
+19. Meshes (`mesh`): `torch.distributed` ranks on the one card, each a
+   process of its own (`mesh_rank`), over gloo, the backend
+   `parallel.distributed.initialize` picks for several ranks on one
+   card; NCCL brought up at world size 1 (one all-reduce), and what
+   NCCL prints when two ranks ask for the one card. On the e2e corpus:
+   deepconn at B=256, T=1000, `use_pallas`, on a (2, 1) mesh, 8 steps at
+   dropout 0 from the e2e_ref.npz init within `_steps_vs_ref`'s bounds
+   of `train_ref.npz` on every rank, and losses within 1e-4 relative,
+   params within 5e-4 of the same steps in one process on the card;
+   `api.run` of deepconn on the entity cache with `pallas_fuse_rows` on
+   (2, 1), 1 epoch, MSE within 3e-4 and HR@1 equal to the one-process
+   run (the rows kernels on every rank); MF_dot on (2, 2) through the
+   psum and a2a lookups and `seq_parallel` deepconn on (1, 2) at
+   T=1000, 8 steps each against one process; ms a step on the mesh and
+   in one process.
+20. Prints the card, one JSON line of kernel numbers and, last, the
    result line. Any failed check raises and the exit code is not 0.
    Each phase prints the seconds since the start as it begins.
 
@@ -169,7 +184,8 @@ review training and the review entity cache, 8; id-model serving and
 training, 9; the factorized index, 10; the fused gather's serving and
 training, 11; the scan groups, 12; MPCN serving and training, 13; each
 ranking case, 14; bf16 serving and steps, 15; the neighborhood fits,
-16; each of the two CLI training runs, 18) and read just after. A CUDA-graph
+16; each of the two CLI training runs, 18; in every rank, each mesh
+path, 19) and read just after. A CUDA-graph
 replay adds the launches counted while its group was captured.
 Without CUDA or the checkout around it, the script exits with an error
 and prints no result.
@@ -300,7 +316,8 @@ PHASES = ("kernels", "rows", "serve", "train", "input_grad",
           "entity_vs_jax", "entity_train", "entity_serve", "review_serve",
           "review_train", "review_entity", "mf_serve", "mf_train",
           "factorized", "embed", "embed_train", "scan", "mpcn_serve",
-          "mpcn_train", "rank_train", "bf16", "neighbors", "hft", "cli")
+          "mpcn_train", "rank_train", "bf16", "neighbors", "hft", "cli",
+          "mesh")
 # untrained deepconn's test MSE on the e2e corpus (e2e_ref.npz): two
 # epochs of training must land below it
 UNTRAINED_MSE = 1.524
@@ -1246,7 +1263,7 @@ def time_rows(torch, textcnn) -> dict:
 def _steps_vs_ref(torch, model, opt, batches, ref, mt: str, what: str,
                   p_tol: float = 5e-4, flips: float = 0.0,
                   shift_free=SHIFT_FREE, rows=None,
-                  objective=("RAW_MSE", 0.2)):
+                  objective=("RAW_MSE", 0.2), step=None):
     """Train `model` one step per batch of `batches` and hold the run
     against the JAX trainer's in `ref` (under `<mt>/`): losses within
     1e-4 relative, step-1 gradients within 1e-4 of each tensor's max
@@ -1258,12 +1275,14 @@ def _steps_vs_ref(torch, model, opt, batches, ref, mt: str, what: str,
     default) are held within steps * lr of the init instead. `rows`
     ({name: row ids}) compares only those rows of a tensor, where the
     fixture stores only those (MPCN's word table). `objective` is the
-    (loss, hinge margin) of the steps. Prints the worst param
-    element with its step-1 gradients and Adam moments. Returns (losses,
-    step-1 grads, params), unsliced."""
+    (loss, hinge margin) of the steps; `step` replaces `train_step`
+    (a mesh rank's step, returning the batch's loss). Prints the worst
+    param element with its step-1 gradients and Adam moments. Returns
+    (losses, step-1 grads, params), unsliced."""
     import numpy as np
 
     from reviews4rec_torch.train.loop import train_step
+    train_step = step or train_step
     from reviews4rec_torch.weights import params_from_flax
 
     grads = {}
@@ -5051,6 +5070,481 @@ def cli_phase(torch, textcnn, ds, device) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------
+# meshes: torch.distributed ranks on the one card
+# ---------------------------------------------------------------------
+MESH_DIR = ROOT / "build" / "mesh_smoke"
+# the seconds a world of ranks may take, start-up included
+MESH_TIMEOUT = 300
+MESH_STEPS = 8
+# ms a step: the median of this many steps after the checked ones
+MESH_TIMED = 10
+
+
+def _mesh_step(mesh):
+    """A mesh rank's training step: `train_step` on this rank's rows,
+    returning the whole batch's loss (summed over the data axis)."""
+    from reviews4rec_torch.train.loop import train_step
+
+    def step(model, opt, batch, gen=None, *objective):
+        loss, sq, n = train_step(model, opt, batch, gen, *objective)
+        return mesh.all_reduce(loss, mesh.data_axis), sq, n
+
+    return step
+
+
+def _timed_steps(torch, model, opt, batches, step) -> float:
+    """The median ms of `MESH_TIMED` steps over `batches` (cycled), each
+    ended by a synchronize."""
+    import statistics
+    times = []
+    for j in range(MESH_TIMED):
+        t0 = time.perf_counter()
+        step(model, opt, batches[j % len(batches)]())
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def _mesh_model(torch, ds, device, mt, mesh_shape, mesh=True, **flags):
+    """(hp, model with the e2e_ref.npz init of `mt` (MF_dot: its seeded
+    init), on the mesh of `mesh_shape` when `mesh`, batches: the first
+    MESH_STEPS train batches, this rank's rows of them)."""
+    from reviews4rec_torch.config import HyperParams
+    from reviews4rec_torch.data import Batcher
+    from reviews4rec_torch.models import build_model
+    from reviews4rec_torch.parallel.mesh import (host_slice, mesh_from_hp,
+                                                 shard_model)
+    from reviews4rec_torch.utils.device import to_device
+    from reviews4rec_torch.utils.io import load_npz
+    from reviews4rec_torch.weights import load_flax_params
+
+    hp = ds.apply_to(HyperParams(
+        model_type=mt, dataset="e2e", latent_size=10, batch_size=256,
+        input_length=1000, dropout=0.0,
+        mesh_shape=tuple(mesh_shape) if mesh else (1, 1), **flags))
+    model = build_model(hp, ds.word_vectors, device=device)
+    if mt != "MF_dot":
+        init = load_npz(str(FIXTURE))
+        load_flax_params(model, _subtree(init, f"{mt}/params/"))
+    m = None
+    if mesh:
+        m = mesh_from_hp(hp)
+        shard_model(model, hp, m)
+    recs = ds.materialize(hp, "train")
+    batches = [lambda b=host_slice(batch, m): to_device(b, device)
+               for batch, _ in zip(Batcher(recs, hp.batch_size),
+                                   range(MESH_STEPS))]
+    return hp, model, batches, m
+
+
+def _plain_steps(torch, model, opt, batches, step):
+    """Losses and final params (whole tables) of one step a batch."""
+    from reviews4rec_torch.parallel.mesh import full_params
+    model.train()
+    losses = torch.stack([step(model, opt, b())[0] for b in batches])
+    params = full_params(model, model.state_dict())
+    # copies: the timed steps after these go on training the model
+    return (losses.cpu().numpy().copy(),
+            {k: v.detach().cpu().numpy().copy() for k, v in params.items()})
+
+
+def _mesh_deepconn(torch, textcnn, ds, device) -> dict:
+    """deepconn at full width on (2, 1): the checked steps against
+    train_ref.npz, their losses and params, ms a step, launches."""
+    from reviews4rec_torch.train.loop import make_optimizer
+    from reviews4rec_torch.utils.io import load_npz
+
+    hp, model, batches, mesh = _mesh_model(torch, ds, device, "deepconn",
+                                           (2, 1), use_pallas=True)
+    opt = make_optimizer(hp, model)
+    step = _mesh_step(mesh)
+    _reset(textcnn)
+    losses, _, params = _steps_vs_ref(
+        torch, model, opt, batches, load_npz(str(TRAIN_FIXTURE)), "deepconn",
+        f"training steps on a (2, 1) mesh, rank {mesh.rank}", step=step)
+    torch.cuda.synchronize()
+    launches = dict(textcnn.launches)
+    want = 2 * MESH_STEPS
+    if not (launches[textcnn.FWD] == launches[textcnn.BWD_DG] == want):
+        raise AssertionError(f"expected {want} forward and dG launches on "
+                             f"each rank, got {launches}")
+    ms = _timed_steps(torch, model, opt, batches, step)
+    return {"losses": losses.cpu().numpy().copy(), "launches": launches,
+            "ms": ms, "params": {k: v.cpu().numpy().copy()
+                                 for k, v in params.items()}}
+
+
+def _entity_steps_model(torch, ds, device, mesh_shape):
+    """(hp, deepconn with the e2e_ref.npz init, on the (2, 1) mesh when
+    `mesh_shape`, and MESH_STEPS batches of the entity cache with
+    `pallas_fuse_rows`: rows 0.. in order, this rank's of them)."""
+    from reviews4rec_torch.parallel.mesh import host_slice, shard_cache
+    from reviews4rec_torch.train.loop import (EntityCache,
+                                              build_entity_tables,
+                                              gather_cached_batch)
+    from reviews4rec_torch.utils.device import to_device
+
+    hp, model, _, mesh = _mesh_model(
+        torch, ds, device, "deepconn", mesh_shape, mesh=bool(mesh_shape),
+        use_pallas=True, pallas_fuse_rows=True, **ENTITY)
+    tables = {k + "__table": v for k, v in
+              build_entity_tables(hp, ds, device).items()}
+    cache = EntityCache(to_device(ds.materialize_entity(hp, "train"), device),
+                        tables)
+    if mesh is not None:
+        cache = shard_cache(cache, mesh)
+    bs = hp.batch_size
+
+    def batch(s):
+        rows = host_slice({"row": torch.arange(s * bs, (s + 1) * bs)}, mesh)
+        rows = rows["row"].to(device)
+        return gather_cached_batch(cache, rows, torch.ones(
+            rows.shape[0], device=device))
+
+    return hp, model, [lambda s=s: batch(s) for s in range(MESH_STEPS)], mesh
+
+
+def _mesh_entity_steps(torch, textcnn, ds, device) -> dict:
+    """deepconn on the entity cache with pallas_fuse_rows on (2, 1), 8
+    steps at dropout 0 (each step gathers its rows from the data ranks'
+    shards of the example arrays): losses, params, ms a step, launches."""
+    from reviews4rec_torch.train.loop import make_optimizer
+
+    hp, model, batches, mesh = _entity_steps_model(torch, ds, device, (2, 1))
+    opt = make_optimizer(hp, model)
+    step = _mesh_step(mesh)
+    _reset(textcnn)
+    losses, params = _plain_steps(torch, model, opt, batches, step)
+    torch.cuda.synchronize()
+    launches = dict(textcnn.launches)
+    want = 2 * MESH_STEPS
+    if not (launches[textcnn.FWD_ROWS] == launches[textcnn.BWD_DG_ROWS]
+            == want):
+        raise AssertionError(f"expected {want} rows forward and dG launches "
+                             f"on each rank, got {launches}")
+    return {"losses": losses, "params": params, "launches": launches,
+            "ms": _timed_steps(torch, model, opt, batches, step)}
+
+
+def _entity_run_moved(torch, ds, device, log_dir) -> dict:
+    """The one-process entity `api.run` from an init moved by one f32 ulp
+    (each param element times 1 +- 2^-23, fixed signs): how far f32
+    rounding alone carries the run's metrics in its 311 steps."""
+    from reviews4rec_torch.api import finalize
+    from reviews4rec_torch.models import build_model
+    from reviews4rec_torch.train.loop import train_complete
+
+    hp = _mesh_entity_hp(ds, log_dir)
+    model = build_model(hp, ds.word_vectors, device=device)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in model.parameters():
+            sign = torch.randint(0, 2, p.shape, generator=gen) * 2.0 - 1.0
+            p.mul_(1.0 + sign.to(device) * 2.0 ** -23)
+    best, _ = train_complete(hp, model, ds)
+    model.load_state_dict(best)
+    return finalize(hp, model, ds, device=device)[0]
+
+
+def _mesh_entity_hp(ds, log_dir, **kw):
+    from reviews4rec_torch.config import HyperParams
+    return ds.apply_to(HyperParams(
+        model_type="deepconn", dataset="e2e", latent_size=10,
+        batch_size=256, epochs=1, use_pallas=True, pallas_fuse_rows=True,
+        save_model=False, log_dir=log_dir, model_dir=log_dir, **ENTITY,
+        **kw))
+
+
+def _mesh_entity(torch, textcnn, ds, device) -> dict:
+    """`api.run` of deepconn on the entity cache with pallas_fuse_rows on
+    (2, 1), 1 epoch: metrics, seconds, launches (the rows kernels)."""
+    import math
+
+    from reviews4rec_torch.api import run
+
+    hp = _mesh_entity_hp(ds, str(MESH_DIR / "logs"), mesh_shape=(2, 1))
+    steps = math.ceil(len(ds.splits["train"]) / hp.batch_size)
+    _reset(textcnn)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics, _, _ = run(hp, ds, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(textcnn.launches)
+    if launches[textcnn.BWD_DG_ROWS] != 2 * steps or \
+            launches[textcnn.FWD_ROWS] < 2 * steps:
+        raise AssertionError(f"expected 2 dG-rows and at least 2 "
+                             f"forward-rows launches a step ({steps} steps) "
+                             f"on each rank, got {launches}")
+    return {"metrics": metrics, "s": wall, "launches": launches,
+            "steps": steps}
+
+
+def _mesh_steps(torch, textcnn, ds, device, mt, mesh_shape, **flags):
+    """8 steps on the mesh: losses, whole params, ms a step, launches."""
+    from reviews4rec_torch.train.loop import make_optimizer
+
+    hp, model, batches, mesh = _mesh_model(torch, ds, device, mt, mesh_shape,
+                                           **flags)
+    opt = make_optimizer(hp, model)
+    step = _mesh_step(mesh)
+    _reset(textcnn)
+    losses, params = _plain_steps(torch, model, opt, batches, step)
+    torch.cuda.synchronize()
+    launches = dict(textcnn.launches)
+    return {"losses": losses, "params": params, "launches": launches,
+            "ms": _timed_steps(torch, model, opt, batches, step)}
+
+
+def _mesh_nccl(torch, textcnn, ds, device) -> dict:
+    """One all-reduce over the NCCL group `initialize` brought up."""
+    import torch.distributed as dist
+    x = torch.full((4,), 1.0 + dist.get_rank(), device=device)
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    return {"backend": dist.get_backend(), "sum": x.cpu().tolist()}
+
+
+MESH_TASKS = {
+    "deepconn": _mesh_deepconn, "entity": _mesh_entity,
+    "entity_steps": _mesh_entity_steps,
+    "seq": lambda torch, textcnn, ds, device: _mesh_steps(
+        torch, textcnn, ds, device, "deepconn", (1, 2), seq_parallel=True),
+    "mf_psum": lambda torch, textcnn, ds, device: _mesh_steps(
+        torch, textcnn, ds, device, "MF_dot", (2, 2),
+        embedding_lookup="psum"),
+    "mf_a2a": lambda torch, textcnn, ds, device: _mesh_steps(
+        torch, textcnn, ds, device, "MF_dot", (2, 2),
+        embedding_lookup="a2a"),
+    "nccl": _mesh_nccl}
+
+
+def mesh_rank(tasks: str, world: int, rank: int, init: str, out: str,
+              backend=None) -> None:
+    """One rank of a mesh world (a process of its own): brings up the
+    process group through `parallel.distributed.initialize` (the card is
+    cuda:(rank % device_count)), runs `tasks` (comma-separated keys of
+    MESH_TASKS) in order and pickles their results to out/rank<r>.pkl."""
+    import pickle
+
+    import torch
+
+    from reviews4rec_torch.data import ReviewDataset
+    from reviews4rec_torch.ops import textcnn
+    from reviews4rec_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(f"file://{init}", world, rank, backend=backend)
+    device = distributed.device()
+    print(f"rank {rank} of {world}: {device}, backend "
+          f"{torch.distributed.get_backend()}", flush=True)
+    ds = None if tasks == "nccl" else ReviewDataset.load(str(CORPUS_DIR))
+    results = {}
+    for task in tasks.split(","):
+        results[task] = MESH_TASKS[task](torch, textcnn, ds, device)
+    with open(Path(out) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(results, f)
+    distributed.shutdown()
+
+
+def _start_world(tasks: str, world: int, backend=None):
+    """Start the `world` rank processes of `tasks`; stdout and stderr of
+    each to a file under MESH_DIR."""
+    out = MESH_DIR / f"{tasks.replace(',', '+')}-{world}"
+    out.mkdir(parents=True)
+    procs = []
+    for rank in range(world):
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+                f"import chip_smoke; chip_smoke.mesh_rank({tasks!r}, "
+                f"{world}, {rank}, {str(out / 'rendezvous')!r}, "
+                f"{str(out)!r}, {backend!r})")
+        log = open(out / f"rank{rank}.log", "w")
+        procs.append((subprocess.Popen([sys.executable, "-c", code],
+                                       cwd=str(ROOT), stdout=log,
+                                       stderr=subprocess.STDOUT), log))
+    return out, procs, time.perf_counter()
+
+
+def _finish_world(world, must_pass: bool = True,
+                  timeout: float = MESH_TIMEOUT):
+    """Wait for a world (killing every rank `timeout` s after its start);
+    the rank results in rank order, or, when `must_pass` is False, the
+    ranks' (exit code, output)."""
+    import pickle
+
+    out, procs, t0 = world
+    codes = []
+    for p, log in procs:
+        try:
+            codes.append(p.wait(timeout=max(1.0, timeout - (
+                time.perf_counter() - t0))))
+        except subprocess.TimeoutExpired:
+            codes.append(None)
+        log.close()
+    for p, _ in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    texts = [(out / f"rank{r}.log").read_text() for r in range(len(procs))]
+    if not must_pass:
+        return list(zip(codes, texts))
+    if any(c != 0 for c in codes):
+        for r, (c, text) in enumerate(zip(codes, texts)):
+            print(f"--- {out.name} rank {r} exit {c}:\n{text[-4000:]}")
+        raise AssertionError(f"a rank of {out.name} failed: exit codes "
+                             f"{codes}")
+    for r, text in enumerate(texts):
+        print(f"  [{out.name} rank {r}] " + text.strip().replace(
+            "\n", f"\n  [{out.name} rank {r}] "))
+    results = []
+    for r in range(len(procs)):
+        with open(out / f"rank{r}.pkl", "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def _close(name, got, want, loss_tol=1e-4, p_tol=5e-4):
+    """Losses within `loss_tol` relative and params within `p_tol` of the
+    one-process run; returns the two errors."""
+    import numpy as np
+    loss_err = float(np.max(np.abs(got["losses"] - want["losses"])
+                            / np.abs(want["losses"])))
+    p_err = max(float(np.abs(got["params"][k] - v).max())
+                for k, v in want["params"].items())
+    print(f"  {name}: against one process, max loss err {loss_err:.2e} "
+          f"(relative), max|param err| {p_err:.2e}")
+    if set(got["params"]) != set(want["params"]) or not (
+            loss_err <= loss_tol and p_err <= p_tol):
+        raise AssertionError(f"{name} on the mesh differs from one process")
+    return loss_err, p_err
+
+
+def mesh_phase(torch, textcnn, ds, device, nccl: bool = True) -> dict:
+    """The `mesh` phase: ranks as processes of their own on the one card
+    (gloo, as `initialize` picks for several ranks on one card), held
+    against the same work in this process, and (`nccl`) the NCCL checks.
+    Returns the ranks' launches, summed."""
+    import shutil
+
+    import numpy as np
+
+    from reviews4rec_torch.api import run
+    from reviews4rec_torch.parallel.distributed import pick_backend
+    from reviews4rec_torch.train.loop import make_optimizer, train_step
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    cards = torch.cuda.device_count()
+    print(f"backend initialize picks: 2 ranks on {cards} card(s) -> "
+          f"{pick_backend(2, device)}, 1 rank -> {pick_backend(1, device)}")
+    # NCCL at world size 1, NCCL asked for two ranks on the one card, and
+    # MF_dot on (2, 2), side by side
+    if nccl:
+        nccl1 = _start_world("nccl", 1)
+        shared = _start_world("nccl", 2, backend="nccl")
+    mf = _start_world("mf_psum,mf_a2a", 4)
+    if nccl:
+        got = _finish_world(nccl1)[0]["nccl"]
+        print(f"NCCL at world size 1: backend {got['backend']}, all-reduce "
+              f"{got['sum']}")
+        if got["backend"] != "nccl" or got["sum"] != [1.0] * 4:
+            raise AssertionError("the NCCL group did not come up")
+        for r, (code, text) in enumerate(_finish_world(
+                shared, must_pass=False, timeout=90)):
+            said = [ln for ln in text.splitlines()
+                    if "NCCL" in ln or "rror" in ln][-6:]
+            print(f"NCCL with two ranks on one card, rank {r}: exit {code}; "
+                  + (" | ".join(said) if said else "no error printed"))
+    mf = _finish_world(mf)
+
+    # the same work in this process, the card otherwise idle
+    single = {}
+    for task, mt, flags in (("deepconn", "deepconn", dict(use_pallas=True)),
+                            ("mf", "MF_dot", {}), ("entity_steps", None, {})):
+        if mt is None:
+            hp, model, batches, _ = _entity_steps_model(torch, ds, device,
+                                                        None)
+        else:
+            hp, model, batches, _ = _mesh_model(torch, ds, device, mt, None,
+                                                mesh=False, **flags)
+        opt = make_optimizer(hp, model)
+        losses, params = _plain_steps(torch, model, opt, batches, train_step)
+        single[task] = {"losses": losses, "params": params,
+                        "ms": _timed_steps(torch, model, opt, batches,
+                                           train_step)}
+    with_log = str(MESH_DIR / "single_logs")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    entity_want, _, _ = run(_mesh_entity_hp(ds, with_log), ds, device=device)
+    torch.cuda.synchronize()
+    entity_s = time.perf_counter() - t0
+    moved = _entity_run_moved(torch, ds, device,
+                              str(MESH_DIR / "moved_logs"))
+    spread = {"MSE": abs(moved["MSE"] - entity_want["MSE"]),
+              "HR@1": abs(moved["HR@1"] - entity_want["HR@1"])}
+    print(f"entity api.run in one process from an init moved by one ulp: "
+          f"{moved}; |MSE diff| {spread['MSE']:.4f}, |HR@1 diff| "
+          f"{spread['HR@1']:.2f}")
+
+    ranks = _finish_world(_start_world("deepconn,entity_steps,entity,seq",
+                                       2))
+    launches = {k: 0 for k in textcnn.launches}
+    for res in ranks + mf:
+        for task in res.values():
+            for k, v in task["launches"].items():
+                launches[k] += v
+    # deepconn (2, 1) against one process
+    for r, res in enumerate(ranks):
+        _close(f"deepconn (2, 1) rank {r}", res["deepconn"],
+               single["deepconn"])
+        _close(f"entity deepconn (2, 1) rank {r}", res["entity_steps"],
+               single["entity_steps"], p_tol=ENTITY_PARAMS_TOL)
+        _close(f"seq_parallel deepconn (1, 2) rank {r}", res["seq"],
+               single["deepconn"])
+    for r, res in enumerate(mf):
+        for task in ("mf_psum", "mf_a2a"):
+            _close(f"MF_dot (2, 2) {task[3:]} rank {r}", res[task],
+                   single["mf"])
+    # entity api.run against one process: 311 steps at dropout 0.6 carry
+    # f32 summation order (the mesh sums the batch in two halves) into the
+    # metrics as far as a one-ulp move of the init does in one process,
+    # so the bounds are 3e-4 in MSE and HR@1 equal, or twice that spread
+    mse_tol = max(3e-4, 2 * spread["MSE"])
+    hr_tol = 2 * spread["HR@1"]
+    for r, res in enumerate(ranks):
+        got = res["entity"]["metrics"]
+        print(f"  entity api.run (2, 1) rank {r}: {res['entity']['s']:.1f} s "
+              f"({res['entity']['steps']} steps), {got}; one process "
+              f"{entity_s:.1f} s, {entity_want}; |MSE diff| "
+              f"{abs(got['MSE'] - entity_want['MSE']):.4f} (bound "
+              f"{mse_tol:.4f}), |HR@1 diff| "
+              f"{abs(got['HR@1'] - entity_want['HR@1']):.2f} (bound "
+              f"{hr_tol:.2f})")
+        if not (abs(got["MSE"] - entity_want["MSE"]) <= mse_tol
+                and abs(got["HR@1"] - entity_want["HR@1"]) <= hr_tol
+                and np.isfinite([got[k] for k in ("MSE", "HR@1")]).all()):
+            raise AssertionError("entity api.run on the mesh differs from "
+                                 "one process")
+    ms = {"deepconn (2, 1)": [r["deepconn"]["ms"] for r in ranks],
+          "entity deepconn (2, 1)": [r["entity_steps"]["ms"] for r in ranks],
+          "seq_parallel deepconn (1, 2)": [r["seq"]["ms"] for r in ranks],
+          "MF_dot (2, 2) psum": [r["mf_psum"]["ms"] for r in mf],
+          "MF_dot (2, 2) a2a": [r["mf_a2a"]["ms"] for r in mf]}
+    print("ms a step (median of %d, B=256 a step in all ranks), one process: "
+          "deepconn %.3f, entity deepconn %.3f, MF_dot %.3f" % (
+              MESH_TIMED, single["deepconn"]["ms"],
+              single["entity_steps"]["ms"], single["mf"]["ms"]))
+    for name, values in ms.items():
+        print(f"  on the mesh, {name}: " + ", ".join(
+            f"rank {r} {v:.3f}" for r, v in enumerate(values)))
+    print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s; ranks' "
+          f"launches {launches}")
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    return launches
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--e2e-full", action="store_true",
@@ -5213,6 +5707,10 @@ def main(argv=None) -> None:
     # kernels (fused gather, out of core), one CLI run each
     if enter("cli"):
         paths.update(cli_phase(torch, textcnn, ds, device))
+    # torch.distributed ranks on the card: the forward and dG kernels
+    # (uncached steps) and the rows kernels (entity api.run) in every rank
+    if enter("mesh"):
+        paths["mesh"] = mesh_phase(torch, textcnn, ds, device)
     done = time.perf_counter() - start
     ends = [t for _, t in began[1:]] + [done]
     print(f"[{done:.1f} s] phases done; seconds by phase: " + ", ".join(

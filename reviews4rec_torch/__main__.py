@@ -10,6 +10,16 @@ final metric row and the log path, or with `--json` the metrics as one
 JSON line. `--device` picks the device (default: the GPU; 'cpu' runs
 the plain PyTorch path without one).
 
+A mesh (`--mesh_shape D,M`) runs as D * M processes, one a device, each
+started with the same flags plus `--coordinator host:port
+--num_processes D*M --process_id i` (or torch's MASTER_ADDR,
+MASTER_PORT, WORLD_SIZE and RANK in the environment), as the JAX
+package's multi-host flags: `parallel.distributed.initialize` brings up
+the process group, and rank i drives card i % the host's cards (or the
+CPU under `--device cpu`). Every rank prints the same `--json` line;
+only the primary (rank 0) prints the rest and writes logs, checkpoints
+and `--save_predictions`.
+
 Preprocessing has its own CLI: `python -m reviews4rec_torch.data.preprocess`.
 """
 
@@ -24,7 +34,6 @@ import typing
 
 from .config import ALL_MODELS, HyperParams
 
-MULTIHOST_FLAGS = ("coordinator", "num_processes", "process_id")
 
 
 def _tuple_parser(elem_type):
@@ -71,14 +80,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="device to run on (default: the GPU; 'cpu' to run "
                         "without one)")
-    # the JAX package's multi-host flags: parsed, refused when given
+    # the JAX package's multi-host flags: one process a device here
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="multi-host coordinator address (not ported: "
-                        "ROADMAP.md Queue 1 item 13)")
+                   help="address of rank 0's rendezvous in a "
+                        "multi-process run (torch.distributed, tcp)")
     p.add_argument("--num_processes", type=int, default=None,
-                   help="processes of a multi-host run (not ported)")
+                   help="processes of a multi-process run: one a device "
+                        "of --mesh_shape")
     p.add_argument("--process_id", type=int, default=None,
-                   help="this process's index (not ported)")
+                   help="this process's rank, in [0, --num_processes)")
     return p
 
 
@@ -92,14 +102,16 @@ def hp_from_args(args: argparse.Namespace) -> HyperParams:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     hp = hp_from_args(args)
-    given = [f"--{k}" for k in MULTIHOST_FLAGS if getattr(args, k) is not None]
-    if given:
-        raise NotImplementedError(
-            f"{', '.join(given)}: multi-host runs are not ported yet "
-            f"(ROADMAP.md Queue 1 item 13)")
-
-    from .utils.device import resolve_device
-    device = resolve_device(args.device)
+    from .parallel import distributed
+    multi = distributed.initialize(
+        args.coordinator, args.num_processes, args.process_id,
+        device=args.device)
+    if multi:
+        device = distributed.device()
+    else:
+        from .utils.device import resolve_device
+        device = resolve_device(args.device)
+    primary = distributed.is_primary()
 
     data_dir = hp.data_dir()
     if not os.path.exists(os.path.join(data_dir, "corpus.npz")):
@@ -112,6 +124,12 @@ def main(argv=None) -> int:
     from .data.corpus import ReviewDataset
     dataset = ReviewDataset.load(data_dir)
     metrics, _, _ = run(hp, dataset, quiet=False, device=device)
+    if multi:
+        distributed.shutdown()
+    if args.json:
+        print(json.dumps(metrics))
+    if not primary:
+        return 0
 
     if args.save_predictions:
         if hp.family in ("id", "review"):
@@ -131,9 +149,7 @@ def main(argv=None) -> int:
                   f"models have no persisted checkpoint to score from — "
                   f"use reviews4rec_torch.models.neighbors.run_neighbor "
                   f"in-process instead", file=sys.stderr)
-    if args.json:
-        print(json.dumps(metrics))
-    else:
+    if not args.json:
         body = " | ".join(f"{k} = {v}" for k, v in metrics.items())
         print(f"\nFINAL ({hp.model_type} on {hp.dataset}): {body}")
         print(f"log: {hp.log_file()}")

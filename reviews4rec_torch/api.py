@@ -19,6 +19,12 @@
   cache and the ranking over id-only grids (transnet's `this_doc` zeros
   of `input_length` words), with the same metrics as the host path
   (eval removes nothing).
+- On a mesh (`hp.mesh_shape` other than (1, 1); one process a device,
+  each calling `parallel.distributed.initialize` first) every rank
+  calls `run` with its own device: the trainer lays the model out on the
+  (data, model) grid, each data rank scores its rows, and every rank
+  returns the single-device metrics. Only the primary writes logs and
+  checkpoints.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from .data.batcher import Batcher
 from .data.corpus import ReviewDataset
 from .models import build_model
 from .models.mf import neumf_warm_start
+from .parallel.mesh import mesh_from_hp, shard_model
 from .train.checkpoint import checkpoint_path
 from .train.evaluate import (eval_ranking, evaluate, evaluate_cached,
                              split_eval_ks)
@@ -105,6 +112,11 @@ def _train_neumf(hp: HyperParams, dataset: ReviewDataset, quiet: bool,
             php, model, dataset, quiet=quiet,
             checkpoint_path=checkpoint_path(php) if hp.save_model else None)
     model = build_model(hp, device=device)
+    mesh = mesh_from_hp(hp)
+    if mesh is not None:
+        # the phases' best params are this rank's rows of each table:
+        # lay NeuMF out the same way before the surgery
+        shard_model(model, hp, mesh)
     model.load_state_dict(neumf_warm_start(model.state_dict(), best["GMF"],
                                            best["MLP"]))
     params, _ = train_complete(

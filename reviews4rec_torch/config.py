@@ -108,17 +108,20 @@ class HyperParams:
     total_words: int = 0
 
     # ---- runtime switches of the JAX package ----
-    # The port reads: mesh_shape (a mesh is refused, Queue 1 item 13),
-    # embedding_lookup, use_pallas with pallas_fuse_gather (the fused word
-    # gather, `ops.textcnn.textcnn_pool_embed`), scan_steps (S steps per
-    # dispatch, a CUDA-graph replay on the card), the cache_* switches and
-    # pallas_fuse_rows, and compute_dtype: without use_pallas (the JAX
-    # package's XLA branch, which casts the conv operands) a TextCNN model
-    # computes its conv on bf16 operands at "bfloat16" and raises, naming
-    # Queue 1 item 18, at any dtype but float32 and bfloat16; under
-    # use_pallas, where the JAX kernels choose their own dot dtype, it
-    # stays f32. seq_parallel raises the JAX package's ValueErrors, and on
-    # a mesh with a model axis names item 13.
+    # The port reads: mesh_shape / mesh_axes (a (data, model) mesh of
+    # torch.distributed ranks, one process a device: `parallel.mesh`),
+    # embedding_lookup (the row-sharded tables' lookup on a model axis
+    # > 1, `parallel.embedding`), seq_parallel (the TextCNN's time axis
+    # over the model axis, `parallel.sequence`), use_pallas with
+    # pallas_fuse_gather (the fused word gather,
+    # `ops.textcnn.textcnn_pool_embed`), scan_steps (S steps per dispatch,
+    # a CUDA-graph replay on the card; eager steps on a mesh), the cache_*
+    # switches and pallas_fuse_rows, and compute_dtype: without use_pallas
+    # (the JAX package's XLA branch, which casts the conv operands) a
+    # TextCNN model computes its conv on bf16 operands at "bfloat16", its
+    # doc caches held at bf16, and raises, naming Queue 1 item 18, at any
+    # dtype but float32 and bfloat16; under use_pallas, where the JAX
+    # kernels choose their own dot dtype, it stays f32.
     mesh_shape: Tuple[int, ...] = (1, 1)
     mesh_axes: Tuple[str, ...] = ("data", "model")
     compute_dtype: str = "float32"

@@ -25,10 +25,11 @@ def _mesh(hp: HyperParams):
 
 
 def _check_lookup(hp: HyperParams) -> None:
-    """`hp.embedding_lookup`: "gspmd" is the plain row gather. The
-    sharded lookups need a model axis of 2 or more, so without one the
-    JAX package's `ValueError`; with one, a mesh, which the port does not
-    have yet."""
+    """`hp.embedding_lookup`: "gspmd" is the plain row gather (the
+    owner-computes one on a model axis > 1). The sharded lookups need a
+    model axis of 2 or more, so without one the JAX package's
+    `ValueError`; with one, `parallel.mesh.shard_model` installs them
+    when the trainer lays the model out on the mesh."""
     if hp.embedding_lookup == "gspmd":
         return
     axis = hp.mesh_axes[1]
@@ -37,16 +38,18 @@ def _check_lookup(hp: HyperParams) -> None:
         raise ValueError(
             f"embedding_lookup={hp.embedding_lookup!r} needs a mesh with "
             f"{axis!r} axis > 1; got {mesh}")
-    raise NotImplementedError(
-        f"embedding_lookup={hp.embedding_lookup!r} shards the tables over "
-        f"a mesh: ROADMAP.md Queue 1 item 13")
+    if hp.embedding_lookup not in ("psum", "a2a"):
+        raise ValueError(f"unknown embedding_lookup {hp.embedding_lookup!r} "
+                         f"(expected gspmd | psum | a2a)")
 
 
 def _check_seq_parallel(hp: HyperParams) -> None:
     """`hp.seq_parallel` shards the TextCNN's time axis over the mesh's
     model axis: the JAX package's two `ValueError`s word for word (a
     model without a TextCNN; no model axis > 1), and its warning when
-    `use_pallas` is set too. With such a mesh: the port has no mesh yet."""
+    `use_pallas` is set too. With such a mesh, `parallel.mesh.shard_model`
+    splits every TextCNN's time axis when the trainer lays the model out,
+    and no TextCNN kernel runs (`parallel.sequence`)."""
     if not hp.seq_parallel:
         return
     mt = hp.model_type
@@ -65,9 +68,6 @@ def _check_seq_parallel(hp: HyperParams) -> None:
         raise ValueError(
             "seq_parallel=True needs a mesh with model axis > 1 "
             f"(mesh_shape={hp.mesh_shape})")
-    raise NotImplementedError(
-        "seq_parallel=True shards the TextCNN time axis over a mesh: "
-        "ROADMAP.md Queue 1 item 13")
 
 
 def _conv_dtype(hp: HyperParams) -> str:

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Dropout, _linear
+from .layers import Dropout, _linear, uniform
 
 AFFINITIES = ("SOFT", "BILINEAR", "TENSOR", "MLP", "MD")
 POOLINGS = ("MAX", "MIN", "SUM", "MEAN", "MATRIX")
@@ -47,8 +47,7 @@ def _xavier(shape: Tuple[int, ...], generator: Optional[torch.Generator]
 def gumbel_uniform(shape, generator: Optional[torch.Generator],
                    device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """Uniforms in [1e-20, 1), JAX's `uniform(minval=1e-20, maxval=1)`."""
-    return torch.rand(shape, generator=generator, device=device,
-                      dtype=dtype).clamp_min(1e-20)
+    return uniform(shape, generator, device, dtype).clamp_min(1e-20)
 
 
 def gumbel_softmax(logits: torch.Tensor, temperature: float,

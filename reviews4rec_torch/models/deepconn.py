@@ -12,7 +12,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .layers import FM, ScorerMLP, TextCNN, doc_shape
+from .layers import FM, ScorerMLP, TextCNN, doc_shape, take_rows
 
 
 class DeepCoNN(nn.Module):
@@ -89,7 +89,7 @@ class DeepCoNN(nn.Module):
         if self.use_fm:
             return (self.global_bias[0] + self.fm(cat)).reshape(lead)
         rating = (self.final(cat, generator)
-                  + self.user_bias[batch["user"].reshape(-1)]
-                  + self.item_bias[batch["item"].reshape(-1)]
+                  + take_rows(self, self.user_bias, batch["user"].reshape(-1))
+                  + take_rows(self, self.item_bias, batch["item"].reshape(-1))
                   + self.global_bias[0])
         return rating.reshape(lead)

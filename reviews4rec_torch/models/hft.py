@@ -24,14 +24,22 @@ The Gumbel noise comes from a `torch.Generator` seeded with `hp.seed`
 on the run's device (other numbers than JAX's), or from `gumbels`, one
 [tokens, K] tensor per E-step, which is how the tests feed JAX's draws
 in. Under `hp.lamda == 0` the gammas start U(0, 1) from the same
-generator, or from `gamma_init`. A mesh (`hp.mesh_shape` over more than
-one device) raises `NotImplementedError` naming ROADMAP.md Queue 1
-item 13; the JAX package shards the votes and tokens there.
+generator, or from `gamma_init`.
+
+On a mesh (`hp.mesh_shape` over more than one device; one process a
+device, `parallel.distributed`) the votes and the token stream are split
+over the data ranks, padded with weight 0 (`shard_hft_data`), and the
+parameters, count tables and eval sets stay whole on every rank. The
+energy is each rank's share of the vote term plus 1/n of the rest,
+summed over the ranks, and its gradient is summed likewise, so every
+rank takes the same L-BFGS step; the E-step draws its Gumbel noise at
+the whole token stream's shape and keeps the rank's tokens, so the draws
+do not depend on the sharding, and the count tables are summed over the
+ranks. Only the primary process writes the artifact files.
 """
 
 from __future__ import annotations
 
-import math
 import os
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -153,6 +161,56 @@ def build_hft_data(hp: HyperParams, dataset: ReviewDataset,
         votes_per_item=t(a["votes_per_item"], f32))
 
 
+def shard_hft_data(data: HFTData, mesh) -> HFTData:
+    """This data rank's contiguous share of the votes and of the token
+    stream, each padded to a multiple of the axis size with weight-0
+    entries (index 0); everything else stays whole."""
+    import dataclasses as dc
+
+    n, d = mesh.shape[mesh.data_axis], mesh.index[mesh.data_axis]
+
+    def mine(x):
+        per = -(-x.shape[0] // n)
+        part = x[d * per:(d + 1) * per]
+        return torch.cat([part, part.new_zeros(per - part.shape[0])])
+
+    return dc.replace(
+        data, users=mine(data.users), items=mine(data.items),
+        ratings=mine(data.ratings), vote_weight=mine(data.vote_weight),
+        tok_word=mine(data.tok_word), tok_item=mine(data.tok_item),
+        tok_weight=mine(data.tok_weight))
+
+
+class _GradSum(torch.autograd.Function):
+    """Identity whose backward sums the gradient over the data axis."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g, ctx.mesh.data_axis), None
+
+
+class _ValueSum(torch.autograd.Function):
+    """The sum over the data axis of each rank's share of a value whose
+    gradient `_GradSum` sums: the backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.all_reduce(x, mesh.data_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _data_total(mesh, t: torch.Tensor) -> torch.Tensor:
+    return t if mesh is None else mesh.all_reduce(t, mesh.data_axis)
+
+
 def _predict(params: Params, users: torch.Tensor, items: torch.Tensor
              ) -> torch.Tensor:
     return (params["alpha"]
@@ -161,15 +219,23 @@ def _predict(params: Params, users: torch.Tensor, items: torch.Tensor
                         dim=-1))
 
 
-def make_energy(data: HFTData, hp: HyperParams
+def make_energy(data: HFTData, hp: HyperParams, mesh=None
                 ) -> Callable[[Params, Dict, torch.Tensor], torch.Tensor]:
+    """The M-step's energy. On a mesh (`data` sharded) each rank's share
+    of it: the vote term of its votes plus 1/n of the other terms, summed
+    over the data axis in value and gradient."""
     lam, lreg = hp.lamda, hp.latent_reg
+    n = 1 if mesh is None else mesh.shape[mesh.data_axis]
 
     def energy(params: Params, counts: Dict[str, torch.Tensor],
                background: torch.Tensor) -> torch.Tensor:
+        if n > 1:
+            params = {k: _GradSum.apply(v, mesh) for k, v in params.items()}
         # rating term
         err = _predict(params, data.users, data.items) - data.ratings
-        res = torch.sum(err * err * data.vote_weight)
+        vote = torch.sum(err * err * data.vote_weight)
+        # on a mesh the other terms are each rank's 1/n
+        res = vote if n == 1 else torch.zeros_like(vote)
         # item-topic term
         act = params["kappa"] * params["gamma_i"]               # [I, K]
         logz = torch.logsumexp(act, dim=1, keepdim=True)
@@ -181,6 +247,8 @@ def make_energy(data: HFTData, hp: HyperParams
         wact = background[:, None] + params["topic_words"]      # [V, K]
         wlogz = torch.logsumexp(wact, dim=0, keepdim=True)
         res = res + -lam * torch.sum(counts["word_topic"] * (wact - wlogz))
+        if n > 1:
+            return _ValueSum.apply(vote + res / n, mesh)
         return res
 
     return energy
@@ -193,20 +261,23 @@ def _split_errors(params: Params, data: HFTData) -> Dict[str, float]:
 
 def init_params(data: HFTData, hp: HyperParams, verbose=print,
                 generator: Optional[torch.Generator] = None,
-                gamma_init: Optional[Tuple] = None
+                gamma_init: Optional[Tuple] = None, mesh=None
                 ) -> Tuple[Params, torch.Tensor]:
     """alpha = mean train rating, beta = mean residual over the all-split
     vote counts, both zeroed again when lambda > 0; gammas and topic
     words zero (U(0, 1) gammas from `generator`, or `gamma_init`
     (gamma_u, gamma_i), when lambda == 0); kappa 1; background = relative
-    word frequency. Prints the offset-only and offset+bias anchors."""
+    word frequency. Prints the offset-only and offset+bias anchors. On a
+    mesh the sums over votes and tokens are summed over the data axis."""
     K = hp.latent_size
     dev = data.ratings.device
     f32 = data.ratings.dtype
     zeros = lambda *shape: torch.zeros(shape, dtype=f32, device=dev)
-    n_votes = torch.clamp(torch.sum(data.vote_weight), min=1.0)
+    n_votes = torch.clamp(_data_total(mesh, torch.sum(data.vote_weight)),
+                          min=1.0)
     params = {
-        "alpha": torch.sum(data.ratings * data.vote_weight) / n_votes,
+        "alpha": _data_total(mesh, torch.sum(data.ratings * data.vote_weight))
+        / n_votes,
         "kappa": torch.tensor(1.0, dtype=f32, device=dev),
         "beta_u": zeros(data.num_users),
         "beta_i": zeros(data.num_items),
@@ -218,10 +289,10 @@ def init_params(data: HFTData, hp: HyperParams, verbose=print,
     verbose(f"Error w/ offset term only (train/valid/test) = "
             f"{errs['train']:.6f}/{errs['val']:.6f}/{errs['test']:.6f}")
     resid = (data.ratings - params["alpha"]) * data.vote_weight
-    beta_u = zeros(data.num_users).index_add_(0, data.users, resid) \
-        / data.votes_per_user
-    beta_i = zeros(data.num_items).index_add_(0, data.items, resid) \
-        / data.votes_per_item
+    beta_u = _data_total(mesh, zeros(data.num_users).index_add_(
+        0, data.users, resid)) / data.votes_per_user
+    beta_i = _data_total(mesh, zeros(data.num_items).index_add_(
+        0, data.items, resid)) / data.votes_per_item
     params = {**params, "beta_u": beta_u, "beta_i": beta_i}
     errs = _split_errors(params, data)
     verbose(f"Error w/ offset and bias (train/valid/test) = "
@@ -244,9 +315,10 @@ def init_params(data: HFTData, hp: HyperParams, verbose=print,
                                         device=dev, dtype=f32),
                   "gamma_i": torch.rand(data.num_items, K, generator=gen,
                                         device=dev, dtype=f32)}
-    total = torch.clamp(torch.sum(data.tok_weight), min=1.0)
-    background = zeros(data.num_words).index_add_(
-        0, data.tok_word, data.tok_weight) / total
+    total = torch.clamp(_data_total(mesh, torch.sum(data.tok_weight)),
+                        min=1.0)
+    background = _data_total(mesh, zeros(data.num_words).index_add_(
+        0, data.tok_word, data.tok_weight)) / total
     return params, background
 
 
@@ -322,16 +394,18 @@ class HFTTrainer:
                  gumbels: Optional[Sequence[torch.Tensor]] = None,
                  gamma_init: Optional[Tuple] = None,
                  dtype: torch.dtype = torch.float32):
-        if math.prod(hp.mesh_shape) > 1:
-            raise NotImplementedError(
-                f"HFT on a mesh (mesh_shape={hp.mesh_shape}) shards its "
-                f"votes and tokens over devices: ROADMAP.md Queue 1 item 13")
+        from ..parallel.mesh import mesh_from_hp
         self.hp = hp
         self.device = resolve_device(device)
         self.data = build_hft_data(hp, dataset, device=self.device,
                                    dtype=dtype)
+        self.mesh = mesh_from_hp(hp)
+        # the whole token count, at which the E-step draws its noise
+        self.tokens = self.data.tok_word.shape[0]
+        if self.mesh is not None:
+            self.data = shard_hft_data(self.data, self.mesh)
         self.dataset = dataset
-        self.energy = make_energy(self.data, hp)
+        self.energy = make_energy(self.data, hp, self.mesh)
         self.m_step = make_m_step(self.energy, hp.hft_grad_iters)
         self.verbose = verbose
         self.gumbels = gumbels
@@ -360,20 +434,36 @@ class HFTTrainer:
 
     def _e_step(self, params: Params, background: torch.Tensor, n: int):
         gumbel = self.gumbels[n] if self.gumbels is not None else None
+        dtype = self.data.ratings.dtype
         if gumbel is not None:
             gumbel = torch.as_tensor(np.asarray(gumbel),
-                                     dtype=self.data.ratings.dtype
-                                     ).to(self.device)
-        return e_step(params, background, self.data.tok_word,
-                      self.data.tok_item, self.hp.latent_size,
-                      generator=self.generator,
-                      tok_weight=self.data.tok_weight, gumbel=gumbel)
+                                     dtype=dtype).to(self.device)
+        mesh = self.mesh
+        if mesh is None:
+            return e_step(params, background, self.data.tok_word,
+                          self.data.tok_item, self.hp.latent_size,
+                          generator=self.generator,
+                          tok_weight=self.data.tok_weight, gumbel=gumbel)
+        # the whole stream's draws, this rank's tokens of them (the
+        # padding's rows are zeros: its tokens weigh 0)
+        K = self.hp.latent_size
+        if gumbel is None:
+            gumbel = gumbel_noise((self.tokens, K), self.generator,
+                                  self.device, dtype)
+        per, d = self.data.tok_word.shape[0], mesh.index[mesh.data_axis]
+        mine = gumbel[d * per:(d + 1) * per]
+        mine = torch.cat([mine, mine.new_zeros((per - mine.shape[0], K))])
+        counts = e_step(params, background, self.data.tok_word,
+                        self.data.tok_item, K,
+                        tok_weight=self.data.tok_weight, gumbel=mine)
+        return {k: _data_total(mesh, v) for k, v in counts.items()}
 
     def fit(self, em_iters: Optional[int] = None) -> "HFTTrainer":
         hp = self.hp
         em_iters = em_iters or hp.hft_em_iters
         params, background = init_params(self.data, hp, self.verbose,
-                                         self.generator, self.gamma_init)
+                                         self.generator, self.gamma_init,
+                                         self.mesh)
         counts = self._e_step(params, background, 0)
         best_valid = float("inf")
         best = {"params": params, "background": background}
@@ -456,5 +546,7 @@ def run_hft(hp: HyperParams, dataset: ReviewDataset, quiet: bool = True,
             ranks = torch.sum(preds[:, 1:] > preds[:, :1], dim=1)
             metrics.update(ranks_to_metrics(ranks.cpu().numpy(), wide_ks))
     ucm, icm = trainer.count_maps(trainer.params)
-    save_artifacts(trainer, hp, hr1, ucm, icm)
+    from ..parallel.distributed import is_primary
+    if is_primary():
+        save_artifacts(trainer, hp, hr1, ucm, icm)
     return metrics, ucm, icm

@@ -22,6 +22,53 @@ from ..ops.textcnn import (textcnn_pool, textcnn_pool_embed,
                             textcnn_pool_rows)
 
 
+# (index, count) of this process's rows of a batch split over a mesh's
+# data axis, while a model laid out on the mesh runs its forward
+# (`parallel.mesh.shard_model` sets it around the forward)
+_data_shard: Optional[Tuple[int, int]] = None
+
+
+def set_data_shard(shard: Optional[Tuple[int, int]]) -> None:
+    global _data_shard
+    _data_shard = shard
+
+
+def uniform(shape, generator: Optional[torch.Generator],
+            device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """`torch.rand(shape)` from `generator`. On a data shard of a mesh
+    (dim 0 of `shape` being this rank's rows of the batch), the draws of
+    the whole batch's shape, this rank's rows of them: the masks and
+    samples of single-device training, whatever the sharding."""
+    if _data_shard is None or _data_shard[1] == 1:
+        return torch.rand(shape, generator=generator, device=device,
+                          dtype=dtype)
+    index, count = _data_shard
+    rows = shape[0]
+    every = torch.rand((rows * count,) + tuple(shape[1:]),
+                       generator=generator, device=device, dtype=dtype)
+    return every[index * rows:(index + 1) * rows]
+
+
+def take_rows(module: nn.Module, table: torch.Tensor, ids: torch.Tensor,
+              embedding: bool = False) -> torch.Tensor:
+    """`table[ids]` for a per-entity table of `module`. On a mesh whose
+    model axis shards the table's rows, the mesh's lookup
+    (`parallel.embedding`): `hp.embedding_lookup` for the id models'
+    embeddings (`embedding=True`), the owner-computes gather otherwise."""
+    lookup = getattr(module, "embed_lookup" if embedding else "row_lookup",
+                     None)
+    return table[ids] if lookup is None else lookup(table, ids)
+
+
+def data_sum(module: nn.Module, t: torch.Tensor) -> torch.Tensor:
+    """`t` summed over the data axis of the mesh `module` is laid out on
+    (a per-batch count, such as a loss's weight sum), else `t`."""
+    mesh = getattr(module, "mesh", None)
+    if mesh is None:
+        return t
+    return mesh.all_reduce(t, mesh.data_axis)
+
+
 def _linear(n_in: int, n_out: int, generator: Optional[torch.Generator]
             ) -> nn.Linear:
     lin = nn.Linear(n_in, n_out)
@@ -32,9 +79,9 @@ def _linear(n_in: int, n_out: int, generator: Optional[torch.Generator]
 
 class Dropout(nn.Module):
     """flax's `nn.Dropout`: in training, keep each value with probability
-    1 - p and scale it by 1 / (1 - p), the mask drawn by `torch.rand`
-    from `generator` on the value's device; the identity in `eval()` or
-    at p = 0."""
+    1 - p and scale it by 1 / (1 - p), the mask drawn by `uniform` from
+    `generator` on the value's device; the identity in `eval()` or at
+    p = 0."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -45,8 +92,7 @@ class Dropout(nn.Module):
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        mask = torch.rand(x.shape, generator=generator, device=x.device,
-                          dtype=x.dtype) < keep
+        mask = uniform(x.shape, generator, x.device, x.dtype) < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
 
@@ -101,6 +147,35 @@ class TextCNN(nn.Module):
         self.conv_bias = nn.Parameter(torch.zeros(num_filters))
         self.fc = _linear(num_filters, latent_size, generator)
         self.dropout = Dropout(dropout)
+        # hp.seq_parallel: the mesh whose model axis splits the time axis
+        # (set by `parallel.mesh.shard_model`)
+        self.seq_mesh = None
+
+    def _seq_pool(self, x: torch.Tensor, table, skip, rows) -> torch.Tensor:
+        """The pooled conv with the time axis split over the mesh's model
+        axis (`parallel.sequence.textcnn_pool_seq`, plain PyTorch as the
+        JAX package's is XLA): the docs are embedded and masked whole,
+        then each model rank keeps its chunk."""
+        from ..parallel.sequence import textcnn_pool_seq
+        mesh = self.seq_mesh
+        n, m = mesh.shape[mesh.model_axis], mesh.index[mesh.model_axis]
+        if rows is not None:
+            x = x[rows.long()]
+        if table is not None and not x.is_floating_point():
+            x = table[x]
+        x = x.to(self.conv_kernel.dtype)
+        t = x.shape[1]
+        if skip is not None:
+            ts = torch.arange(t, device=x.device)[None, :]
+            st, ln = skip[:, :1].long(), skip[:, 1:2].long()
+            x = torch.where(((ts >= st) & (ts < st + ln))[..., None],
+                            torch.zeros((), dtype=x.dtype, device=x.device),
+                            x)
+        assert t % n == 0, (t, n)
+        c = t // n
+        return textcnn_pool_seq(x[:, m * c:(m + 1) * c], self.conv_kernel,
+                                self.conv_bias, self.window, mesh,
+                                mesh.model_axis)
 
     def forward(self, x: torch.Tensor,
                 table: Optional[torch.Tensor] = None,
@@ -115,6 +190,9 @@ class TextCNN(nn.Module):
         # example b reads row rows[b] (hp.pallas_fuse_rows). A float
         # [N, T, E] table goes to the row-gathered kernels, which read
         # the rows themselves; int [N, T] ids are gathered first.
+        if self.seq_mesh is not None:
+            y = self._seq_pool(x, table, skip, rows)
+            return self.dropout(self.fc(y), generator)
         bf16 = self.dtype == torch.bfloat16
         if (rows is not None and x.is_floating_point() and x.dim() == 3
                 and not bf16):

@@ -17,7 +17,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
-from .layers import FM, Dropout, MLPTower, _linear
+from .layers import FM, Dropout, MLPTower, _linear, take_rows
 
 
 def _table(rows: int, width: int, generator: Optional[torch.Generator]
@@ -39,7 +39,8 @@ class BiasOnly(nn.Module):
         self.global_bias = nn.Parameter(torch.full((1,), 4.0))
 
     def _biases(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return (self.user_bias[batch["user"]] + self.item_bias[batch["item"]]
+        return (take_rows(self, self.user_bias, batch["user"])
+                + take_rows(self, self.item_bias, batch["item"])
                 + self.global_bias[0])
 
     def forward(self, batch: Dict[str, torch.Tensor],
@@ -66,8 +67,10 @@ class _Embedded(BiasOnly):
     def _pair(self, batch: Dict[str, torch.Tensor],
               generator: Optional[torch.Generator], prefix: str = ""
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        u = getattr(self, f"{prefix}user_embedding")[batch["user"]]
-        i = getattr(self, f"{prefix}item_embedding")[batch["item"]]
+        u = take_rows(self, getattr(self, f"{prefix}user_embedding"),
+                      batch["user"], embedding=True)
+        i = take_rows(self, getattr(self, f"{prefix}item_embedding"),
+                      batch["item"], embedding=True)
         return self.dropout(u, generator), self.dropout(i, generator)
 
 

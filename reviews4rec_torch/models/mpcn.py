@@ -41,7 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .att import CoAttention, DualAttention
-from .layers import Dropout, Highway, _linear
+from .layers import Dropout, Highway, _linear, take_rows
 
 HEADS = ("FM", "DOT", "MLP", "MF")
 ENCODERS = ("NBOW", "CNN")
@@ -125,6 +125,8 @@ class MPCN(nn.Module):
             self.fm_lin = _linear(2 * width, 1, generator)
 
     def _embed(self, ids: torch.Tensor) -> torch.Tensor:
+        if getattr(self, "row_lookup", None) is not None:
+            return take_rows(self, self.word_embedding, ids)
         return F.embedding(ids, self.word_embedding)
 
     def _reviews(self, doc: torch.Tensor) -> Tuple[torch.Tensor,

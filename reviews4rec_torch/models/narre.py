@@ -15,7 +15,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .layers import Dropout, MLPTower, ScorerMLP, TextCNN, doc_shape
+from .layers import (Dropout, MLPTower, ScorerMLP, TextCNN, doc_shape,
+                     take_rows)
 
 
 class NARRE(nn.Module):
@@ -100,17 +101,21 @@ class NARRE(nn.Module):
 
         # the user's reviews attend over the items they were written
         # about, the item's over the users who wrote them
-        u_att = self._attend(uf, self.item_embedding[reviewed], self.att_user,
-                             generator, batch.get("user_skip"))
-        i_att = self._attend(itf, self.user_embedding[who_gave],
+        u_att = self._attend(uf, take_rows(self, self.item_embedding, reviewed),
+                             self.att_user, generator, batch.get("user_skip"))
+        i_att = self._attend(itf, take_rows(self, self.user_embedding,
+                                            who_gave),
                              self.att_item, generator, batch.get("item_skip"))
         if u_lead != lead:
             u_att = u_att.reshape(u_lead + u_att.shape[-1:]).expand(
                 lead + u_att.shape[-1:]).reshape(-1, u_att.shape[-1])
 
-        u = u_att + self.dropout(self.user_embedding[user_id], generator)
-        i = i_att + self.dropout(self.item_embedding[item_id], generator)
+        u = u_att + self.dropout(
+            take_rows(self, self.user_embedding, user_id), generator)
+        i = i_att + self.dropout(
+            take_rows(self, self.item_embedding, item_id), generator)
         rating = self.final(u * i, generator)[..., 0]
-        out = (rating + self.user_bias[user_id] + self.item_bias[item_id]
+        out = (rating + take_rows(self, self.user_bias, user_id)
+               + take_rows(self, self.item_bias, item_id)
                + self.global_bias[0])
         return out.reshape(lead)

@@ -23,7 +23,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .layers import FM, Dropout, TextCNN, _linear, doc_shape
+from .layers import (FM, Dropout, TextCNN, _linear, data_sum, doc_shape,
+                     take_rows)
 
 
 class TransNet(nn.Module):
@@ -119,14 +120,16 @@ class TransNet(nn.Module):
         # transform loss: the weight-masked mean of the per-example L2
         diff = source_ir - target_ir.detach()
         trans_loss = (torch.sum(torch.sum(diff * diff, dim=-1) * w)
-                      / torch.clamp(torch.sum(w), min=1.0))
+                      / torch.clamp(data_sum(self, torch.sum(w)), min=1.0))
 
         # source prediction off the detached source_ir
         fm_in = source_ir.detach()
         if self.plus:
             fm_in = torch.cat(
-                [self.dropout(self.user_embedding[user_id], generator),
-                 self.dropout(self.item_embedding[item_id], generator),
+                [self.dropout(take_rows(self, self.user_embedding, user_id),
+                              generator),
+                 self.dropout(take_rows(self, self.item_embedding, item_id),
+                              generator),
                  fm_in], dim=-1)
         source_out = self.source_fm(fm_in)
         return (source_out.reshape(lead), target_out.reshape(lead),

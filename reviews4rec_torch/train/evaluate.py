@@ -18,6 +18,9 @@ them:
   an id-only candidate grid's docs from the entity tables. Eval removes
   nothing, so the entity docs are the per-example eval docs and the
   metrics equal the host path's.
+- On a mesh (`parallel.mesh.shard_model`) each data rank scores its rows
+  of every batch and the outputs are gathered over the data axis in
+  order, so every rank reduces the single-device outputs.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 
 from ..config import HyperParams
 from ..data.batcher import Batcher
+from ..parallel.mesh import host_slice, model_mesh
 from ..utils.device import to_device
 
 
@@ -101,14 +105,16 @@ def evaluate(model: torch.nn.Module, batcher: Batcher, hp: HyperParams,
     """Split MSE and per-train-frequency MSE maps. Every batch is
     launched before the outputs come back to the host in one copy."""
     model.eval()
+    mesh = model_mesh(model)
     outs, weights, users_l, items_l = [], [], [], []
     for batch in batcher:
-        outs.append(eval_step(model, to_device(batch, device)))
+        outs.append(eval_step(model, to_device(host_slice(batch, mesh),
+                                               device)))
         w = batch["weight"].astype(bool)
         weights.append(w)
         users_l.append(batch["user"][w])
         items_l.append(batch["item"][w])
-    outs = _to_host(outs)
+    outs = _to_host(outs, mesh)
     return _reduce_eval(outs, weights, users_l, items_l, user_count,
                         item_count)
 
@@ -124,10 +130,11 @@ def evaluate_cached(model: torch.nn.Module, cache, records: Dict[str, np.ndarray
     user / item ids for the count maps."""
     from .loop import gather_cached_batch
     model.eval()
+    mesh = model_mesh(model)
     n = len(records["rating"])
     outs, weights, users_l, items_l = [], [], [], []
     for batch in Batcher({"row": np.arange(n)}, hp.batch_size):
-        placed = to_device(batch, device)
+        placed = to_device(host_slice(batch, mesh), device)
         outs.append(eval_step(model, gather_cached_batch(
             cache, placed["row"], placed["weight"])))
         w = batch["weight"].astype(bool)
@@ -135,19 +142,34 @@ def evaluate_cached(model: torch.nn.Module, cache, records: Dict[str, np.ndarray
         sel = batch["row"][w]
         users_l.append(records["user"][sel])
         items_l.append(records["item"][sel])
-    outs = _to_host(outs)
+    outs = _to_host(outs, mesh)
     return _reduce_eval(outs, weights, users_l, items_l, user_count,
                         item_count)
 
 
-def _to_host(outs: List[Dict[str, torch.Tensor]]
+def _to_host(outs: List[Dict[str, torch.Tensor]], mesh=None
              ) -> List[Dict[str, np.ndarray]]:
+    """Per-batch outputs on the host. On a mesh, each data rank's rows of
+    every batch gathered in order (a per-batch scalar, transnet's
+    transform loss, is each rank's share of the batch's: summed)."""
     if not outs:
         return []
     keys = list(outs[0])
-    stacked = {k: torch.stack([o[k] for o in outs]).cpu().numpy()
-               for k in keys}
+    stacked = {k: torch.stack([o[k] for o in outs]) for k in keys}
+    if mesh is not None:
+        stacked = {k: _gather_rows(v, mesh) for k, v in stacked.items()}
+    stacked = {k: v.cpu().numpy() for k, v in stacked.items()}
     return [{k: stacked[k][j] for k in keys} for j in range(len(outs))]
+
+
+def _gather_rows(t: torch.Tensor, mesh) -> torch.Tensor:
+    """[nb, b, ...] per-batch rank rows -> [nb, B, ...] over the data
+    axis, rank order; [nb] per-batch scalars are summed."""
+    every = mesh.all_gather(t, mesh.data_axis)           # [n, nb, ...]
+    if t.dim() == 1:
+        return every.sum(0)
+    return every.transpose(0, 1).reshape(
+        (t.shape[0], -1) + tuple(t.shape[2:]))
 
 
 def assemble_entity_grid(batch: Dict[str, torch.Tensor],
@@ -188,9 +210,13 @@ def score_grid(model: torch.nn.Module, records: Dict[str, np.ndarray],
     `entity_tables` the records are id-only and each batch's docs are
     gathered on the device (`assemble_entity_grid`)."""
     model.eval()
+    mesh = model_mesh(model)
+    if mesh is not None:   # whole rows for every data rank
+        n = mesh.shape[mesh.data_axis]
+        batch_size = -(-batch_size // n) * n
     scores, weights = [], []
     for batch in Batcher(records, batch_size):
-        placed = to_device(batch, device)
+        placed = to_device(host_slice(batch, mesh), device)
         if entity_tables is not None:
             placed = assemble_entity_grid(placed, entity_tables,
                                           this_doc_words)
@@ -198,7 +224,10 @@ def score_grid(model: torch.nn.Module, records: Dict[str, np.ndarray],
         weights.append(batch["weight"].astype(bool))
     if not scores:
         return np.zeros((0,) + records["item"].shape[1:], np.float32)
-    host = torch.stack(scores).cpu().numpy()
+    host = torch.stack(scores)
+    if mesh is not None:
+        host = _gather_rows(host, mesh)
+    host = host.cpu().numpy()
     return np.concatenate([s[w] for s, w in zip(host, weights)])
 
 

@@ -57,8 +57,13 @@ same arithmetic), on the CPU its S steps run eagerly; a trailing group
 smaller than S runs as single steps. The updates, their order and the
 dropout masks are those of S = 1, bit for bit.
 
-Not ported here, raising `NotImplementedError` with its ROADMAP.md
-item: meshes (item 13), with or without a cache.
+`hp.mesh_shape` other than (1, 1) trains on a (data, model) mesh of
+`torch.distributed` ranks (`parallel.mesh`): `train_complete` lays the
+model out on it (row-sharded tables over the model axis), every rank
+takes its rows of each batch, the caches keep each data rank's example
+rows, the gradients are summed over the mesh before Adam, and the
+checkpoint, whole tables gathered, is written by the primary process.
+The metrics are the single-device ones up to the order of the sums.
 """
 
 from __future__ import annotations
@@ -75,6 +80,11 @@ import torch
 from ..config import HyperParams
 from ..data.batcher import Batcher
 from ..data.corpus import NEIGHBOR_SLOTS, _doc_layout
+from ..parallel.distributed import host_count, is_primary
+from ..parallel.mesh import (full_opt_state, full_params, host_slice,
+                             local_opt_state, local_params, mesh_from_hp,
+                             model_mesh, reduce_grads, shard_cache,
+                             shard_model)
 from ..utils.device import host_tensor, to_device
 from ..utils.logging import file_write, log_end_epoch
 from .checkpoint import load_checkpoint, save_checkpoint
@@ -86,11 +96,7 @@ Params = Dict[str, torch.Tensor]
 
 
 def check_trainable(hp: HyperParams) -> None:
-    """Raise for the training options the port does not have yet."""
-    if tuple(hp.mesh_shape) != (1, 1):
-        raise NotImplementedError(
-            f"mesh_shape {tuple(hp.mesh_shape)}: data / model parallel "
-            f"training is not ported yet: ROADMAP.md Queue 1 item 13")
+    """Raise for the training options the JAX trainer refuses."""
     if hp.loss != "RAW_MSE" and hp.model_type in ("transnet", "transnet++"):
         raise ValueError("ranking losses are not defined for transnet's "
                          "routed 3-loss objective; use loss='RAW_MSE'")
@@ -104,13 +110,16 @@ class ClippedAdam(torch.optim.Adam):
     then Adam with no decay. The clip is a `torch.where` on the device
     with no host read, so a CUDA graph can hold it. (torch's
     `Adam(weight_decay=)` would add the decay after a clip, and
-    `clip_grad_norm_` scales by max_norm / (||g|| + 1e-6).)"""
+    `clip_grad_norm_` scales by max_norm / (||g|| + 1e-6).) On a mesh
+    whose model axis shards some of the params (`sharded`), their
+    squared norms are summed over that axis first."""
 
     def __init__(self, params, lr: float, l2: float, max_norm: float,
-                 capturable: bool = False):
+                 capturable: bool = False, sharded=(), mesh=None):
         super().__init__(params, lr=lr, weight_decay=0.0,
                          capturable=capturable)
         self.l2, self.max_norm = float(l2), float(max_norm)
+        self.sharded, self.mesh = {id(p) for p in sharded}, mesh
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -120,7 +129,15 @@ class ClippedAdam(torch.optim.Adam):
             grads = [p.grad for p in params]
             if self.l2:
                 torch._foreach_add_(grads, params, alpha=self.l2)
-            norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+            sq = [g.square().sum() for g in grads]
+            if self.sharded:
+                rows = [s for p, s in zip(params, sq) if id(p) in self.sharded]
+                sq = [s for p, s in zip(params, sq)
+                      if id(p) not in self.sharded]
+                rows = (torch.stack(rows).sum() if rows
+                        else torch.zeros_like(sq[0]))
+                sq.append(self.mesh.all_reduce(rows, self.mesh.model_axis))
+            norm = torch.stack(sq).sum().sqrt()
             keep = norm < self.max_norm
             for g in grads:
                 g.copy_(torch.where(keep, g, g / norm * self.max_norm))
@@ -136,14 +153,18 @@ def make_optimizer(hp: HyperParams, model: torch.nn.Module
     params = list(model.parameters())
     capturable = bool(params) and params[0].device.type == "cuda"
     if hp.model_type == "MPCN":
+        rows = getattr(model, "_mesh_rows", {})
+        sharded = [p for name, p in model.named_parameters() if name in rows]
         return ClippedAdam(params, hp.mpcn_lr, hp.mpcn_l2, hp.mpcn_clip_norm,
-                           capturable=capturable)
+                           capturable=capturable, sharded=sharded,
+                           mesh=model_mesh(model))
     return torch.optim.Adam(params, lr=hp.lr, weight_decay=hp.weight_decay,
                             capturable=capturable)
 
 
 def _batch_loss(preds, batch: Dict[str, torch.Tensor],
-                loss_name: str = "RAW_MSE", hinge_margin: float = 0.2
+                loss_name: str = "RAW_MSE", hinge_margin: float = 0.2,
+                total=None
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """The masked batch loss and its epoch accumulators.
 
@@ -152,11 +173,17 @@ def _batch_loss(preds, batch: Dict[str, torch.Tensor],
     (module docstring) and the sums are the source net's. CE / BPR /
     HINGE score [B, C] grids with the positive in column 0 (hinge summed
     over the pairs, then divided by the real rows, as JAX does), and the
-    accumulators are (loss * sum(w), sum(w))."""
+    accumulators are (loss * sum(w), sum(w)).
+
+    On a mesh's data axis, `batch` is this rank's rows and `total` sums
+    a per-rank count over the axis: every normaliser is the whole
+    batch's, so the rank losses (and gradients) add up to the batch's,
+    and the accumulators add up over the ranks."""
     w = batch["weight"]
     y = batch["rating"]
     n = torch.sum(w)
-    denom = torch.clamp(n, min=1.0)
+    n_all = n if total is None else total(n)
+    denom = torch.clamp(n_all, min=1.0)
     if isinstance(preds, tuple):
         source, target, trans_loss = preds
         sq_sum = torch.sum((source - y) ** 2 * w)
@@ -171,14 +198,16 @@ def _batch_loss(preds, batch: Dict[str, torch.Tensor],
     if loss_name == "CE":
         labels = torch.zeros_like(preds)
         labels[:, 0] = 1.0
-        loss = softmax_ce(preds, labels, w)
+        loss = softmax_ce(preds, labels, w, denom=n_all)
     elif loss_name == "BPR":
-        loss = bpr(pos, neg, wn)
+        pairs = torch.sum(wn)
+        loss = bpr(pos, neg, wn,
+                   denom=pairs if total is None else total(pairs))
     elif loss_name == "HINGE":
         loss = hinge(pos, neg, hinge_margin, wn) / denom
     else:
         raise ValueError(f"unknown loss {loss_name!r}")
-    return loss, (loss * n, n)
+    return loss, (loss * n_all, n)
 
 
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
@@ -187,10 +216,19 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                loss_name: str = "RAW_MSE", hinge_margin: float = 0.2
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One update on one batch; returns (loss, and `_batch_loss`'s two
-    accumulators) as device scalars, without waiting for the device."""
+    accumulators) as device scalars, without waiting for the device. On a
+    mesh (`parallel.mesh.shard_model`) `batch` is this rank's rows, the
+    loss is normalised over the data axis and the gradients are summed
+    over the mesh before the update; the returned loss is this rank's
+    share."""
+    mesh = model_mesh(model)
+    total = (None if mesh is None else
+             (lambda t: mesh.all_reduce(t, mesh.data_axis)))
     preds = model(batch, generator=generator)
-    loss, (sq_sum, n) = _batch_loss(preds, batch, loss_name, hinge_margin)
+    loss, (sq_sum, n) = _batch_loss(preds, batch, loss_name, hinge_margin,
+                                    total)
     loss.backward()
+    reduce_grads(model)
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
     return loss.detach(), sq_sum.detach(), n.detach()
@@ -224,15 +262,19 @@ def _lookahead(it: Iterable, depth: int = 2) -> Iterator:
         yield buf.popleft()
 
 
-def _prefetch(batcher: Batcher, device: torch.device, depth: int = 2):
-    return _lookahead((_place(b, device) for b in batcher), depth)
+def _prefetch(batcher: Batcher, device: torch.device, depth: int = 2,
+              mesh=None):
+    return _lookahead((_place(host_slice(b, mesh), device) for b in batcher),
+                      depth)
 
 
 class ScanSteps:
     """`hp.scan_steps` = S > 1: S training steps per dispatch, the JAX
     package's `lax.scan` over S batches (`make_scan_train_step`,
     `make_cached_train_step`), with the same updates in the same order
-    as S single steps.
+    as S single steps. On a mesh each rank stages its rows of the group
+    and runs the S steps eagerly: a CUDA graph cannot capture a gloo
+    collective (NCCL capture waits for a machine with a card a rank).
 
     A full group of S batches is staged into static [S, B, ...] input
     buffers (host records on the uncached path; [S, B] row ids and
@@ -268,7 +310,8 @@ class ScanSteps:
         self.model, self.optimizer = model, optimizer
         self.objective = (loss_name, hinge_margin)
         self.steps, self.device, self.cache = steps, device, cache
-        self.on_card = device.type == "cuda"
+        self.mesh = model_mesh(model)
+        self.on_card = device.type == "cuda" and self.mesh is None
         self.sq_sum = torch.zeros((), device=device)
         self.n = torch.zeros((), device=device)
         self.gen: Optional[torch.Generator] = None
@@ -298,8 +341,9 @@ class ScanSteps:
         single steps for fewer."""
         if len(group) < self.steps:
             for batch in group:
-                self._step(_place(batch, self.device))
+                self._step(_place(host_slice(batch, self.mesh), self.device))
             return
+        group = [host_slice(batch, self.mesh) for batch in group]
         self._stage(group)
         if not self.on_card:
             for s in range(self.steps):
@@ -455,8 +499,12 @@ def train_epoch(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     With `scan` (a `ScanSteps` over the same model, optimizer and
     cache), full groups of `scan.steps` batches run one dispatch each;
     without, every batch is a single step, its host batch copied through
-    pinned memory two steps ahead."""
+    pinned memory two steps ahead.
+
+    On a mesh (`parallel.mesh.shard_model`) every rank takes its rows of
+    each batch, and the epoch's sums are summed over the data axis."""
     model.train()
+    mesh = model_mesh(model)
     tp = Throughput()
     bs, remaining = batcher.batch_size, batcher.n
     if scan is not None:
@@ -472,7 +520,7 @@ def train_epoch(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     else:
         sq_sum = torch.zeros((), device=device)
         n = torch.zeros((), device=device)
-        for batch in _prefetch(batcher, device):
+        for batch in _prefetch(batcher, device, mesh=mesh):
             with annotate("train_step"):
                 if cache is not None:
                     batch = gather_cached_batch(cache, batch["row"],
@@ -483,6 +531,8 @@ def train_epoch(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
             n += c
             tp.add(min(bs, remaining))
             remaining -= bs
+    if mesh is not None:
+        sq_sum, n = mesh.all_reduce(torch.stack([sq_sum, n]), mesh.data_axis)
     total, count = float(sq_sum), float(n)   # the epoch's one sync
     return {"MSE": round(total / max(count, 1.0), 4), **tp.metrics()}
 
@@ -519,10 +569,15 @@ def doc_cache_keys(model_type: str, sides: str = "both"
 
 
 def cache_dtype_for(hp: HyperParams) -> torch.dtype:
-    """The dtype of cached doc embeddings: f32, the kernels' type (and
-    the JAX package's off the TPU), so a cached run computes on the same
-    values as an uncached one."""
-    return torch.float32
+    """The dtype of cached doc embeddings, as the JAX package's
+    `cache_dtype_for`: the conv's operand type. Under `use_pallas` f32,
+    the kernels' type (JAX's off the TPU); otherwise `hp.compute_dtype`,
+    which the TextCNN casts its x to, so a bf16 cache holds half the
+    bytes. The cast of a frozen-table row commutes with the gather, so a
+    cached run computes on the same values as an uncached one."""
+    if hp.use_pallas:
+        return torch.float32
+    return getattr(torch, hp.compute_dtype)
 
 
 def build_doc_cache(records: Dict[str, np.ndarray], word_vectors,
@@ -574,19 +629,28 @@ ENTITY_ID_KEY = {"user_doc": "user", "item_doc": "item",
                  "users_who_gave": "item", "items_reviewed": "user"}
 
 
+def _take(records, rows: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """`records`' arrays at example rows `rows`: a local gather, or the
+    exchange of `parallel.mesh.ShardedRecords` over a mesh's data axis."""
+    if hasattr(records, "take"):
+        return records.take(rows)
+    return {k: v.index_select(0, rows) for k, v in records.items()}
+
+
 def gather_cached_batch(cache, rows: torch.Tensor, weight: torch.Tensor
                         ) -> Dict[str, torch.Tensor]:
     """The batch of example rows `rows` [B] from a device cache, shared
     by the cached train and eval steps. From an EntityCache each doc
     side's canonical row is gathered by the example's entity id; a
-    `<doc>__table` is passed WHOLE, for the row-gathered kernels."""
+    `<doc>__table` is passed WHOLE, for the row-gathered kernels. On a
+    mesh `rows` are this rank's rows of the batch."""
     if isinstance(cache, EntityCache):
-        batch = {k: v.index_select(0, rows) for k, v in cache.example.items()}
+        batch = _take(cache.example, rows)
         for dk, table in cache.tables.items():
             batch[dk] = (table if dk.endswith("__table") else
                          table.index_select(0, batch[ENTITY_ID_KEY[dk]]))
     else:
-        batch = {k: v.index_select(0, rows) for k, v in cache.items()}
+        batch = _take(cache, rows)
     batch["weight"] = weight
     return batch
 
@@ -662,9 +726,11 @@ def build_entity_tables(hp: HyperParams, dataset, device: torch.device
                            cache_dtype_for(hp), device, keys=ck, id_keys=idk)
 
 
-def _cache_mode(hp: HyperParams) -> Tuple[bool, bool]:
+def _cache_mode(hp: HyperParams, mesh=None) -> Tuple[bool, bool]:
     """(use the per-example or entity cache, use the entity cache), with
-    the JAX trainer's refusals."""
+    the JAX trainer's refusals: on a mesh that spans hosts, its refusal
+    of the per-example cache (the port shards it over the data ranks of
+    one host, `parallel.mesh.ShardedRecords`)."""
     use_cache = hp.cache_doc_embeds
     use_entity = use_cache and hp.cache_entity
     if use_cache:
@@ -678,6 +744,12 @@ def _cache_mode(hp: HyperParams) -> Tuple[bool, bool]:
                 "MPCN trains its word embeddings; only the ids-only "
                 "cache applies (cache_sides='ids') — pre-embedded "
                 "caches would freeze a trained table")
+        if not use_entity and mesh is not None and host_count() > 1:
+            raise ValueError(
+                "per-example cache_doc_embeds + multi-host is "
+                "unsupported (one global device array per split); use "
+                "cache_entity=True (entity tables replicate per host) "
+                "or drop the cache")
         # an epochs=0 run (smoke/eval-only) never trains: skip the
         # (device-memory-expensive) cache build entirely
         use_cache = use_cache and hp.epochs > 0
@@ -734,7 +806,10 @@ def train_complete(hp: HyperParams, model: torch.nn.Module, dataset, *,
     that shares the train cache's entity tables."""
     check_trainable(hp)
     hp = dataset.apply_to(hp)
-    use_cache, use_entity = _cache_mode(hp)
+    mesh = model_mesh(model) or mesh_from_hp(hp)
+    use_cache, use_entity = _cache_mode(hp, mesh)
+    if mesh is not None:
+        shard_model(model, hp, mesh)
     ranking = hp.loss != "RAW_MSE"
     device = next(model.parameters()).device
     optimizer = make_optimizer(hp, model)
@@ -775,6 +850,11 @@ def train_complete(hp: HyperParams, model: torch.nn.Module, dataset, *,
 
         train_cache = cache(train_recs)
         val_cache = None if ranking else cache(val_recs)
+    if mesh is not None and train_cache is not None:
+        # each data rank keeps its example rows; entity tables stay whole
+        train_cache = shard_cache(train_cache, mesh)
+        if val_cache is not None:
+            val_cache = shard_cache(val_cache, mesh)
     # with a cache the batcher yields row ids into it, in the same
     # shuffled order as the record Batcher
     train_b = Batcher({"row": np.arange(len(train_recs["rating"]))}
@@ -787,11 +867,13 @@ def train_complete(hp: HyperParams, model: torch.nn.Module, dataset, *,
     best_params = _snapshot(model)
     since_improve = 0
     if checkpoint_path and hp.resume and os.path.exists(checkpoint_path):
+        # the file holds whole tables; on a mesh each rank keeps its rows
         payload = load_checkpoint(checkpoint_path, map_location=device)
-        model.load_state_dict(payload["params"])
-        optimizer.load_state_dict(payload["opt_state"])
+        model.load_state_dict(local_params(model, payload["params"]))
+        optimizer.load_state_dict(local_opt_state(model,
+                                                  payload["opt_state"]))
         if payload["best_params"]:
-            best_params = payload["best_params"]
+            best_params = local_params(model, payload["best_params"])
         start_epoch = payload["epoch"] + 1
         step = payload["step"]
         best_mse = float(payload["extra"].get("val_mse", best_mse))
@@ -802,6 +884,10 @@ def train_complete(hp: HyperParams, model: torch.nn.Module, dataset, *,
             if hp.scan_steps > 1 else None)
 
     log = hp.log_file()
+    if scan is not None and mesh is not None:
+        file_write(log, f"scan_steps {hp.scan_steps} on a mesh: each group "
+                        f"runs as {hp.scan_steps} eager steps (a CUDA graph "
+                        f"cannot capture a gloo collective)", quiet=quiet)
     try:
         for epoch in range(start_epoch, hp.epochs + 1):
             t0 = time.time()
@@ -842,12 +928,20 @@ def train_complete(hp: HyperParams, model: torch.nn.Module, dataset, *,
             else:
                 since_improve += 1
             if checkpoint_path:
-                save_checkpoint(checkpoint_path, model.state_dict(),
-                                opt_state=optimizer.state_dict(), step=step,
-                                epoch=epoch,
-                                extra={"val_mse": best_mse,
-                                       "since_improve": since_improve},
-                                best_params=best_params)
+                # whole tables (gathered over the model axis on every
+                # rank), written by the primary process only
+                params = full_params(model, model.state_dict())
+                opt_state = full_opt_state(model, optimizer.state_dict())
+                best = full_params(model, best_params)
+                if is_primary():
+                    save_checkpoint(checkpoint_path, params,
+                                    opt_state=opt_state, step=step,
+                                    epoch=epoch,
+                                    extra={"val_mse": best_mse,
+                                           "since_improve": since_improve},
+                                    best_params=best)
+                if mesh is not None:   # every rank sees the file after
+                    torch.distributed.barrier()
             if hp.early_stop and since_improve >= hp.early_stop:
                 file_write(log, f"early stop at epoch {epoch}: no val "
                                 f"improvement for {since_improve} epochs",

@@ -2,7 +2,9 @@
 (the MPCN stack's loss variants), with the same masks and reductions.
 
 Every function takes an optional `weight` mask (1 = a real example,
-0 = padding). The means divide by max(sum(weight), 1); hinge sums.
+0 = padding). The means divide by max(sum(weight), 1), or by
+max(`denom`, 1) when given (on a mesh, the weight sum over the data
+axis); hinge sums.
 """
 
 from __future__ import annotations
@@ -13,10 +15,12 @@ import torch
 import torch.nn.functional as F
 
 
-def _mean(x: torch.Tensor, weight: Optional[torch.Tensor]) -> torch.Tensor:
+def _mean(x: torch.Tensor, weight: Optional[torch.Tensor],
+          denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     if weight is None:
         return x.mean()
-    return (x * weight).sum() / weight.sum().clamp(min=1.0)
+    n = weight.sum() if denom is None else denom
+    return (x * weight).sum() / n.clamp(min=1.0)
 
 
 def raw_mse(preds: torch.Tensor, targets: torch.Tensor,
@@ -26,12 +30,13 @@ def raw_mse(preds: torch.Tensor, targets: torch.Tensor,
 
 
 def softmax_ce(logits: torch.Tensor, labels: torch.Tensor,
-               weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+               weight: Optional[torch.Tensor] = None,
+               denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Softmax cross-entropy over the last (candidate) axis; `labels` is
     a distribution (one-hot for the positive-then-negatives layout) and
     takes no gradient."""
     ce = -(labels.detach() * torch.log_softmax(logits, dim=-1)).sum(dim=-1)
-    return _mean(ce, weight)
+    return _mean(ce, weight, denom)
 
 
 def sigmoid_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -48,9 +53,10 @@ def sigmoid_ce_point(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def bpr(pos: torch.Tensor, neg: torch.Tensor,
-        weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+        weight: Optional[torch.Tensor] = None,
+        denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     """BPR pairwise ranking loss: mean(-log sigmoid(pos - neg))."""
-    return _mean(-F.logsigmoid(pos - neg), weight)
+    return _mean(-F.logsigmoid(pos - neg), weight, denom)
 
 
 def hinge(pos: torch.Tensor, neg: torch.Tensor, margin: float = 0.2,

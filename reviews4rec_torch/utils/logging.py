@@ -1,6 +1,7 @@
 """Run logging: append-only text logs keyed by the config tag plus an
 epoch banner. The port's own copy of `reviews4rec_tpu/utils/logging.py`
-(the reference's `file_write` / `log_end_epoch`), for one process."""
+(the reference's `file_write` / `log_end_epoch`). In a multi-process run
+only the primary process prints and writes (`parallel.distributed`)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,9 @@ from typing import Dict, Optional
 
 
 def file_write(log_file: Optional[str], s: str, quiet: bool = False) -> None:
+    from ..parallel.distributed import is_primary
+    if not is_primary():
+        return
     if not quiet:
         print(s)
     if log_file:

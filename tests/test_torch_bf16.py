@@ -225,3 +225,121 @@ def test_adam_steps_match_jax(mt, dataset, port_dataset):
             continue
         np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
                                    atol=5e-4, rtol=0, err_msg=k)
+
+
+# ---------------------------------------------------------------------
+# the doc caches at bf16: without `use_pallas` both packages cache the
+# embedded docs at `compute_dtype` (`cache_dtype_for`)
+# ---------------------------------------------------------------------
+CACHE_STEPS = 8
+# the share of a tensor's elements that may take a flipped Adam step
+FLIP_SHARE = 5e-3
+DOCS = ("user_doc", "item_doc")
+
+
+def _caches(dataset, port_dataset, jh, ph, kind, id_keys=()):
+    """JAX's and the port's train cache of `kind` ("per_example" or
+    "entity") at each package's `cache_dtype_for`; the port's keeps the
+    docs of `id_keys` as ids, embedded in the step."""
+    jdt, pdt = jax_loop.cache_dtype_for(jh), loop.cache_dtype_for(ph)
+    keys = tuple(k for k in DOCS if k not in id_keys)
+    if kind == "entity":
+        (ud, _), (it, _) = dataset._entity_spans(jh.input_length)
+        jc = jax_loop.build_entity_cache(
+            dataset.materialize_entity(jh, "train"),
+            {"user_doc": ud, "item_doc": it}, dataset.word_vectors, jdt,
+            keys=DOCS)
+        (ud, _), (it, _) = port_dataset._entity_spans(ph.input_length)
+        pc = loop.build_entity_cache(
+            port_dataset.materialize_entity(ph, "train"),
+            {"user_doc": ud, "item_doc": it}, port_dataset.word_vectors, pdt,
+            CPU, keys=keys, id_keys=id_keys)
+        return jc, pc
+    jc = jax_loop.build_doc_cache(dataset.materialize(jh, "train"),
+                                  dataset.word_vectors, jdt, keys=DOCS)
+    pc = loop.build_doc_cache(port_dataset.materialize(ph, "train"),
+                              port_dataset.word_vectors, pdt, CPU, keys=keys,
+                              id_keys=id_keys)
+    return jc, pc
+
+
+def _cached_steps(tm, ph, cache, steps=CACHE_STEPS):
+    """`steps` port steps over row batches 0.. of a device cache: the
+    losses and the final params."""
+    opt = loop.make_optimizer(ph, tm)
+    tm.train()
+    bs, losses = ph.batch_size, []
+    for s in range(steps):
+        rows = torch.arange(s * bs, (s + 1) * bs)
+        losses.append(loop.train_step(tm, opt, loop.gather_cached_batch(
+            cache, rows, torch.ones(bs)))[0].item())
+    return losses, {k: v.clone() for k, v in tm.state_dict().items()}
+
+
+@pytest.mark.parametrize("kind", ["per_example", "entity"])
+def test_cached_steps_match_jax(kind, dataset, port_dataset):
+    """8 steps of deepconn++ at bf16 over JAX's cache
+    (`make_cached_train_step`) and over the port's, both at bf16, from the
+    same params at dropout 0: the uncached bf16 test's bounds (losses
+    1e-5 relative over the first 4 steps, params 5e-4)."""
+    jh, ph, jm, params, tm = _pair(dataset, port_dataset, "deepconn++")
+    if kind == "entity":
+        jh = jh.replace(cache_doc_embeds=True, cache_entity=True)
+        ph = ph.replace(cache_doc_embeds=True, cache_entity=True)
+    assert loop.cache_dtype_for(ph) == torch.bfloat16
+    assert jax_loop.cache_dtype_for(jh) == jnp.bfloat16
+    jc, pc = _caches(dataset, port_dataset, jh, ph, kind)
+    docs = pc.tables if kind == "entity" else pc
+    assert all(docs[k].dtype == torch.bfloat16 for k in DOCS)
+    opt = jax_loop.make_optimizer(jh)
+    state = jax_loop.TrainState(params, opt.init(params),
+                                jnp.zeros((), jnp.int32))
+    step = jax_loop.make_cached_train_step(make_apply_fn(jm), opt,
+                                           "deepconn++")
+    bs, want_losses = ph.batch_size, []
+    for s in range(CACHE_STEPS):
+        rows = np.arange(s * bs, (s + 1) * bs)
+        state, m = step(state, jc, jnp.asarray(rows, jnp.int32),
+                        jnp.ones(bs, jnp.float32), jax.random.PRNGKey(0))
+        want_losses.append(float(m["loss"]))
+    losses, got = _cached_steps(tm, ph, pc)
+    # the uncached test's bound over its 4 steps; from step 5 on the
+    # uncached bf16 steps themselves drift further (1.9e-5 relative at
+    # step 7, where a bf16 rounding of K falls the other way), and the
+    # cached steps are those steps bit for bit (the test below)
+    np.testing.assert_allclose(losses[:4], want_losses[:4], rtol=1e-5)
+    np.testing.assert_allclose(losses, want_losses, rtol=5e-5)
+    want = params_from_flax(state.params)
+    assert set(got) == set(want)
+    flips = 0
+    for k in want:
+        diff = np.abs(got[k].numpy() - want[k].numpy())
+        # an element whose gradient sums to about 0 can take its Adam
+        # step the other way when the bf16 dK rounds an f32 sum taken in
+        # another order (the entity docs zero the pair's own review, so
+        # many item windows are 0): at most 2 * steps * lr apart
+        far = diff > 5e-4
+        flips += int(far.sum())
+        assert far.mean() <= FLIP_SHARE, (k, far.mean())
+        assert diff.max() <= 2 * CACHE_STEPS * ph.lr * 1.001, k
+    print(f"{kind}: {flips} param elements beyond 5e-4")
+
+
+@pytest.mark.parametrize("kind", ["per_example", "entity"])
+def test_cached_steps_are_bitwise_uncached(kind, dataset, port_dataset):
+    """The port's bf16 cache against its own uncached bf16 steps on the
+    same records, docs embedded in the step: the same losses and params,
+    bit for bit (the bf16 cast of a word row commutes with the gather)."""
+    _, ph, _, _, tm = _pair(dataset, port_dataset, "deepconn++")
+    init = {k: v.clone() for k, v in tm.state_dict().items()}
+    jh = dataset.apply_to(JaxHP(model_type="deepconn++", **GEOM))
+    _, cached = _caches(dataset, port_dataset, jh, ph, kind)
+    _, ids = _caches(dataset, port_dataset, jh, ph, kind, id_keys=DOCS)
+    docs = ids.tables if kind == "entity" else ids
+    assert all(not docs[k].is_floating_point() for k in DOCS)
+    got = _cached_steps(tm, ph, cached)
+    tm.load_state_dict(init)
+    want = _cached_steps(tm, ph, ids)
+    assert got[0] == want[0]
+    for k in want[1]:
+        assert torch.equal(got[1][k], want[1][k]), k

@@ -121,13 +121,22 @@ def test_cli_flag_types():
         build_parser().parse_args(["--model_type", "nope"])
 
 
-@pytest.mark.parametrize("flag,value", [("--coordinator", "localhost:1234"),
-                                        ("--num_processes", "2"),
-                                        ("--process_id", "0")])
-def test_cli_multihost_flags_raise(tmp_path, flag, value):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+@pytest.mark.parametrize("flags,match", [
+    (["--coordinator", "localhost:1234"],
+     r"missing \['--num_processes', '--process_id'\]"),
+    (["--num_processes", "2"], r"missing \['--coordinator', '--process_id'\]"),
+    (["--process_id", "0"], r"missing \['--coordinator', '--num_processes'\]"),
+    (["--coordinator", "localhost:1234", "--num_processes", "2",
+      "--process_id", "2"], r"--process_id 2 must lie in \[0, "),
+])
+def test_cli_multihost_flags_raise(tmp_path, flags, match):
+    """The multi-process flags reach `parallel.distributed.initialize`
+    (tests/test_torch_parallel.py runs two processes through them): a
+    partial set, or a rank outside the world, raises before any process
+    group is brought up."""
+    with pytest.raises(ValueError, match=match):
         main(["--model_type", "bias_only", "--data_root", str(tmp_path),
-              "--device", "cpu", flag, value])
+              "--device", "cpu"] + flags)
 
 
 def test_cli_device_defaults_to_the_card(tmp_path):

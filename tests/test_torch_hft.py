@@ -267,8 +267,11 @@ def test_api_run_dispatches_hft(port_dataset, tmp_path):
 
 
 def test_mesh_is_refused(port_dataset):
+    """HFT on a mesh runs on the process group of its ranks
+    (tests/test_torch_parallel.py); without one it never runs as one
+    process: the ValueError naming `parallel.distributed.initialize`."""
     hp = port_dataset.apply_to(PortHP(**SETUP)).replace(mesh_shape=(2, 1))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(ValueError, match="parallel.distributed.initialize"):
         port_hft.HFTTrainer(hp, port_dataset, device=CPU)
 
 

@@ -29,6 +29,8 @@ def test_import_loads_no_jax():
     mods = json.loads(out.stdout.strip().splitlines()[-1])
     assert "reviews4rec_torch.serve" in mods
     assert "reviews4rec_torch.train.loop" in mods
+    for m in ("distributed", "embedding", "mesh", "sequence"):
+        assert f"reviews4rec_torch.parallel.{m}" in mods
     bad = [m for m in mods if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 

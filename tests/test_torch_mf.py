@@ -14,8 +14,9 @@ params bridged into the port:
   one served by `restore_model`);
 - `api.run` trains and finalizes each model on the CPU with JAX's
   metric keys, and the refusals JAX makes (a sharded `embedding_lookup`
-  without a model axis, the doc cache, `seq_parallel`) or the port still
-  makes (a mesh, ROADMAP.md Queue 1 item 13).
+  without a model axis, the doc cache, `seq_parallel`) or the port makes
+  (a mesh without the process group of its ranks; meshes run in
+  tests/test_torch_parallel.py).
 """
 
 import os
@@ -270,8 +271,8 @@ def test_sharded_lookup_without_model_axis_raises(mt, lookup, dataset,
      "only applies to the review family"),
     (dict(seq_parallel=True), ValueError, "seq_parallel=True shards the "
      "TextCNN time axis"),
-    (dict(mesh_shape=(1, 2), embedding_lookup="psum"), NotImplementedError,
-     "Queue 1 item 13"),
+    (dict(mesh_shape=(1, 2), embedding_lookup="psum"), ValueError,
+     "parallel.distributed.initialize"),
 ])
 def test_refusals(option, err, match, port_dataset, tmp_path):
     hp = port_dataset.apply_to(PortHP(

@@ -257,18 +257,26 @@ def test_run_returns_the_jax_metric_keys_and_restores(dataset, port_dataset,
     assert all(again[k] == got[k] for k in again)
 
 
-@pytest.mark.parametrize("option,item", [
-    (dict(cache_doc_embeds=True, mesh_shape=(2, 1)), "Queue 1 item 13"),
-    (dict(compute_dtype="float16"), "Queue 1 item 18"),
-    (dict(mesh_shape=(2, 1)), "Queue 1 item 13"),
-    (dict(seq_parallel=True, mesh_shape=(1, 2)), "Queue 1 item 13"),
-    (dict(model_type="HFT", mesh_shape=(2, 1)), "Queue 1 item 13"),
+@pytest.mark.parametrize("option,err,match", [
+    (dict(cache_doc_embeds=True, mesh_shape=(2, 1)), ValueError,
+     "parallel.distributed.initialize"),
+    (dict(compute_dtype="float16"), NotImplementedError,
+     "ROADMAP.md.*Queue 1 item 18"),
+    (dict(mesh_shape=(2, 1)), ValueError, "parallel.distributed.initialize"),
+    (dict(seq_parallel=True, mesh_shape=(1, 2)), ValueError,
+     "parallel.distributed.initialize"),
+    (dict(model_type="HFT", mesh_shape=(2, 1)), ValueError,
+     "parallel.distributed.initialize"),
 ])
-def test_unported_options_raise(option, item, port_dataset, tmp_path):
+def test_unported_options_raise(option, err, match, port_dataset, tmp_path):
+    """float16 is not ported; a mesh is (tests/test_torch_parallel.py
+    runs it on gloo ranks), but never as one process: without the process
+    group of its ranks it raises the ValueError naming
+    `parallel.distributed.initialize` and the CLI's flags."""
     hp = port_dataset.apply_to(PortHP(
         model_type="deepconn", log_dir=str(tmp_path),
         model_dir=str(tmp_path), **GEOM)).replace(**option)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
+    with pytest.raises(err, match=match):
         port_api.run(hp, port_dataset, device="cpu")
 
 
