@@ -113,18 +113,24 @@
    forward and dG checked against their plain versions at the item
    tower's B*C = 1536 docs of T = 1000; `api.run` of MF_dot under BPR
    2 epochs, val HR@1 above the untrained model's (`rank_train`).
-15. `compute_dtype="bfloat16"`: the bf16 forward (`textcnn_pool_fwd_bf16`)
-   and dG (`textcnn_pool_bwd_dg_bf16`) against their plain versions at
-   the serving shape, NARRE's B=2560 T=100, B=37, integer and
-   real-valued ties, E=5 with F=129 and W=8, and E=256 with W=5 (out
+15. `compute_dtype="bfloat16"` and `"float16"` (`bf16`): at each type
+   the 16-bit forward (`textcnn_pool_fwd_bf16`, `textcnn_pool_fwd_f16`)
+   and dG (`textcnn_pool_bwd_dg_bf16`, `textcnn_pool_bwd_dg_f16`)
+   against their plain versions at the serving shape, NARRE's B=2560
+   T=100, B=37, integer and real-valued ties, E=5 with F=129 and W=8,
+   E=256 with W=5, T = 1, 7 and 129, skip spans and exact ties across
+   the body's tiles, and at f16 a dK of subnormals (g times 1e-6) (out
    within 1e-5 of its scale, idx equal except at float64 near-ties
-   within 1e-5, exact window ties counted; dK equal or one bf16 ulp
-   apart on at most 1% of its values; dx of the bf16 op against the
-   CPU's), timed beside their bound (bytes at 3.35 TB/s, FLOP at the
-   989 TFLOP/s of dense bf16), the plain versions, cuDNN's bf16 conv1d
-   and the f32 kernels on the bf16 values; deepconn and deepconn++ at
-   bf16 serve 512 test rows against `bf16_ref.npz` (1e-3) and
-   deepconn++ trains 8 steps against it (`bf16`).
+   within 1e-5, exact window ties counted; dK equal or one ulp of the
+   type apart on at most 1% of its values; dx of the 16-bit op against
+   the CPU's), timed beside their bound (bytes at 3.35 TB/s, FLOP at the
+   989 TFLOP/s of dense bf16 and fp16), the plain versions, cuDNN's
+   16-bit conv1d and the f32 kernels on the 16-bit values; deepconn and
+   deepconn++ serve 512 test rows against `bf16_ref.npz` and
+   `fp16_ref.npz` (1e-3) and deepconn++ trains 8 steps against each
+   (at f16 losses within 1e-5 relative over 4 steps and 5e-5 over 8);
+   `LayerNorm`, `PosFFN` and `positional_encoding` on the card against
+   the JAX values in `fp16_ref.npz` (1e-5).
 16. The neighborhood models: the per-example SGD kernel
    (`csrc/neighbors_sgd.cu`) against its plain version on 1 epoch of the
    first 5000 train examples for baseline, SVD and SVD++ (state within
@@ -183,7 +189,7 @@ training through `api.run` and entity serving, 7; review serving,
 review training and the review entity cache, 8; id-model serving and
 training, 9; the factorized index, 10; the fused gather's serving and
 training, 11; the scan groups, 12; MPCN serving and training, 13; each
-ranking case, 14; bf16 serving and steps, 15; the neighborhood fits,
+ranking case, 14; bf16 and f16 serving and steps, 15; the neighborhood fits,
 16; each of the two CLI training runs, 18; in every rank, each mesh
 path, 19) and read just after. A CUDA-graph
 replay adds the launches counted while its group was captured.
@@ -245,6 +251,9 @@ MPCN_FIXTURE = ROOT / "tests" / "torch_fixtures" / "mpcn_ref.npz"
 # models' inits, fits and predictions, and HFT's first E- and M-step
 # (make_nonsgd_ref.py)
 BF16_FIXTURE = ROOT / "tests" / "torch_fixtures" / "bf16_ref.npz"
+# the same at compute_dtype="float16", and LayerNorm's, PosFFN's and
+# positional_encoding's JAX values (make_nonsgd_ref.py fp16)
+FP16_FIXTURE = ROOT / "tests" / "torch_fixtures" / "fp16_ref.npz"
 NEIGHBORS_FIXTURE = ROOT / "tests" / "torch_fixtures" / "neighbors_ref.npz"
 HFT_FIXTURE = ROOT / "tests" / "torch_fixtures" / "hft_ref.npz"
 E2E_STATE = ROOT / "data" / "e2e_state.json"
@@ -332,7 +341,8 @@ ENTITY_PARAMS_TOL = 1e-3
 _BANNER = (r"end of epoch (\d+) \| time: *([\d.]+)s \| MSE = ([\d.]+) "
            r"\| examples_per_s = ([\d.]+)")
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s
-# outside the tensor cores, dense TF32 FLOP/s on them
+# outside the tensor cores, dense TF32 FLOP/s on them, dense bf16 (and
+# fp16, the same rate) FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
 PEAK_TF32_FLOP_S = 495e12
@@ -1263,7 +1273,7 @@ def time_rows(torch, textcnn) -> dict:
 def _steps_vs_ref(torch, model, opt, batches, ref, mt: str, what: str,
                   p_tol: float = 5e-4, flips: float = 0.0,
                   shift_free=SHIFT_FREE, rows=None,
-                  objective=("RAW_MSE", 0.2), step=None):
+                  objective=("RAW_MSE", 0.2), step=None, ulp=None):
     """Train `model` one step per batch of `batches` and hold the run
     against the JAX trainer's in `ref` (under `<mt>/`): losses within
     1e-4 relative, step-1 gradients within 1e-4 of each tensor's max
@@ -1276,9 +1286,12 @@ def _steps_vs_ref(torch, model, opt, batches, ref, mt: str, what: str,
     ({name: row ids}) compares only those rows of a tensor, where the
     fixture stores only those (MPCN's word table). `objective` is the
     (loss, hinge margin) of the steps; `step` replaces `train_step`
-    (a mesh rank's step, returning the batch's loss). Prints the worst
-    param element with its step-1 gradients and Adam moments. Returns
-    (losses, step-1 grads, params), unsliced."""
+    (a mesh rank's step, returning the batch's loss). `ulp` (a tensor's
+    spacing at each value) lets a step-1 conv-kernel gradient value sit
+    one ulp of a 16-bit type from JAX's (its dK is the f32 sum rounded
+    to that type, and the two sums run in other orders). Prints the
+    worst param element with its step-1 gradients and Adam moments.
+    Returns (losses, step-1 grads, params), unsliced."""
     import numpy as np
 
     from reviews4rec_torch.train.loop import train_step
@@ -1344,7 +1357,10 @@ def _steps_vs_ref(torch, model, opt, batches, ref, mt: str, what: str,
 
     grad_err = 0.0
     for name, wg in want_g.items():
-        err = held(name, grads[name].cpu() - wg).abs().max().item()
+        diff = held(name, grads[name].cpu() - wg).abs()
+        if ulp is not None and name.endswith("conv_kernel"):
+            diff = torch.where(diff <= ulp(wg) * 1.0001, 0.0, diff)
+        err = diff.max().item()
         scale = held(name, wg).abs().max().item()
         grad_err = max(grad_err, err / max(scale, 1e-30) if err else 0.0)
     worst = max(want_p, key=lambda n: held(n, state[n].cpu() - want_p[n])
@@ -4142,8 +4158,24 @@ def _print_rows_times(textcnn, rows) -> None:
 
 
 # ---------------------------------------------------------------------
-# compute_dtype="bfloat16": the bf16 forward and dG kernels
+# compute_dtype="bfloat16" and "float16": the 16-bit forward and dG
+# kernels, two instantiations of one body each
 # ---------------------------------------------------------------------
+HALF_TYPES = ("bfloat16", "float16")
+
+
+def _half(torch, textcnn, name: str) -> dict:
+    """What the `bf16` phase uses of the 16-bit type `name`: its torch
+    type and short name, the two kernels' names, its significant bits
+    and least normal exponent, and its fixture."""
+    dtype = getattr(torch, name)
+    h = dict(dtype=dtype, kernels=textcnn.KERNELS_16[dtype])
+    if name == "bfloat16":
+        return dict(h, short="bf16", bits=8, emin=-126,
+                    fixture=BF16_FIXTURE)
+    return dict(h, short="f16", bits=11, emin=-14, fixture=FP16_FIXTURE)
+
+
 def _split_tie_case(torch, b, t, e, f, w, seed):
     """Random words with one strong window planted at several starts on
     both sides of the bf16 body's tile boundaries (multiples of 128
@@ -4158,7 +4190,7 @@ def _split_tie_case(torch, b, t, e, f, w, seed):
 
 
 def _bf16_cases():
-    """(name, maker, (B, T, E, F, W), skip spans) of the bf16 kernel
+    """(name, maker, (B, T, E, F, W), skip spans) of the 16-bit kernel
     checks: the main path's shapes, ties, the edges of the tiling (128
     window starts a tile, a block walking whole rows) and of E."""
     s = SERVE_SHAPE
@@ -4185,33 +4217,49 @@ def _bf16_cases():
     ]
 
 
-def _bf16_ulp(torch, a):
-    """The bf16 spacing at each value of a (8 significant bits)."""
-    tiny = torch.finfo(torch.float32).tiny
-    return torch.exp2(torch.floor(torch.log2(a.abs().clamp(min=tiny))) - 7)
+def _ulp16(torch, a, h):
+    """The spacing of the 16-bit type `h` at each value of a (its
+    subnormals' below its least normal), from the exact binary exponent
+    (`frexp`: log2 on the card may round a power of two down)."""
+    _, exp = torch.frexp(a.abs().clamp(min=2.0 ** h["emin"]))
+    return torch.ldexp(torch.ones_like(a), exp - h["bits"])
 
 
-def check_bf16(torch, textcnn) -> dict:
-    """The bf16 forward and dG kernels against their plain versions on the
-    card. Forward: out within 1e-5 * max(1, max|out|), idx equal except
-    where the two starts' windows lie within 1e-5 of each other in
-    float64 (on the bf16 values); the exact window ties of the plain
-    version (a max reached at two or more starts) counted. dG: every dK
-    value equal or one bf16 ulp apart, at most 1% of them. dx through the
-    autograd function: the card's against the plain one on the CPU,
-    equal or one bf16 ulp apart."""
+def check_16(torch, textcnn, name: str) -> dict:
+    """The forward and dG kernels of the 16-bit type `name` against their
+    plain versions on the card. Forward: out within 1e-5 * max(1,
+    max|out|), idx equal except where the two starts' windows lie within
+    1e-5 of each other in float64 (on the 16-bit values); the exact
+    window ties of the plain version (a max reached at two or more
+    starts) counted. dG: every dK value equal or one ulp of the type
+    apart, at most 1% of them, where at float16 a value whose sum
+    cancels may also differ by sqrt(B) f32 roundings of its sum of
+    |g x| (the two sums' orders); at float16 also at the serving shape
+    with g times 1e-6, where most dK values are f16 subnormals. dx through
+    the autograd function: the card's against the plain one on the CPU,
+    equal or one ulp apart."""
+    h = _half(torch, textcnn, name)
+    short = h["short"]
     worst = {"fwd": 0.0, "dg": 0.0}
-    for j, (name, make, (b, t, e, f, w), spans) in enumerate(_bf16_cases()):
+    cases = [(case, 1.0) for case in _bf16_cases()]
+    if name == "float16":
+        s = SERVE_SHAPE
+        cases.append((("B=256 T=1000, g x 1e-6 (subnormal dK)", _random_case,
+                       (s["b"], s["t"], s["e"], s["f"], s["w"]), None),
+                      1e-6))
+    for j, ((case, make, (b, t, e, f, w), spans), g_scale) in enumerate(
+            cases):
         x, k, bias = (a.cuda() for a in make(torch, b, t, e, f, w, seed=j))
         skip = (None if spans is None else
                 torch.tensor(spans, dtype=torch.int32, device="cuda"))
-        xb, kb = x.to(torch.bfloat16), k.to(torch.bfloat16)
-        out, idx = textcnn.textcnn_pool_forward_bf16(xb, kb, bias, w, skip)
-        ref_out, ref_idx = textcnn.textcnn_pool_bf16_reference(xb, kb, bias,
-                                                               w, skip)
+        xh, kh = x.to(h["dtype"]), k.to(h["dtype"])
+        out, idx = textcnn.textcnn_pool_forward_16(h["dtype"], xh, kh, bias,
+                                                   w, skip)
+        ref_out, ref_idx = textcnn.textcnn_pool_16_reference(
+            h["dtype"], xh, kh, bias, w, skip)
         torch.cuda.synchronize()
         # the words the plain version sees: the skip spans zeroed
-        xm = xb.float()
+        xm = xh.float()
         if skip is not None:
             pos = torch.arange(t, device="cuda")[None, :]
             lo, ln = skip[:, :1], skip[:, 1:]
@@ -4223,36 +4271,66 @@ def check_bf16(torch, textcnn) -> dict:
         gap, later = 0.0, 0
         if len(moved):
             rows, cols = moved[:, 0], moved[:, 1]
-            a, c = (_window_f64(torch, xm, kb.float(), bias, w, rows, cols,
+            a, c = (_window_f64(torch, xm, kh.float(), bias, w, rows, cols,
                                 s_[rows, cols]) for s_ in (idx, ref_idx))
             gap = (a - c).abs().max().item()
             # equal windows: the lower start must win
             later = int(((a == c) & (idx[rows, cols] > ref_idx[rows, cols]))
                         .sum())
-        ties = _exact_ties(torch, xm, kb.float(), bias, w, ref_out)
-        g = torch.randn(b, f, generator=torch.Generator().manual_seed(j))
+        ties = _exact_ties(torch, xm, kh.float(), bias, w, ref_out)
+        g = g_scale * torch.randn(b, f,
+                                  generator=torch.Generator().manual_seed(j))
         g = torch.where(out > 0, g.cuda(), 0.0)
-        dk = textcnn.textcnn_pool_bwd_dg_bf16(xb, g, ref_idx, w, skip)
-        ref_dk = textcnn.textcnn_pool_bf16_dg_reference(xb, g, ref_idx, w,
-                                                        skip)
+        dk = textcnn.textcnn_pool_bwd_dg_16(h["dtype"], xh, g, ref_idx, w,
+                                            skip)
+        ref_dk = textcnn.textcnn_pool_16_dg_reference(h["dtype"], xh, g,
+                                                      ref_idx, w, skip)
         torch.cuda.synchronize()
         diff = (dk - ref_dk).abs()
         share = (diff > 0).float().mean().item()
-        ulp_ok = bool((diff <= _bf16_ulp(torch, ref_dk) * 1.0001).all())
-        print(f"textcnn_pool_fwd_bf16 {name}: max|out err| {err:.3e}, idx "
+        ulp = _ulp16(torch, ref_dk, h) * 1.0001
+        if name == "float16":
+            # where a dK sum cancels, the two f32 sums' orders part by
+            # more than an f16 ulp of the small result (a bf16 ulp, 8x
+            # coarser, stays above it): allow sqrt(B) f32 roundings of
+            # the sum of |g x| over the rows
+            mag = textcnn.textcnn_pool_backward_reference(
+                xh.float().abs(), kh.float(), g.abs(), ref_idx, w, skip)[1]
+            ulp = ulp + b ** 0.5 * 2.0 ** -24 * mag
+        beyond = int((diff > _ulp16(torch, ref_dk, h) * 1.0001).sum())
+        ulp_ok = bool((diff <= ulp).all())
+        # the kernels' bits, to compare two trees' runs
+        digest = hashlib.sha256(b"".join(
+            v.cpu().numpy().tobytes() for v in (out, idx, dk))).hexdigest()
+        print(f"textcnn_pool_fwd_{short} {case}: max|out err| {err:.3e}, idx "
               f"differs at {len(moved)} of {idx.numel()} (windows within "
               f"{gap:.1e} in float64; a later start of an equal window "
               f"{later}), exact window ties {ties}; "
-              f"textcnn_pool_bwd_dg_bf16: dK one bf16 ulp apart at "
-              f"{share:.4%} of {dk.numel()}, max|diff| "
-              f"{diff.max().item():.3e}")
+              f"textcnn_pool_bwd_dg_{short}: dK one {short} ulp apart at "
+              f"{share:.4%} of {dk.numel()} ({beyond} beyond one ulp, "
+              f"where the sum cancels), max|diff| {diff.max().item():.3e}; "
+              f"out, idx, dK sha256 {digest[:16]}")
         if not (err <= 1e-5 * scale and gap <= 1e-5 * scale and later == 0):
-            raise AssertionError(f"bf16 forward disagrees ({name})")
+            raise AssertionError(f"{short} forward disagrees ({case})")
         if not (ulp_ok and share <= 0.01):
-            raise AssertionError(f"bf16 dG disagrees ({name})")
+            far = (diff / ulp).flatten()
+            at = far.topk(min(5, far.numel())).indices
+            print(f"  dK furthest in allowed spans: kernel "
+                  f"{dk.flatten()[at].tolist()}, plain "
+                  f"{ref_dk.flatten()[at].tolist()}, spans {far[at].tolist()}")
+            raise AssertionError(f"{short} dG disagrees ({case})")
+        if g_scale != 1.0:
+            least = 2.0 ** h["emin"]
+            sub = ((ref_dk != 0) & (ref_dk.abs() < least)).float().mean()
+            zero = (ref_dk == 0).float().mean()
+            print(f"  dK values: subnormal {sub.item():.2%}, zero "
+                  f"{zero.item():.2%}")
+            if not sub.item() > 0.5:
+                raise AssertionError("the subnormal case gave few subnormal "
+                                     "dK values")
         worst["fwd"] = max(worst["fwd"], err)
         worst["dg"] = max(worst["dg"], diff.max().item())
-    # dx of the bf16 op: the f32 dx kernel on bf16 K, rounded
+    # dx of the 16-bit op: the f32 dx kernel on 16-bit K, rounded
     b, t, e, f, w = 16, 300, 64, 100, 3
     x, k, bias = _random_case(torch, b, t, e, f, w, seed=99)
     g = torch.randn(b, f, generator=torch.Generator().manual_seed(99))
@@ -4260,14 +4338,15 @@ def check_bf16(torch, textcnn) -> dict:
     for dev in ("cuda", "cpu"):
         xx = x.to(dev).requires_grad_(True)
         out, _ = textcnn.textcnn_pool(xx, k.to(dev), bias.to(dev), w, None,
-                                      torch.bfloat16)
+                                      h["dtype"])
         out.backward(g.to(dev))
         grads.append(xx.grad.cpu())
     diff = (grads[0] - grads[1]).abs()
-    print(f"bf16 dx (card vs CPU plain): max|diff| {diff.max().item():.3e}, "
-          f"{(diff > 0).float().mean().item():.4%} one ulp apart")
-    if not bool((diff <= _bf16_ulp(torch, grads[1]) * 1.0001).all()):
-        raise AssertionError("bf16 dx disagrees")
+    print(f"{short} dx (card vs CPU plain): max|diff| "
+          f"{diff.max().item():.3e}, {(diff > 0).float().mean().item():.4%} "
+          f"one ulp apart")
+    if not bool((diff <= _ulp16(torch, grads[1], h) * 1.0001).all()):
+        raise AssertionError(f"{short} dx disagrees")
     return worst
 
 
@@ -4282,23 +4361,26 @@ def _exact_ties(torch, x, k, bias, w, out) -> int:
     return int(((y == out[:, None, :]).sum(1) > 1).sum())
 
 
-def time_bf16(torch, textcnn) -> dict:
-    """The bf16 kernels at the serving shape: medians of 30 calls (CUDA
-    events) of kernel, plain version and library yardstick (cuDNN's bf16
-    conv1d, its output f32 plus bias, ReLU, max; dG: autograd of it with
-    respect to the bf16 K), beside the bound: max(bytes / 3.35 TB/s,
-    FLOP / 989 TFLOP/s dense bf16); and the f32 forward kernel on the
-    bf16 values."""
+def time_16(torch, textcnn, name: str) -> dict:
+    """The kernels of the 16-bit type `name` at the serving shape:
+    medians of 30 calls (CUDA events) of kernel, plain version and
+    library yardstick (cuDNN's conv1d at that type, its output f32 plus
+    bias, ReLU, max; dG: autograd of it with respect to the 16-bit K),
+    beside the bound: max(bytes / 3.35 TB/s, FLOP / 989 TFLOP/s, the
+    dense bf16 and fp16 rate); and the f32 forward kernel on the 16-bit
+    values."""
     import torch.nn.functional as F
 
+    h = _half(torch, textcnn, name)
+    dt = h["dtype"]
     b, t, e, f, w = (SERVE_SHAPE[k] for k in "btefw")
     x, k, bias = (a.cuda() for a in _random_case(torch, b, t, e, f, w, 0))
-    xb, kb = x.to(torch.bfloat16), k.to(torch.bfloat16)
-    out, idx = textcnn.textcnn_pool_forward_bf16(xb, kb, bias, w)
+    xh, kh = x.to(dt), k.to(dt)
+    out, idx = textcnn.textcnn_pool_forward_16(dt, xh, kh, bias, w)
     g = torch.randn(b, f, generator=torch.Generator().manual_seed(7)).cuda()
     g = torch.where(out > 0, g, 0.0)
-    x_cf = xb.transpose(1, 2).contiguous()
-    k_cf = kb.reshape(w, e, f).permute(2, 1, 0).contiguous().requires_grad_()
+    x_cf = xh.transpose(1, 2).contiguous()
+    k_cf = kh.reshape(w, e, f).permute(2, 1, 0).contiguous().requires_grad_()
 
     def library():
         y = F.conv1d(x_cf, k_cf, None, padding=w - 1).float()
@@ -4307,8 +4389,8 @@ def time_bf16(torch, textcnn) -> dict:
     lib_y = library()
     if not (lib_y - out).abs().max().item() <= 2e-2 * max(
             1.0, out.abs().max().item()):
-        raise AssertionError("the bf16 library yardstick computes another "
-                             "function")
+        raise AssertionError(f"the {h['short']} library yardstick computes "
+                             f"another function")
 
     def lib_dg():
         return torch.autograd.grad(lib_y, (k_cf,), g, retain_graph=True)
@@ -4316,12 +4398,12 @@ def time_bf16(torch, textcnn) -> dict:
     flops = 2.0 * b * (t + w - 1) * w * e * f
     nbytes = 2.0 * (b * t * e + w * e * f) + 4.0 * f + 8.0 * b * f
     t_ops, t_bytes = flops / PEAK_BF16_FLOP_S, nbytes / PEAK_BYTES_S
-    x32, k32 = xb.float(), kb.float()
-    fwd = dict(ms=_median_ms(torch, lambda: textcnn.textcnn_pool_forward_bf16(
-                   xb, kb, bias, w)),
+    x32, k32 = xh.float(), kh.float()
+    fwd = dict(ms=_median_ms(torch, lambda: textcnn.textcnn_pool_forward_16(
+        dt, xh, kh, bias, w)),
                plain_ms=_median_ms(torch, lambda: textcnn
-                                   .textcnn_pool_bf16_reference(xb, kb, bias,
-                                                                w)),
+                                   .textcnn_pool_16_reference(dt, xh, kh,
+                                                              bias, w)),
                library_ms=_median_ms(torch, library),
                f32_kernel_ms=_median_ms(torch, lambda: textcnn
                                         .textcnn_pool_forward(x32, k32,
@@ -4336,11 +4418,11 @@ def time_bf16(torch, textcnn) -> dict:
     dflops = 2.0 * int(nz.sum()) * w * e
     dbytes = 2.0 * cells * e + 4.0 * (2 * b * f + w * e * f)
     d_ops, d_bytes = dflops / PEAK_BF16_FLOP_S, dbytes / PEAK_BYTES_S
-    dg = dict(ms=_median_ms(torch, lambda: textcnn.textcnn_pool_bwd_dg_bf16(
-                  xb, g, idx, w)),
+    dg = dict(ms=_median_ms(torch, lambda: textcnn.textcnn_pool_bwd_dg_16(
+        dt, xh, g, idx, w)),
               plain_ms=_median_ms(torch, lambda: textcnn
-                                  .textcnn_pool_bf16_dg_reference(xb, g, idx,
-                                                                  w)),
+                                  .textcnn_pool_16_dg_reference(dt, xh, g,
+                                                                idx, w)),
               library_ms=_median_ms(torch, lib_dg),
               f32_kernel_ms=_median_ms(torch, lambda: textcnn
                                        .textcnn_pool_bwd_dg(x32, g, idx, w)),
@@ -4350,36 +4432,40 @@ def time_bf16(torch, textcnn) -> dict:
     # a launch over 100 back-to-back calls: CUDA events and the
     # profiler's device time, the kernel and the f32 kernel on the values
     fwd.update({f"{k}_100": v for k, v in _per_launch(
-        torch, lambda: textcnn.textcnn_pool_forward_bf16(xb, kb, bias, w))
-        .items()})
+        torch, lambda: textcnn.textcnn_pool_forward_16(dt, xh, kh, bias,
+                                                       w)).items()})
     fwd["f32_device_ms_100"] = _per_launch(
         torch, lambda: textcnn.textcnn_pool_forward(x32, k32, bias,
                                                     w))["device_ms"]
     dg.update({f"{k}_100": v for k, v in _per_launch(
-        torch, lambda: textcnn.textcnn_pool_bwd_dg_bf16(xb, g, idx, w))
-        .items()})
+        torch, lambda: textcnn.textcnn_pool_bwd_dg_16(dt, xh, g, idx,
+                                                      w)).items()})
     dg["f32_device_ms_100"] = _per_launch(
         torch, lambda: textcnn.textcnn_pool_bwd_dg(x32, g, idx,
                                                    w))["device_ms"]
-    for name, r in (("textcnn_pool_fwd_bf16", fwd),
-                    ("textcnn_pool_bwd_dg_bf16", dg)):
-        print(f"{name} at B=256 T=1000 E=64 F=100 W=3: {r['ms']:.4f} ms a "
+    for kname, r in zip(h["kernels"], (fwd, dg)):
+        print(f"{kname} at B=256 T=1000 E=64 F=100 W=3: {r['ms']:.4f} ms a "
               f"single call, {r['launch_ms_100']:.4f} ms a launch over 100 "
               f"back-to-back ({r['device_ms_100']:.4f} ms device), plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, the "
-              f"f32 kernel on the bf16 values {r['f32_kernel_ms']:.4f} ms "
-              f"({r['f32_device_ms_100']:.4f} ms device over 100); bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+              f"f32 kernel on the {h['short']} values "
+              f"{r['f32_kernel_ms']:.4f} ms ({r['f32_device_ms_100']:.4f} ms "
+              f"device over 100); bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
     return {"fwd": fwd, "dg": dg}
 
 
-def bf16_models(torch, textcnn, ds, device) -> dict:
-    """deepconn and deepconn++ at compute_dtype="bfloat16", full width,
-    from the e2e_ref.npz init params: the first 512 test predictions
-    against JAX's XLA branch at bf16 (bf16_ref.npz, within 1e-3), then 8
-    deepconn++ steps at dropout 0 against the fixture within
-    `_steps_vs_ref`'s bounds (FLIP_SHARE). Returns the launch counts of
-    the two runs."""
+def models_16(torch, textcnn, ds, device, name: str) -> dict:
+    """deepconn and deepconn++ at compute_dtype=`name` (a 16-bit type),
+    full width, from the e2e_ref.npz init params: the first 512 test
+    predictions against JAX's XLA branch at that type (`bf16_ref.npz`
+    or `fp16_ref.npz`, within 1e-3), then 8 deepconn++ steps at dropout
+    0 against the fixture within `_steps_vs_ref`'s bounds (bf16:
+    FLIP_SHARE of the params may take a flipped Adam step; f16: none, a
+    step-1 dK value may be one f16 ulp from JAX's, and the losses within
+    1e-5 relative over 4 steps and 5e-5 over 8).
+    Returns the launch counts of the two runs, which must be the type's
+    two kernels and no other."""
     import numpy as np
 
     from reviews4rec_torch.config import HyperParams
@@ -4390,10 +4476,15 @@ def bf16_models(torch, textcnn, ds, device) -> dict:
     from reviews4rec_torch.utils.io import load_npz
     from reviews4rec_torch.weights import load_flax_params
 
-    ref = load_npz(str(BF16_FIXTURE))
+    h = _half(torch, textcnn, name)
+    short = h["short"]
+    ref = load_npz(str(h["fixture"]))
     init = load_npz(str(FIXTURE))
     geom = json.loads(str(ref["geometry"]))
     rows, steps = geom.pop("serve_rows"), geom.pop("steps")
+    if geom["compute_dtype"] != name:
+        raise AssertionError(f"{h['fixture'].name} holds "
+                             f"{geom['compute_dtype']}")
     models = {}
     for mt in MODELS:
         hp = ds.apply_to(HyperParams(model_type=mt, **geom))
@@ -4412,19 +4503,68 @@ def bf16_models(torch, textcnn, ds, device) -> dict:
         with torch.no_grad():
             pred = torch.cat([model(bt) for bt in test]).cpu().numpy()
         err = float(np.abs(pred - ref[f"{mt}/serve_pred"]).max())
-        print(f"{mt} bf16 serving, {len(pred)} test rows vs JAX: max|err| "
+        print(f"{mt} {short} serving, {len(pred)} test rows vs JAX: max|err| "
               f"{err:.3e}")
         if not (np.isfinite(pred).all() and err <= 1e-3):
-            raise AssertionError(f"{mt}: bf16 predictions off by {err}")
-    _steps_vs_ref(torch, model, make_optimizer(hp, model), train, ref,
-                  "deepconn++", "bf16 training steps", flips=FLIP_SHARE)
+            raise AssertionError(f"{mt}: {short} predictions off by {err}")
+    f16 = name == "float16"
+    losses, _, _ = _steps_vs_ref(
+        torch, model, make_optimizer(hp, model), train, ref, "deepconn++",
+        f"{short} training steps", flips=0.0 if f16 else FLIP_SHARE,
+        ulp=(lambda a: _ulp16(torch, a, h)) if f16 else None)
+    if f16:
+        want = ref["deepconn++/loss"]
+        rel = np.abs(losses.cpu().numpy() - want) / np.abs(want)
+        print(f"f16 step losses vs JAX: relative err over 4 steps "
+              f"{rel[:4].max():.2e}, over {len(rel)} {rel.max():.2e}")
+        if not (rel[:4].max() <= 1e-5 and rel.max() <= 5e-5):
+            raise AssertionError("f16 step losses differ from JAX's")
     launches = dict(textcnn.launches)
-    print(f"bf16 path: launches {launches}")
-    if not (launches[textcnn.FWD_BF16] and launches[textcnn.BWD_DG_BF16]):
-        raise AssertionError("the bf16 path launched no bf16 kernel")
-    if launches[textcnn.FWD] or launches[textcnn.BWD_DG]:
-        raise AssertionError("the bf16 path launched an f32 kernel")
+    print(f"{short} path: launches {launches}")
+    if not all(launches[k] for k in h["kernels"]):
+        raise AssertionError(f"the {short} path launched no {short} kernel")
+    others = sorted(k for k, n in launches.items()
+                    if n and k not in h["kernels"])
+    if others:
+        raise AssertionError(f"the {short} path launched {others}")
     return launches
+
+
+def library_layers(torch, device) -> None:
+    """LayerNorm, PosFFN and positional_encoding on the card against the
+    JAX values in fp16_ref.npz (LayerNorm's and PosFFN's params loaded by
+    `load_flax_params`, strict): every output within 1e-5."""
+    import numpy as np
+
+    from reviews4rec_torch.models.layers import (LayerNorm, PosFFN,
+                                                 positional_encoding)
+    from reviews4rec_torch.utils.io import load_npz
+    from reviews4rec_torch.weights import load_flax_params
+
+    ref = load_npz(str(FP16_FIXTURE))
+    errs = {}
+    for name in ("ln", "ffn"):
+        x = torch.from_numpy(ref[f"lib/{name}/x"]).to(device)
+        params = _subtree(ref, f"lib/{name}/params/")
+        mod = (LayerNorm(x.shape[-1]) if name == "ln" else
+               PosFFN(x.shape[-1], params["inner"]["bias"].shape[0]))
+        load_flax_params(mod, params)
+        with torch.no_grad():
+            out = mod.to(device)(x)
+        errs[name] = float(np.abs(out.cpu().numpy()
+                                  - ref[f"lib/{name}/out"]).max())
+    for key in sorted(k for k in ref if k.startswith("lib/pe/")):
+        length, dim, zero_pad, scale = map(int, key.split("/")[-1].split("_"))
+        table = positional_encoding(length, dim, bool(zero_pad), bool(scale),
+                                    device=device)
+        if table.device.type != device.type:
+            raise AssertionError(f"positional_encoding's table lies on "
+                                 f"{table.device}, not {device}")
+        errs[key[4:]] = float(np.abs(table.cpu().numpy() - ref[key]).max())
+    print("library layers on the card vs JAX, max|err|: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in errs.items()))
+    if not max(errs.values()) <= 1e-5:
+        raise AssertionError("a library layer differs from JAX's")
 
 
 # ---------------------------------------------------------------------
@@ -5587,7 +5727,7 @@ def main(argv=None) -> None:
     for need in (CORPUS_DIR / "corpus.npz", FIXTURE, TRAIN_FIXTURE,
                  ENTITY_FIXTURE, INIT_FIXTURE, REVIEW_FIXTURE,
                  REVIEW_TRAIN_FIXTURE, REVIEW_ENTITY_FIXTURE, MF_FIXTURE,
-                 FACTORIZED_FIXTURE, MPCN_FIXTURE, BF16_FIXTURE,
+                 FACTORIZED_FIXTURE, MPCN_FIXTURE, BF16_FIXTURE, FP16_FIXTURE,
                  NEIGHBORS_FIXTURE, HFT_FIXTURE, E2E_STATE, PREP_FIXTURE,
                  ROOT / "examples" / "e2e_realistic.py"):
         if not need.exists():
@@ -5692,11 +5832,14 @@ def main(argv=None) -> None:
     if enter("rank_train"):
         paths["rank_train"], rank_grid = rank_train(torch, textcnn, ds,
                                                     device)
-    # compute_dtype="bfloat16": the bf16 forward and dG alone
+    # compute_dtype="bfloat16" and "float16": each type's forward and dG
+    # alone; the library layers no model builds
     if enter("bf16"):
-        bf16_err = check_bf16(torch, textcnn)
-        bf16 = time_bf16(torch, textcnn)
-        paths["bf16"] = bf16_models(torch, textcnn, ds, device)
+        half_err = {d: check_16(torch, textcnn, d) for d in HALF_TYPES}
+        half = {d: time_16(torch, textcnn, d) for d in HALF_TYPES}
+        paths["bf16"] = models_16(torch, textcnn, ds, device, "bfloat16")
+        paths["fp16"] = models_16(torch, textcnn, ds, device, "float16")
+        library_layers(torch, device)
     # the neighborhood models: the SGD kernel, once a fit; HFT runs none
     if enter("neighbors"):
         sgd = check_sgd(torch, ds, device)
@@ -5766,14 +5909,19 @@ def main(argv=None) -> None:
         k: rank_grid[k] for k in ("device_ms", "bound_ms", "bound_by",
                                   "tf32x3_ms", "plain_ms", "max_abs_err")}
     kernels[1]["rank_grid_max_abs_err"] = rank_grid["dg_max_abs_err"]
-    # the kernels that replace no Pallas function: the bf16 sources of
-    # the forward and dG (JAX's XLA TextCNN branch at bf16) and the SGD
-    # kernel (`_sgd_fit`'s lax.scan)
+    # the kernels that replace no Pallas function: the 16-bit sources of
+    # the forward and dG (JAX's XLA TextCNN branch at bf16 and f16) and
+    # the SGD kernel (`_sgd_fit`'s lax.scan)
     xla_branch = "reviews4rec_tpu/models/layers.py:174-187"
-    for name, numbers, err in ((textcnn.FWD_BF16, bf16["fwd"],
-                                bf16_err["fwd"]),
-                               (textcnn.BWD_DG_BF16, bf16["dg"],
-                                bf16_err["dg"])):
+    for name, numbers, err in (
+            (textcnn.FWD_BF16, half["bfloat16"]["fwd"],
+             half_err["bfloat16"]["fwd"]),
+            (textcnn.BWD_DG_BF16, half["bfloat16"]["dg"],
+             half_err["bfloat16"]["dg"]),
+            (textcnn.FWD_F16, half["float16"]["fwd"],
+             half_err["float16"]["fwd"]),
+            (textcnn.BWD_DG_F16, half["float16"]["dg"],
+             half_err["float16"]["dg"])):
         by_path = {path: counts[name] for path, counts in paths.items()}
         kernels.append({
             "name": name, "route": "cuda",

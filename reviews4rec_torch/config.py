@@ -5,7 +5,8 @@ The PyTorch package's own copy of the reference configuration
 and artifact names, so a run tag or a data directory means the same
 thing in both packages. Fields that only the JAX runtime reads are kept
 so that a configuration carries over unchanged; where one selects what
-the port does not have, the port raises, naming its ROADMAP.md item.
+the port does not have (a conv dtype it has no kernel for), the port
+raises.
 """
 
 from __future__ import annotations
@@ -118,10 +119,11 @@ class HyperParams:
     # a CUDA-graph replay on the card; eager steps on a mesh), the cache_*
     # switches and pallas_fuse_rows, and compute_dtype: without use_pallas
     # (the JAX package's XLA branch, which casts the conv operands) a
-    # TextCNN model computes its conv on bf16 operands at "bfloat16", its
-    # doc caches held at bf16, and raises, naming Queue 1 item 18, at any
-    # dtype but float32 and bfloat16; under use_pallas, where the JAX
-    # kernels choose their own dot dtype, it stays f32.
+    # TextCNN model computes its conv on 16-bit operands at "bfloat16" or
+    # "float16", its doc caches held at that type, and raises a
+    # ValueError at any other dtype (JAX's branch takes any `jnp.dtype`;
+    # the port has kernels for these three); under use_pallas, where the
+    # JAX kernels choose their own dot dtype, it stays f32.
     mesh_shape: Tuple[int, ...] = (1, 1)
     mesh_axes: Tuple[str, ...] = ("data", "model")
     compute_dtype: str = "float32"
@@ -157,6 +159,11 @@ class HyperParams:
     def uses_reviews(self) -> bool:
         return self.family in ("review", "topic")
 
+    @property
+    def num_candidates(self) -> int:
+        """Candidates of a ranking row: the positive and `num_negs`."""
+        return 1 + self.num_negs
+
     # sentinel ids that pad the 10-slot neighbor lists
     @property
     def user_pad_id(self) -> int:
@@ -179,6 +186,11 @@ class HyperParams:
     def num_item_rows(self) -> int:
         return -(-(self.total_items + 2) // self.row_multiple) \
             * self.row_multiple
+
+    @property
+    def vocab_rows(self) -> int:
+        """Word-table rows: the words and id 0 (unknown / padding)."""
+        return self.total_words + 1
 
     # ------------------------------------------------------------------
     def data_dir(self) -> str:

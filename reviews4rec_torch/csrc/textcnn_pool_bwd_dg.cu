@@ -83,21 +83,27 @@
 // of the distinct table rows they touch (chip_smoke.py, on the run's
 // data).
 //
-// bf16 x, `textcnn_pool_bwd_dg_bf16`: the dK of the JAX package's XLA
-// TextCNN branch at `compute_dtype="bfloat16"`
+// bf16 x, `textcnn_pool_bwd_dg_bf16`, and f16 x, `textcnn_pool_bwd_dg_f16`:
+// the dK of the JAX package's XLA TextCNN branch at
+// `compute_dtype="bfloat16"` or `"float16"`
 // (reviews4rec_tpu/models/layers.py:174-187; an XLA dot there, no Pallas
-// kernel). The plain-x body reads x as bf16 (8-byte vectors of 4, or
-// single values) and g in f32, and sums in f32 in the same fixed order.
-// JAX's cotangent of `kernel.astype(bfloat16)` is the f32 sum rounded to
-// bf16 once, so each dK value is rounded to nearest even at its store
-// (`__float2bfloat16_rn`) and written as the f32 that holds it; the
-// slices' partial sums stay unrounded. db (PyTorch's sum of g) is not
-// rounded: the bias is added in f32.
+// kernel). The plain-x body reads x as 16-bit values (8-byte vectors of 4,
+// or single values) and g in f32, and sums in f32 in the same fixed order.
+// JAX's cotangent of `kernel.astype(bfloat16)` (or float16) is the f32 sum
+// rounded to that type once, so each dK value is rounded to nearest even
+// at its store (`__float2bfloat16_rn`, `__float2half_rn`, which keeps
+// f16's subnormals down to 2^-24 as JAX's convert does; no fast-math flag
+// flushes them) and written as the f32 that holds it; the slices' partial
+// sums stay unrounded. db (PyTorch's sum of g) is not rounded: the bias is
+// added in f32.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -157,10 +163,28 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&v)[kVec
   }
 }
 
-// a dK value as stored: f32, or for bf16 x the f32 of its bf16 rounding
+// f16 x: 4 values in one 8-byte load, or one
+template <int kVec>
+__device__ __forceinline__ void load_vec(const __half* p, float (&v)[kVec]) {
+  if constexpr (kVec == 4) {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+    const __half2 lo = *reinterpret_cast<const __half2*>(&q.x);
+    const __half2 hi = *reinterpret_cast<const __half2*>(&q.y);
+    v[0] = __low2float(lo); v[1] = __high2float(lo);
+    v[2] = __low2float(hi); v[3] = __high2float(hi);
+  } else {
+    v[0] = __half2float(p[0]);
+  }
+}
+
+// a dK value as stored: f32, or for 16-bit x the f32 of its rounding to
+// that type (nearest even; f16 keeps its subnormals and gives 0 below
+// half the least of them)
 template <typename Tx>
 __device__ __forceinline__ float stored(float sum) {
-  if constexpr (sizeof(Tx) == 2) return __bfloat162float(__float2bfloat16_rn(sum));
+  if constexpr (std::is_same<Tx, __nv_bfloat16>::value)
+    return __bfloat162float(__float2bfloat16_rn(sum));
+  if constexpr (std::is_same<Tx, __half>::value) return __half2float(__float2half_rn(sum));
   return sum;
 }
 
@@ -168,7 +192,7 @@ __device__ __forceinline__ float stored(float sum) {
 // kSrc == kIds: x is a [N, E] word table, `rows` holds ids [B, T] and doc
 // position p of batch row b is x[rows[b * T + p]].
 // kVec: floats a lane loads at once (4 needs E % 4 == 0 and aligned x).
-// Tx: float, or __nv_bfloat16 for the bf16 form (kPlain only).
+// Tx: float, or __nv_bfloat16 / __half for the 16-bit forms (kPlain only).
 template <int kSrc, int kVec, typename Tx>
 __global__ void __launch_bounds__(kThreads, 4)
 textcnn_pool_bwd_dg_kernel(const Tx* __restrict__ x, const int* __restrict__ rows,
@@ -408,6 +432,15 @@ int textcnn_pool_bwd_dg_bf16(const void* x, const float* g, const int* idx, cons
                              int W, void* stream) {
   return launch<kPlain>(static_cast<const __nv_bfloat16*>(x), nullptr, g, idx, skip, dk,
                         partial, counter, B, B, T, E, F, W, stream);
+}
+
+// f16 x: as `textcnn_pool_bwd_dg_bf16`, x as f16 bit patterns and each dK
+// value the f32 sum rounded to f16 (nearest even, subnormals kept).
+int textcnn_pool_bwd_dg_f16(const void* x, const float* g, const int* idx, const int* skip,
+                            float* dk, float* partial, int* counter, int B, int T, int E, int F,
+                            int W, void* stream) {
+  return launch<kPlain>(static_cast<const __half*>(x), nullptr, g, idx, skip, dk, partial,
+                        counter, B, B, T, E, F, W, stream);
 }
 
 const char* textcnn_pool_bwd_dg_error_string(int code) {

@@ -127,15 +127,22 @@
 // (2.3 MB, which stays in L2) in place of 65.5 MB of x a tower; the
 // operations, and so the bound, are the plain kernel's.
 //
-// bf16 operands, `textcnn_pool_fwd_bf16`: the forward of the JAX package's
-// XLA TextCNN branch at `compute_dtype="bfloat16"`
-// (reviews4rec_tpu/models/layers.py:174-187), which casts x and K to bf16
-// and accumulates in f32. It is not a Pallas kernel there; here it is a
-// kernel of its own, with a body of its own (below the f32 one):
-// - x [B, T, E] and K [W*E, F] are read as bf16, bias in f32; out is f32
+// 16-bit operands, `textcnn_pool_fwd_bf16` and `textcnn_pool_fwd_f16`:
+// the forward of the JAX package's XLA TextCNN branch at
+// `compute_dtype="bfloat16"` or `"float16"`
+// (reviews4rec_tpu/models/layers.py:174-187), which casts x and K to that
+// type and accumulates in f32. It is not a Pallas kernel there; here it is
+// a kernel of its own, with a body of its own (below the f32 one), a
+// template on the 16-bit type T16 (__nv_bfloat16 or __half) that changes
+// only the mma instruction's operand type: the f16 `mma.sync` has the
+// bf16 one's shape, fragment layout and `ldmatrix` loads, so the tiling,
+// pitches, ring and merge below hold for both. What is said of bf16
+// below holds for f16.
+// - x [B, T, E] and K [W*E, F] are read as T16, bias in f32; out is f32
 //   and idx int32.
-// - One `mma.sync.aligned.m16n8k16` bf16 pass with f32 accumulation per
-//   k-step (a bf16 product is exact in f32), where the f32 body makes
+// - One `mma.sync.aligned.m16n8k16` bf16 (or f16) pass with f32
+//   accumulation per k-step (a bf16 product, 8 + 8 significant bits, is
+//   exact in f32, and so is an f16 one, 11 + 11), where the f32 body makes
 //   three TF32 passes of half the depth.
 // - The body: persistent blocks, two an SM and filter chunk, each walking
 //   whole batch rows as one flat sequence of (row, tile) items, so no
@@ -176,13 +183,17 @@
 // - Bound at the serving shape (B=256, T=1000, E=64, F=100, W=3): bytes
 //   2*B*T*E + 2*W*E*F + 4*F + 8*B*F = 33.3 MB, 0.0099 ms at 3.35 TB/s;
 //   operations 2*B*(T+W-1)*W*E*F = 9.85 GFLOP, 0.0100 ms at the 989
-//   TFLOP/s of dense bf16: about even, so either may bound it.
+//   TFLOP/s of dense bf16 (and of dense fp16): about even, so either may
+//   bound it.
 //   chip_smoke.py computes both from the run's shapes.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -622,59 +633,71 @@ int dispatch(const float* x, const int* rows, const float* k, const float* bias,
 
 
 // ---------------------------------------------------------------------
-// bf16 operands (`textcnn_pool_fwd_bf16`)
+// 16-bit operands (`textcnn_pool_fwd_bf16`, `textcnn_pool_fwd_f16`): one
+// body, T16 = __nv_bfloat16 or __half; the two differ only in the mma
+// instruction's operand type
 // ---------------------------------------------------------------------
 
-constexpr int kBfWarpTiles = 7;  // n8 tiles a warp: 56 filters
-constexpr int kBfMaxNTiles = 2 * kBfWarpTiles;  // a block: two filter groups of warps
-constexpr int kBfStages = 3;      // the x ring
-constexpr int kBfMTiles = 2;      // m16 tiles of starts a warp
-constexpr int kBfStartsPerWarp = 16 * kBfMTiles;
+constexpr int kH16WarpTiles = 7;  // n8 tiles a warp: 56 filters
+constexpr int kH16MaxNTiles = 2 * kH16WarpTiles;  // a block: two filter groups of warps
+constexpr int kH16Stages = 3;     // the x ring
+constexpr int kH16MTiles = 2;     // m16 tiles of starts a warp
+constexpr int kH16StartsPerWarp = 16 * kH16MTiles;
 
 // the block's warps: wn() filter groups of wm() warps that take
 // consecutive ranges of starts
-__host__ __device__ constexpr int bf_groups_n(int nt) { return nt > kBfWarpTiles ? 2 : 1; }
+__host__ __device__ constexpr int h16_groups_n(int nt) { return nt > kH16WarpTiles ? 2 : 1; }
 
 __host__ __device__ constexpr int pad16(int e) { return (e + 15) & ~15; }
-// pitches in bf16 elements, each 8 x an odd number: a row is then an odd
+// pitches in 16-bit elements, each 8 x an odd number: a row is then an odd
 // number of 16-byte units, and the 8 rows an `ldmatrix` reads fall in 8
 // distinct 16-byte bank groups
-__host__ __device__ constexpr int bf_x_pitch(int e) { return pad16(e) + 8; }
-__host__ __device__ constexpr int bf_k_pitch(int nt) {
-  return bf_groups_n(nt) == 1 ? kBfWarpTiles * 8 : 2 * kBfWarpTiles * 8 + 8;
+__host__ __device__ constexpr int h16_x_pitch(int e) { return pad16(e) + 8; }
+__host__ __device__ constexpr int h16_k_pitch(int nt) {
+  return h16_groups_n(nt) == 1 ? kH16WarpTiles * 8 : 2 * kH16WarpTiles * 8 + 8;
 }
 
-// bytes of one stage of the bf16 x ring: the tile's word rows, or the
+// bytes of one stage of the 16-bit x ring: the tile's word rows, or the
 // merge of the warps' (value, start) per filter at a row's end
-__host__ __device__ constexpr size_t bf_stage_bytes(int e, int window, int nt, int warps) {
-  return 2 * (size_t)(warps / bf_groups_n(nt) * kBfStartsPerWarp + window - 1) *
-                     bf_x_pitch(e) >
-                 8 * (size_t)(warps / bf_groups_n(nt)) * nt * 8
-             ? 2 * (size_t)(warps / bf_groups_n(nt) * kBfStartsPerWarp + window - 1) *
-                   bf_x_pitch(e)
-             : 8 * (size_t)(warps / bf_groups_n(nt)) * nt * 8;
+__host__ __device__ constexpr size_t h16_stage_bytes(int e, int window, int nt, int warps) {
+  return 2 * (size_t)(warps / h16_groups_n(nt) * kH16StartsPerWarp + window - 1) *
+                     h16_x_pitch(e) >
+                 8 * (size_t)(warps / h16_groups_n(nt)) * nt * 8
+             ? 2 * (size_t)(warps / h16_groups_n(nt) * kH16StartsPerWarp + window - 1) *
+                   h16_x_pitch(e)
+             : 8 * (size_t)(warps / h16_groups_n(nt)) * nt * 8;
 }
-// bytes of K staged as [W*E16][k pitch] bf16: every warp's 7 n-tiles lie
-// inside a row
-__host__ __device__ constexpr size_t bf_k_bytes(int e, int window, int nt) {
-  return 2 * (size_t)window * pad16(e) * bf_k_pitch(nt);
+// bytes of K staged as [W*E16][k pitch] 16-bit values: every warp's 7
+// n-tiles lie inside a row
+__host__ __device__ constexpr size_t h16_k_bytes(int e, int window, int nt) {
+  return 2 * (size_t)window * pad16(e) * h16_k_pitch(nt);
 }
-// bytes of shared memory of one bf16 block: K, the x ring, the bias
-size_t bf_smem_bytes(int e, int window, int nt, int warps) {
-  return ((bf_k_bytes(e, window, nt) + 15) & ~(size_t)15) +
-         kBfStages * ((bf_stage_bytes(e, window, nt, warps) + 15) & ~(size_t)15) +
+// bytes of shared memory of one 16-bit block: K, the x ring, the bias
+size_t h16_smem_bytes(int e, int window, int nt, int warps) {
+  return ((h16_k_bytes(e, window, nt) + 15) & ~(size_t)15) +
+         kH16Stages * ((h16_stage_bytes(e, window, nt, warps) + 15) & ~(size_t)15) +
          4 * (size_t)nt * 8;
 }
 
-// d += a * b: a 16x16 bf16 (row), b 16x8 bf16 (col), d 16x8 f32
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// d += a * b: a 16x16 T16 (row), b 16x8 T16 (col), d 16x8 f32. The f16
+// form has the bf16 one's shape and fragment layout.
+template <typename T16>
+__device__ __forceinline__ void mma_16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  if constexpr (std::is_same<T16, __half>::value) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    static_assert(std::is_same<T16, __nv_bfloat16>::value, "bf16 or f16 operands");
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
 }
-// four 8x8 bf16 matrices from shared memory, lane l giving row l % 8 of
+// four 8x8 16-bit matrices from shared memory, lane l giving row l % 8 of
 // matrix l / 8; .trans hands each lane a column pair instead of a row pair
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -698,13 +721,13 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src, int bytes)
 
 // Persistent blocks: grid (blocks, filter chunks), block x walking batch
 // rows x, x + gridDim.x, ... as one flat sequence of (row, tile) items,
-// tiles of warps x 16 window starts. x and k are bf16 bit patterns.
-template <int W>
+// tiles of warps x 16 window starts. x and k are T16 bit patterns.
+template <typename T16, int W>
 __global__ void __launch_bounds__(kMaxWarps * 32, 2)
-textcnn_pool_fwd_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ k,
-                             const float* __restrict__ bias, const int* __restrict__ skip,
-                             float* __restrict__ out, int* __restrict__ idx, int B, int T,
-                             int E, int F, int nt, int vec, int kvec) {
+textcnn_pool_fwd_16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ k,
+                           const float* __restrict__ bias, const int* __restrict__ skip,
+                           float* __restrict__ out, int* __restrict__ idx, int B, int T,
+                           int E, int F, int nt, int vec, int kvec) {
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int lane = tid & 31;
@@ -712,14 +735,14 @@ textcnn_pool_fwd_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __r
   const int g = lane >> 2;
   const int tq = lane & 3;
   const int warps = nthreads / 32;
-  const int wgm = warps / bf_groups_n(nt);  // warps a filter group
-  const int wm = warp % wgm;                // this warp's range of starts
-  const int wn = warp / wgm;                // and its filter group
+  const int wgm = warps / h16_groups_n(nt);  // warps a filter group
+  const int wm = warp % wgm;                 // this warp's range of starts
+  const int wn = warp / wgm;                 // and its filter group
   const int e16 = pad16(E);
   const int kcs = e16 / 16;  // k-steps a tap
-  const int xp = bf_x_pitch(E);
-  const int kp = bf_k_pitch(nt);
-  const int starts = wgm * kBfStartsPerWarp;  // a tile
+  const int xp = h16_x_pitch(E);
+  const int kp = h16_k_pitch(nt);
+  const int starts = wgm * kH16StartsPerWarp;  // a tile
   const int tile_rows = starts + W - 1;
   const int t_out = T + W - 1;
   const int n_tiles = (t_out + starts - 1) / starts;
@@ -728,9 +751,9 @@ textcnn_pool_fwd_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __r
 
   extern __shared__ uint4 smem16[];
   uint16_t* ks = reinterpret_cast<uint16_t*>(smem16);  // [W*E16][kp]
-  char* ring = reinterpret_cast<char*>(smem16) + ((bf_k_bytes(E, W, nt) + 15) & ~(size_t)15);
-  const size_t stage = (bf_stage_bytes(E, W, nt, warps) + 15) & ~(size_t)15;
-  float* bs = reinterpret_cast<float*>(ring + kBfStages * stage);  // [nf]
+  char* ring = reinterpret_cast<char*>(smem16) + ((h16_k_bytes(E, W, nt) + 15) & ~(size_t)15);
+  const size_t stage = (h16_stage_bytes(E, W, nt, warps) + 15) & ~(size_t)15;
+  float* bs = reinterpret_cast<float*>(ring + kH16Stages * stage);  // [nf]
 
   // K as [w*E16 + e][f]: rows of 4-filter (8-byte) copies, zero past E,
   // F and the chunk, and the slack past its end
@@ -757,7 +780,7 @@ textcnn_pool_fwd_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __r
   const int items = nrows * n_tiles;
   // this thread's first (row, chunk) of a tile's copies and its stride,
   // without a division per copy
-  const int cpr = vec ? e16 / 8 : e16;  // copies a word row: 16 bytes or one bf16
+  const int cpr = vec ? e16 / 8 : e16;  // copies a word row: 16 bytes or one value
   const int first_row = tid / cpr, first_c = tid - first_row * cpr;
   const int dr = nthreads / cpr, dc = nthreads - dr * cpr;
 
@@ -768,7 +791,7 @@ textcnn_pool_fwd_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __r
     const int lo = skip != nullptr ? skip[2 * b] : 0;
     const int hi = skip != nullptr ? lo + skip[2 * b + 1] : 0;
     const uint16_t* xb = x + (size_t)b * T * E;
-    uint16_t* dst = reinterpret_cast<uint16_t*>(ring + (it % kBfStages) * stage);
+    uint16_t* dst = reinterpret_cast<uint16_t*>(ring + (it % kH16Stages) * stage);
     const int word0 = tile * starts - (W - 1);
     int row = first_row, c = first_c;
     while (row < tile_rows) {
@@ -792,15 +815,15 @@ textcnn_pool_fwd_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __r
   };
 
 #pragma unroll
-  for (int st = 0; st < kBfStages - 1; ++st) {
+  for (int st = 0; st < kH16Stages - 1; ++st) {
     if (st < items) load_tile(st);
     cp_async_commit();
   }
 
-  float best[kBfWarpTiles][2];
-  int best_s[kBfWarpTiles][2];
+  float best[kH16WarpTiles][2];
+  int best_s[kH16WarpTiles][2];
 #pragma unroll
-  for (int j = 0; j < kBfWarpTiles; ++j)
+  for (int j = 0; j < kH16WarpTiles; ++j)
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       best[j][c] = __int_as_float(0xff800000);  // -inf: the raw sums, before bias and ReLU
@@ -811,26 +834,26 @@ textcnn_pool_fwd_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __r
   // k half lane / 16; B, k row (lane / 8 & 1) * 8 + lane % 8 of the
   // k-step and n-tile pair half lane / 16
   const uint32_t ks_base = smem_addr(ks);
-  const uint32_t a_off = 2u * ((wm * kBfStartsPerWarp + (lane & 15)) * xp + (lane >> 4) * 8);
+  const uint32_t a_off = 2u * ((wm * kH16StartsPerWarp + (lane & 15)) * xp + (lane >> 4) * 8);
   const uint32_t b_off = 2u * ((((lane >> 3) & 1) * 8 + (lane & 7)) * kp + (lane >> 4) * 8 +
-                               wn * kBfWarpTiles * 8);
+                               wn * kH16WarpTiles * 8);
 
   for (int it = 0; it < items; ++it) {
-    cp_async_wait<kBfStages - 2>();  // item it has landed, for this thread
+    cp_async_wait<kH16Stages - 2>();  // item it has landed, for this thread
     __syncthreads();                 // for every thread; item it-1's stage is free
-    if (it + kBfStages - 1 < items) load_tile(it + kBfStages - 1);
+    if (it + kH16Stages - 1 < items) load_tile(it + kH16Stages - 1);
     cp_async_commit();
 
     const int r = it / n_tiles;
     const int tile = it - r * n_tiles;
-    char* xt = ring + (it % kBfStages) * stage;
+    char* xt = ring + (it % kH16Stages) * stage;
     const uint32_t xt_base = smem_addr(xt);
 
-    float acc[kBfMTiles][kBfWarpTiles][4];
+    float acc[kH16MTiles][kH16WarpTiles][4];
 #pragma unroll
-    for (int mt = 0; mt < kBfMTiles; ++mt)
+    for (int mt = 0; mt < kH16MTiles; ++mt)
 #pragma unroll
-      for (int j = 0; j < kBfWarpTiles; ++j)
+      for (int j = 0; j < kH16WarpTiles; ++j)
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[mt][j][q] = 0.f;
 #pragma unroll
@@ -838,29 +861,29 @@ textcnn_pool_fwd_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __r
       for (int kc = 0; kc < kcs; ++kc) {
         // A: the warp's two m16 tiles of starts + w, k = kc*16 ..; the
         // taps share one tile
-        uint32_t a[kBfMTiles][4];
+        uint32_t a[kH16MTiles][4];
 #pragma unroll
-        for (int mt = 0; mt < kBfMTiles; ++mt)
+        for (int mt = 0; mt < kH16MTiles; ++mt)
           ldsm_x4(a[mt], xt_base + a_off + 2u * ((w + 16 * mt) * xp + kc * 16));
         const uint32_t bk = ks_base + b_off + 2u * ((w * e16 + kc * 16) * kp);
         // B: the warp's n-tiles 2jp and 2jp + 1 a load, each fragment
         // feeding both m16 tiles; fixed offsets, no branch on nt (tiles
         // past nt read finite values that are never used)
 #pragma unroll
-        for (int jp = 0; jp < kBfWarpTiles / 2; ++jp) {
+        for (int jp = 0; jp < kH16WarpTiles / 2; ++jp) {
           uint32_t bq[4];
           ldsm_x4_trans(bq, bk + 2u * (jp * 16));
 #pragma unroll
-          for (int mt = 0; mt < kBfMTiles; ++mt) {
-            mma_bf16(acc[mt][2 * jp], a[mt], bq[0], bq[1]);
-            mma_bf16(acc[mt][2 * jp + 1], a[mt], bq[2], bq[3]);
+          for (int mt = 0; mt < kH16MTiles; ++mt) {
+            mma_16<T16>(acc[mt][2 * jp], a[mt], bq[0], bq[1]);
+            mma_16<T16>(acc[mt][2 * jp + 1], a[mt], bq[2], bq[3]);
           }
         }
         uint32_t bl[2];
-        ldsm_x2_trans(bl, bk + 2u * ((kBfWarpTiles - 1) * 8));
+        ldsm_x2_trans(bl, bk + 2u * ((kH16WarpTiles - 1) * 8));
 #pragma unroll
-        for (int mt = 0; mt < kBfMTiles; ++mt)
-          mma_bf16(acc[mt][kBfWarpTiles - 1], a[mt], bl[0], bl[1]);
+        for (int mt = 0; mt < kH16MTiles; ++mt)
+          mma_16<T16>(acc[mt][kH16WarpTiles - 1], a[mt], bl[0], bl[1]);
       }
     }
 
@@ -868,13 +891,13 @@ textcnn_pool_fwd_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __r
     // g + 16, g + 24, in order; relu(fl(sum + bias)) rises with the sum,
     // so bias and ReLU wait for the row's end
 #pragma unroll
-    for (int h = 0; h < 2 * kBfMTiles; ++h) {
+    for (int h = 0; h < 2 * kH16MTiles; ++h) {
       const int mt = h >> 1, half = h & 1;
-      const int s = tile * starts + wm * kBfStartsPerWarp + g + 8 * h;
+      const int s = tile * starts + wm * kH16StartsPerWarp + g + 8 * h;
       if (s >= t_out) continue;
 #pragma unroll
-      for (int j = 0; j < kBfWarpTiles; ++j) {
-        if (wn * kBfWarpTiles + j >= nt) continue;
+      for (int j = 0; j < kH16WarpTiles; ++j) {
+        if (wn * kH16WarpTiles + j >= nt) continue;
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const float v = acc[mt][j][2 * half + c];
@@ -895,8 +918,8 @@ textcnn_pool_fwd_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __r
     float* merge_v = reinterpret_cast<float*>(xt);  // [wgm][nf]
     int* merge_i = reinterpret_cast<int*>(merge_v + wgm * nf);
 #pragma unroll
-    for (int j = 0; j < kBfWarpTiles; ++j) {
-      const int jn = wn * kBfWarpTiles + j;  // the block's n-tile
+    for (int j = 0; j < kH16WarpTiles; ++j) {
+      const int jn = wn * kH16WarpTiles + j;  // the block's n-tile
       if (jn < nt) {
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
@@ -947,33 +970,33 @@ textcnn_pool_fwd_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __r
 }
 
 // the first of 8, 4, 2, 1 warps, and for it the fewest filter chunks,
-// whose bf16 block fits in `max_smem`; nt = 0 if none does
-Config choose_bf16(int E, int F, int W, int max_smem) {
+// whose 16-bit block fits in `max_smem`; nt = 0 if none does
+Config choose_16(int E, int F, int W, int max_smem) {
   const int total = (F + 7) / 8;
   for (int warps = kMaxWarps; warps >= 1; warps /= 2)
     for (int chunks = 1; chunks <= total; ++chunks) {
       const int nt = (total + chunks - 1) / chunks;
-      if (nt > kBfMaxNTiles || warps < bf_groups_n(nt)) continue;
-      const size_t smem = bf_smem_bytes(E, W, nt, warps);
+      if (nt > kH16MaxNTiles || warps < h16_groups_n(nt)) continue;
+      const size_t smem = h16_smem_bytes(E, W, nt, warps);
       if (smem <= (size_t)max_smem) return {warps, nt, (total + nt - 1) / nt, smem};
     }
-  return {1, 0, 0, bf_smem_bytes(E, W, 1, 1)};
+  return {1, 0, 0, h16_smem_bytes(E, W, 1, 1)};
 }
 
-template <int W>
-int launch_bf16(const uint16_t* x, const uint16_t* k, const float* bias, const int* skip,
-                float* out, int* idx, int B, int T, int E, int F, cudaStream_t stream) {
+template <typename T16, int W>
+int launch_16(const uint16_t* x, const uint16_t* k, const float* bias, const int* skip,
+              float* out, int* idx, int B, int T, int E, int F, cudaStream_t stream) {
   int dev = 0, max_smem = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const Config cfg = choose_bf16(E, F, W, max_smem);
+  const Config cfg = choose_16(E, F, W, max_smem);
   if (cfg.nt == 0 || cfg.chunks > 65535) return (int)cudaErrorInvalidConfiguration;
   static size_t smem_set = 0;
   if (cfg.smem > smem_set) {
-    err = cudaFuncSetAttribute(textcnn_pool_fwd_bf16_kernel<W>,
+    err = cudaFuncSetAttribute(textcnn_pool_fwd_16_kernel<T16, W>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cfg.smem);
     if (err != cudaSuccess) return (int)err;
     smem_set = cfg.smem;
@@ -983,25 +1006,28 @@ int launch_bf16(const uint16_t* x, const uint16_t* k, const float* bias, const i
   blocks = blocks < 1 ? 1 : (blocks > B ? B : blocks);
   const int vec = E % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const int kvec = F % 4 == 0 && reinterpret_cast<uintptr_t>(k) % 8 == 0;
-  textcnn_pool_fwd_bf16_kernel<W><<<dim3(blocks, cfg.chunks), cfg.warps * 32, cfg.smem,
-                                    stream>>>(x, k, bias, skip, out, idx, B, T, E, F, cfg.nt,
-                                              vec, kvec);
+  textcnn_pool_fwd_16_kernel<T16, W><<<dim3(blocks, cfg.chunks), cfg.warps * 32, cfg.smem,
+                                        stream>>>(x, k, bias, skip, out, idx, B, T, E, F,
+                                                  cfg.nt, vec, kvec);
   return (int)cudaGetLastError();
 }
 
-int dispatch_bf16(const uint16_t* x, const uint16_t* k, const float* bias, const int* skip,
-                  float* out, int* idx, int B, int T, int E, int F, int W,
-                  cudaStream_t stream) {
+template <typename T16>
+int dispatch_16(const void* xv, const void* kv, const float* bias, const int* skip, float* out,
+                int* idx, int B, int T, int E, int F, int W, void* stream) {
   if (B <= 0 || T <= 0 || E <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
+  const uint16_t* x = static_cast<const uint16_t*>(xv);
+  const uint16_t* k = static_cast<const uint16_t*>(kv);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (W) {
-    case 1: return launch_bf16<1>(x, k, bias, skip, out, idx, B, T, E, F, stream);
-    case 2: return launch_bf16<2>(x, k, bias, skip, out, idx, B, T, E, F, stream);
-    case 3: return launch_bf16<3>(x, k, bias, skip, out, idx, B, T, E, F, stream);
-    case 4: return launch_bf16<4>(x, k, bias, skip, out, idx, B, T, E, F, stream);
-    case 5: return launch_bf16<5>(x, k, bias, skip, out, idx, B, T, E, F, stream);
-    case 6: return launch_bf16<6>(x, k, bias, skip, out, idx, B, T, E, F, stream);
-    case 7: return launch_bf16<7>(x, k, bias, skip, out, idx, B, T, E, F, stream);
-    case 8: return launch_bf16<8>(x, k, bias, skip, out, idx, B, T, E, F, stream);
+    case 1: return launch_16<T16, 1>(x, k, bias, skip, out, idx, B, T, E, F, s);
+    case 2: return launch_16<T16, 2>(x, k, bias, skip, out, idx, B, T, E, F, s);
+    case 3: return launch_16<T16, 3>(x, k, bias, skip, out, idx, B, T, E, F, s);
+    case 4: return launch_16<T16, 4>(x, k, bias, skip, out, idx, B, T, E, F, s);
+    case 5: return launch_16<T16, 5>(x, k, bias, skip, out, idx, B, T, E, F, s);
+    case 6: return launch_16<T16, 6>(x, k, bias, skip, out, idx, B, T, E, F, s);
+    case 7: return launch_16<T16, 7>(x, k, bias, skip, out, idx, B, T, E, F, s);
+    case 8: return launch_16<T16, 8>(x, k, bias, skip, out, idx, B, T, E, F, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1052,13 +1078,20 @@ int textcnn_pool_fwd_ids_f32(const float* table, const int* ids, const float* k,
 int textcnn_pool_fwd_bf16(const void* x, const void* k, const float* bias, const int* skip,
                           float* out, int* idx, int B, int T, int E, int F, int W,
                           void* stream) {
-  return dispatch_bf16(static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(k), bias,
-                       skip, out, idx, B, T, E, F, W, static_cast<cudaStream_t>(stream));
+  return dispatch_16<__nv_bfloat16>(x, k, bias, skip, out, idx, B, T, E, F, W, stream);
 }
 
-// The least shared memory a bf16 block needs at this E and W.
-size_t textcnn_pool_fwd_bf16_smem_bytes(int e, int window) {
-  return bf_smem_bytes(e, window, 1, 1);
+// f16 operands: as `textcnn_pool_fwd_bf16`, x and k as f16 bit patterns.
+int textcnn_pool_fwd_f16(const void* x, const void* k, const float* bias, const int* skip,
+                         float* out, int* idx, int B, int T, int E, int F, int W,
+                         void* stream) {
+  return dispatch_16<__half>(x, k, bias, skip, out, idx, B, T, E, F, W, stream);
+}
+
+// The least shared memory a 16-bit block needs at this E and W (the same
+// for both types).
+size_t textcnn_pool_fwd_16_smem_bytes(int e, int window) {
+  return h16_smem_bytes(e, window, 1, 1);
 }
 
 const char* textcnn_pool_fwd_error_string(int code) {

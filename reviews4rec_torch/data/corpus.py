@@ -38,14 +38,13 @@ that ran last. `save` writes the `corpus.npz` both packages read.
 
 from __future__ import annotations
 
-import json
 import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..utils.io import load_npz, save_npz
+from ..utils.io import load_json, load_npz, save_json, save_npz
 
 NEIGHBOR_SLOTS = 10
 
@@ -82,8 +81,7 @@ def _doc_layout(hp) -> Tuple[int, int]:
 
 def _open_store(d: str) -> Dict[str, np.ndarray]:
     """The arrays of a complete record store, memory-mapped read-only."""
-    with open(os.path.join(d, "manifest.json")) as fh:
-        names = json.load(fh)["arrays"]
+    names = load_json(os.path.join(d, "manifest.json"))["arrays"]
     return {k: np.load(os.path.join(d, k + ".npy"), mmap_mode="r")
             for k in names}
 
@@ -107,10 +105,8 @@ def _seal_store(d: str, mm: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     for v in mm.values():
         v.flush()
     manifest = os.path.join(d, "manifest.json")
-    tmp = manifest + ".tmp"
-    with open(tmp, "w") as fh:
-        json.dump({"arrays": sorted(mm)}, fh)
-    os.replace(tmp, manifest)
+    save_json(manifest + ".tmp", {"arrays": sorted(mm)})
+    os.replace(manifest + ".tmp", manifest)
     return _open_store(d)
 
 

@@ -10,9 +10,8 @@ import torch
 from ..config import ID_MODELS, HyperParams
 from ..utils.device import DeviceLike, resolve_device
 
-# the TextCNN towers over the frozen word table (the JAX package's
-# TEXTCNN_MODELS)
-_TEXTCNN_MODELS = ("deepconn", "deepconn++", "NARRE", "transnet",
+# the TextCNN towers over the frozen word table
+TEXTCNN_MODELS = ("deepconn", "deepconn++", "NARRE", "transnet",
                    "transnet++")
 
 
@@ -53,10 +52,10 @@ def _check_seq_parallel(hp: HyperParams) -> None:
     if not hp.seq_parallel:
         return
     mt = hp.model_type
-    if mt not in _TEXTCNN_MODELS:
+    if mt not in TEXTCNN_MODELS:
         raise ValueError(
             f"seq_parallel=True shards the TextCNN time axis and is only "
-            f"supported for {_TEXTCNN_MODELS}; {mt!r} has no such axis")
+            f"supported for {TEXTCNN_MODELS}; {mt!r} has no such axis")
     if hp.use_pallas:
         warnings.warn(
             "seq_parallel and use_pallas are both set; the two paths "
@@ -70,18 +69,22 @@ def _check_seq_parallel(hp: HyperParams) -> None:
             f"(mesh_shape={hp.mesh_shape})")
 
 
+_CONV_DTYPES = ("float32", "bfloat16", "float16")
+
+
 def _conv_dtype(hp: HyperParams) -> str:
     """The TextCNN's conv operand type. The JAX package's XLA TextCNN
     branch (no `use_pallas`) casts the conv operands to
-    `hp.compute_dtype`; the port's TextCNN takes float32 and bfloat16
-    there and refuses any other dtype. The Pallas branches choose their
-    own dot dtype, and under `use_pallas` the port keeps f32."""
+    `hp.compute_dtype`, any dtype `jnp.dtype` takes; the port's TextCNN
+    has kernels for float32, bfloat16 and float16 and refuses any other
+    name. The Pallas branches choose their own dot dtype, and under
+    `use_pallas` the port keeps f32."""
     if hp.use_pallas:
         return "float32"
-    if hp.compute_dtype not in ("float32", "bfloat16"):
-        raise NotImplementedError(
+    if hp.compute_dtype not in _CONV_DTYPES:
+        raise ValueError(
             f"compute_dtype={hp.compute_dtype!r}: the TextCNN computes in "
-            f"float32 or bfloat16 only: ROADMAP.md Queue 1 item 18")
+            f"{', '.join(_CONV_DTYPES)} only")
     return hp.compute_dtype
 
 
@@ -127,7 +130,7 @@ def build_model(hp: HyperParams, word_vectors=None,
         return _id_model(hp, gen).to(dev)
     if mt == "MPCN":
         return _mpcn(hp, word_vectors, gen).to(dev)
-    if mt in _TEXTCNN_MODELS:
+    if mt in TEXTCNN_MODELS:
         dtype = _conv_dtype(hp)
         if word_vectors is None:
             raise ValueError(f"{mt} needs the corpus word vectors")

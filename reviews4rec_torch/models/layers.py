@@ -1,5 +1,7 @@
 """Shared neural blocks: factorization machine, text CNN, scorer MLP,
-MLP tower, highway layer.
+MLP tower, highway layer, and the library blocks no model of either
+package builds (layer norm, sinusoidal positional encoding, the
+position-wise feed-forward block), kept for the library's surface.
 
 PyTorch counterparts of `reviews4rec_tpu/models/layers.py`, with the
 same parameter layouts so that `weights.params_from_flax` maps one onto
@@ -126,10 +128,11 @@ class TextCNN(nn.Module):
     the plain-x op; the JAX TextCNN takes its fused gather under the same
     condition. The two give the same bits.
 
-    `compute_dtype` "bfloat16" (`hp.compute_dtype` without `use_pallas`,
-    the JAX TextCNN's XLA branch): rows and ids are gathered first, and
-    the conv runs on the bf16 values of x and K with f32 sums
-    (`textcnn_pool(..., dtype=torch.bfloat16)`)."""
+    `compute_dtype` "bfloat16" or "float16" (`hp.compute_dtype` without
+    `use_pallas`, the JAX TextCNN's XLA branch): rows and ids are
+    gathered first, and the conv runs on the 16-bit values of x and K
+    with f32 sums (`textcnn_pool(..., dtype=torch.bfloat16)` or
+    `torch.float16`)."""
 
     def __init__(self, embed_size: int, latent_size: int,
                  dropout: float = 0.6, num_filters: int = 100,
@@ -139,8 +142,8 @@ class TextCNN(nn.Module):
         super().__init__()
         self.window = window
         self.fuse_gather = fuse_gather
-        self.dtype = {"float32": torch.float32,
-                      "bfloat16": torch.bfloat16}[compute_dtype]
+        self.dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                      "float16": torch.float16}[compute_dtype]
         self.conv_kernel = nn.Parameter(nn.init.xavier_uniform_(
             torch.empty(window * embed_size, num_filters),
             generator=generator))
@@ -193,9 +196,9 @@ class TextCNN(nn.Module):
         if self.seq_mesh is not None:
             y = self._seq_pool(x, table, skip, rows)
             return self.dropout(self.fc(y), generator)
-        bf16 = self.dtype == torch.bfloat16
+        f32 = self.dtype == torch.float32
         if (rows is not None and x.is_floating_point() and x.dim() == 3
-                and not bf16):
+                and f32):
             y, _ = textcnn_pool_rows(x, rows.to(torch.int32).contiguous(),
                                      self.conv_kernel, self.conv_bias,
                                      self.window, skip)
@@ -203,7 +206,7 @@ class TextCNN(nn.Module):
         if rows is not None:
             x = x[rows.long()]
         if table is not None and not x.is_floating_point():
-            if self.fuse_gather and skip is None and not bf16:
+            if self.fuse_gather and skip is None and f32:
                 y, _ = textcnn_pool_embed(x.to(torch.int32).contiguous(),
                                           table, self.conv_kernel,
                                           self.conv_bias, self.window)
@@ -277,6 +280,65 @@ class Highway(nn.Module):
         if self.carry is not None:
             x = self.carry(x)
         return gate * trans + (1.0 - gate) * x
+
+
+class LayerNorm(nn.Module):
+    """Layer normalization over the last axis: gamma * (x - mean) *
+    rsqrt(var + epsilon) + beta, with the population variance and epsilon
+    inside the root (the JAX package's `LayerNorm`). `gamma` (ones) and
+    `beta` (zeros) are of the last axis' width `dim`."""
+
+    def __init__(self, dim: int, epsilon: float = 1e-8):
+        super().__init__()
+        self.epsilon = epsilon
+        self.gamma = nn.Parameter(torch.ones(dim))
+        self.beta = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = x.mean(dim=-1, keepdim=True)
+        var = x.var(dim=-1, correction=0, keepdim=True)
+        return (self.gamma * (x - mean) * torch.rsqrt(var + self.epsilon)
+                + self.beta)
+
+
+def positional_encoding(length: int, dim: int, zero_pad: bool = False,
+                        scale: bool = False,
+                        device: Optional[torch.device] = None
+                        ) -> torch.Tensor:
+    """Sinusoidal positional-encoding table [length, dim] float32: sin on
+    even columns, cos on odd, angle pos / 10000^(2 i / dim) with i the
+    raw column index (so even and odd columns pair up at almost the same
+    frequency, as the JAX package's rule has it); row 0 zeroed with
+    `zero_pad`, the table times sqrt(dim) with `scale`. A constant: it is
+    built on the host, as XLA folds the JAX package's at trace time, and
+    returned on `device` (the CPU if None)."""
+    pos = torch.arange(length, dtype=torch.float32)[:, None]
+    i = torch.arange(dim, dtype=torch.float32)[None, :]
+    angle = pos / torch.pow(torch.tensor(10000.0), 2.0 * i / dim)
+    table = torch.where(torch.arange(dim) % 2 == 0, torch.sin(angle),
+                        torch.cos(angle))
+    if zero_pad:
+        table[0] = 0.0
+    if scale:
+        table = table * torch.sqrt(torch.tensor(float(dim)))
+    return table.to(device)
+
+
+class PosFFN(nn.Module):
+    """Position-wise feed-forward block: Dense `inner` (ReLU) and Dense
+    `readout` back to the input width, the residual added, then
+    `LayerNorm` `ln` (the JAX package's `PosFFN`). flax infers the input
+    width `dim` at the first call; torch needs it at construction."""
+
+    def __init__(self, dim: int, hidden: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.inner = _linear(dim, hidden, generator)
+        self.readout = _linear(hidden, dim, generator)
+        self.ln = LayerNorm(dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.ln(x + self.readout(torch.relu(self.inner(x))))
 
 
 def doc_shape(doc: torch.Tensor, ndims: int) -> Tuple[tuple, tuple]:

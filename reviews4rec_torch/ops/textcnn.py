@@ -51,21 +51,25 @@ The three forms of the forward and of the dG share one kernel body each,
 so the rows and ids forms give the bits of the plain-x kernels on
 `table[rows]` and `table[ids]`.
 
-- `textcnn_pool(..., dtype=torch.bfloat16)`: the op with bf16 operands,
-  as the JAX package's XLA TextCNN branch computes it at
-  `compute_dtype="bfloat16"` (`reviews4rec_tpu/models/layers.py:174-187`),
-  a `TextCNNPoolBF16` autograd function. x and K are cast to bf16, the
-  conv sums in f32 and the bias is added in f32. Its forward is
-  `textcnn_pool_fwd_bf16` (`csrc/textcnn_pool_fwd.cu`, one bf16
-  `mma.sync` pass); its dK is `textcnn_pool_bwd_dg_bf16`
-  (`csrc/textcnn_pool_bwd_dg.cu`, the dG body on bf16 x), each value the
-  f32 sum rounded to bf16 once, as JAX's cotangent of
-  `kernel.astype(bfloat16)` is; db is the f32 sum of g, unrounded. Where
-  x needs a gradient, dx is the f32 dx kernel on the bf16 values of K,
-  rounded to bf16 (the cotangent of `x.astype(bfloat16)`). The plain
-  versions: `textcnn_pool_bf16_reference` (the f32 plain forward on the
-  bf16 values) and `textcnn_pool_bf16_dg_reference` (the f32 plain dG on
-  the bf16 values of x, rounded to bf16).
+- `textcnn_pool(..., dtype=torch.bfloat16)` or `dtype=torch.float16`:
+  the op with 16-bit operands, as the JAX package's XLA TextCNN branch
+  computes it at `compute_dtype="bfloat16"` or `"float16"`
+  (`reviews4rec_tpu/models/layers.py:174-187`), a `TextCNNPool16`
+  autograd function. x and K are cast to the 16-bit type, the conv sums
+  in f32 and the bias is added in f32. Its forward is
+  `textcnn_pool_fwd_bf16` or `textcnn_pool_fwd_f16` (two instantiations
+  of one body in `csrc/textcnn_pool_fwd.cu`, one 16-bit `mma.sync` pass);
+  its dK is `textcnn_pool_bwd_dg_bf16` or `textcnn_pool_bwd_dg_f16`
+  (`csrc/textcnn_pool_bwd_dg.cu`, the dG body on 16-bit x), each value
+  the f32 sum rounded to the 16-bit type once, as JAX's cotangent of
+  `kernel.astype(dtype)` is; db is the f32 sum of g, unrounded. Where x
+  needs a gradient, dx is the f32 dx kernel on the 16-bit values of K,
+  rounded to the 16-bit type (the cotangent of `x.astype(dtype)`). The
+  wrappers take the 16-bit type first: `textcnn_pool_forward_16(dtype,
+  ...)` and `textcnn_pool_bwd_dg_16(dtype, ...)`, with the plain versions
+  `textcnn_pool_16_reference` (the f32 plain forward on the 16-bit
+  values) and `textcnn_pool_16_dg_reference` (the f32 plain dG on the
+  16-bit values of x, rounded to the 16-bit type).
 """
 
 from __future__ import annotations
@@ -84,30 +88,35 @@ FWD, BWD_DG, BWD_DX = "textcnn_pool_fwd", "textcnn_pool_bwd_dg", \
 FWD_ROWS, BWD_DG_ROWS = "textcnn_pool_fwd_rows", "textcnn_pool_bwd_dg_rows"
 FWD_IDS, BWD_DG_IDS = "textcnn_pool_fwd_ids", "textcnn_pool_bwd_dg_ids"
 FWD_BF16, BWD_DG_BF16 = "textcnn_pool_fwd_bf16", "textcnn_pool_bwd_dg_bf16"
+FWD_F16, BWD_DG_F16 = "textcnn_pool_fwd_f16", "textcnn_pool_bwd_dg_f16"
 KERNELS = (FWD, BWD_DG, BWD_DX, FWD_ROWS, BWD_DG_ROWS, FWD_IDS, BWD_DG_IDS,
-           FWD_BF16, BWD_DG_BF16)
+           FWD_BF16, BWD_DG_BF16, FWD_F16, BWD_DG_F16)
 # the source `csrc/<source>.cu` that holds each kernel's entry point
 SOURCE = {FWD: FWD, BWD_DG: BWD_DG, BWD_DX: BWD_DX, FWD_ROWS: FWD,
           BWD_DG_ROWS: BWD_DG, FWD_IDS: FWD, BWD_DG_IDS: BWD_DG,
-          FWD_BF16: FWD, BWD_DG_BF16: BWD_DG}
+          FWD_BF16: FWD, BWD_DG_BF16: BWD_DG, FWD_F16: FWD,
+          BWD_DG_F16: BWD_DG}
 # (pointer, int) argument counts of each entry point, before its stream
 _ARGS = {FWD: (6, 5), BWD_DG: (7, 5), BWD_DX: (6, 5), FWD_ROWS: (7, 6),
          BWD_DG_ROWS: (8, 6), FWD_IDS: (6, 6), BWD_DG_IDS: (7, 6),
-         FWD_BF16: (6, 5), BWD_DG_BF16: (7, 5)}
+         FWD_BF16: (6, 5), BWD_DG_BF16: (7, 5), FWD_F16: (6, 5),
+         BWD_DG_F16: (7, 5)}
 # the sizes each source's `<source>_smem_bytes` takes, in order
 _SMEM_ARGS = {FWD: ("E", "W"), BWD_DG: ("E", "W"), BWD_DX: ("W", "F")}
-
+# the (forward, dG) kernels of each 16-bit operand type
+KERNELS_16 = {torch.bfloat16: (FWD_BF16, BWD_DG_BF16),
+              torch.float16: (FWD_F16, BWD_DG_F16)}
 
 
 def _entry(name: str) -> str:
-    """The C entry point of kernel `name`: `<name>` for the bf16 kernels,
-    `<name>_f32` for the others."""
-    return name if name.endswith("_bf16") else f"{name}_f32"
+    """The C entry point of kernel `name`: `<name>` for the 16-bit
+    kernels, `<name>_f32` for the others."""
+    return name if name.endswith(("_bf16", "_f16")) else f"{name}_f32"
 
 
 def _smem_fn(name: str) -> str:
     """The C function that gives the shared memory of kernel `name`."""
-    return ("textcnn_pool_fwd_bf16_smem_bytes" if name == FWD_BF16
+    return (f"{FWD}_16_smem_bytes" if name in (FWD_BF16, FWD_F16)
             else f"{SOURCE[name]}_smem_bytes")
 
 
@@ -244,29 +253,35 @@ def textcnn_pool_embed_backward_reference(
         g.sum(0)
 
 
-def textcnn_pool_bf16_reference(x: torch.Tensor, kernel: torch.Tensor,
-                                bias: torch.Tensor, window: int = 3,
-                                skip: Optional[torch.Tensor] = None
-                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, idx) of the op on the bf16 values of x and K (any float
-    type), summed in f32: the plain version of the bf16 forward kernel."""
-    return textcnn_pool_reference(_bf16_values(x), _bf16_values(kernel),
-                                  bias, window, skip)
+def _values_16(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The f32 tensor of t's rounding to the 16-bit `dtype` (to nearest
+    even; at float16 subnormals are kept, as JAX's convert keeps them)."""
+    return t.to(dtype).float()
 
 
-def textcnn_pool_bf16_dg_reference(x: torch.Tensor, g: torch.Tensor,
-                                   idx: torch.Tensor, window: int = 3,
-                                   skip: Optional[torch.Tensor] = None
-                                   ) -> torch.Tensor:
-    """dK [W*E, F] f32 of the op on the bf16 values of x, summed in f32
-    and rounded to bf16 once: the plain version of the bf16 dG kernel."""
-    return _bf16_values(_dg_reference(_bf16_values(x), g, idx, window,
-                                      skip))
+def textcnn_pool_16_reference(dtype: torch.dtype, x: torch.Tensor,
+                              kernel: torch.Tensor, bias: torch.Tensor,
+                              window: int = 3,
+                              skip: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, idx) of the op on the values of x and K (any float type) at
+    the 16-bit `dtype`, summed in f32: the plain version of that type's
+    forward kernel."""
+    return textcnn_pool_reference(_values_16(x, dtype),
+                                  _values_16(kernel, dtype), bias, window,
+                                  skip)
 
 
-def _bf16_values(t: torch.Tensor) -> torch.Tensor:
-    """The f32 tensor of t's bf16 rounding (to nearest even)."""
-    return t.to(torch.bfloat16).float()
+def textcnn_pool_16_dg_reference(dtype: torch.dtype, x: torch.Tensor,
+                                 g: torch.Tensor, idx: torch.Tensor,
+                                 window: int = 3,
+                                 skip: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """dK [W*E, F] f32 of the op on the values of x at the 16-bit
+    `dtype`, summed in f32 and rounded to that type once: the plain
+    version of that type's dG kernel."""
+    return _values_16(_dg_reference(_values_16(x, dtype), g, idx, window,
+                                    skip), dtype)
 
 
 # ---------------------------------------------------------------------
@@ -611,51 +626,59 @@ def textcnn_pool_bwd_dg_ids(ids: torch.Tensor, table: torch.Tensor,
     return dk
 
 
-def textcnn_pool_forward_bf16(x: torch.Tensor, kernel: torch.Tensor,
-                              bias: torch.Tensor, window: int = 3,
-                              skip: Optional[torch.Tensor] = None
-                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, idx) without autograd from bf16 x [B, T, E] and K [W*E, F]
-    and f32 bias: the plain version on the CPU, else the bf16 source of
-    `csrc/textcnn_pool_fwd.cu` (W <= 8)."""
+def textcnn_pool_forward_16(dtype: torch.dtype, x: torch.Tensor,
+                            kernel: torch.Tensor, bias: torch.Tensor,
+                            window: int = 3,
+                            skip: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, idx) without autograd from x [B, T, E] and K [W*E, F] of the
+    16-bit `dtype` and f32 bias: the plain version on the CPU, else that
+    type's instantiation of the 16-bit body of `csrc/textcnn_pool_fwd.cu`
+    (`textcnn_pool_fwd_bf16` or `textcnn_pool_fwd_f16`, W <= 8)."""
     if x.device.type == "cpu":
-        return textcnn_pool_bf16_reference(x, kernel, bias, window, skip)
-    _check_forward(x, kernel, bias, window, skip, dtype=torch.bfloat16)
+        return textcnn_pool_16_reference(dtype, x, kernel, bias, window,
+                                         skip)
+    name = KERNELS_16[dtype][0]
+    _check_forward(x, kernel, bias, window, skip, dtype=dtype)
     b, t, e = x.shape
     f = kernel.shape[1]
-    max_window = _library(FWD_BF16).textcnn_pool_fwd_max_window()
+    max_window = _library(name).textcnn_pool_fwd_max_window()
     if not 1 <= window <= max_window:
         raise ValueError(f"window {window} outside the kernel's "
                          f"1..{max_window}")
     out = torch.empty((b, f), dtype=torch.float32, device=x.device)
     idx = torch.empty((b, f), dtype=torch.int32, device=x.device)
-    _launch(FWD_BF16, x, (x.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
-                          _ptr(skip), out.data_ptr(), idx.data_ptr()),
+    _launch(name, x, (x.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
+                      _ptr(skip), out.data_ptr(), idx.data_ptr()),
             dict(B=b, T=t, E=e, F=f, W=window))
     return out, idx
 
 
-def textcnn_pool_bwd_dg_bf16(x: torch.Tensor, g: torch.Tensor,
-                             idx: torch.Tensor, window: int = 3,
-                             skip: Optional[torch.Tensor] = None
-                             ) -> torch.Tensor:
-    """dK [W*E, F] f32 holding bf16 values, from bf16 x [B, T, E], the
-    gated f32 g [B, F] and idx: the plain version on the CPU, else the
-    bf16 instantiation of `csrc/textcnn_pool_bwd_dg.cu`."""
+def textcnn_pool_bwd_dg_16(dtype: torch.dtype, x: torch.Tensor,
+                           g: torch.Tensor, idx: torch.Tensor,
+                           window: int = 3,
+                           skip: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """dK [W*E, F] f32 holding values of the 16-bit `dtype`, from x
+    [B, T, E] of that type, the gated f32 g [B, F] and idx: the plain
+    version on the CPU, else that type's instantiation of
+    `csrc/textcnn_pool_bwd_dg.cu` (`textcnn_pool_bwd_dg_bf16` or
+    `textcnn_pool_bwd_dg_f16`)."""
     if x.device.type == "cpu":
-        return textcnn_pool_bf16_dg_reference(x, g, idx, window, skip)
+        return textcnn_pool_16_dg_reference(dtype, x, g, idx, window, skip)
+    name = KERNELS_16[dtype][1]
     if x.dim() != 3 or g.dim() != 2 or x.shape[0] != g.shape[0]:
         raise ValueError(f"x [B, T, E] and g [B, F] expected, got "
                          f"{tuple(x.shape)} and {tuple(g.shape)}")
-    _check_backward(BWD_DG_BF16, g, idx, ("g", g), skip, window)
-    _check_cuda(BWD_DG_BF16, [("x", x)], [torch.bfloat16])
+    _check_backward(name, g, idx, ("g", g), skip, window)
+    _check_cuda(name, [("x", x)], [dtype])
     b, t, e = x.shape
     f = g.shape[1]
     dk = torch.empty((window * e, f), dtype=torch.float32, device=x.device)
     partial, counter = _dg_workspace(x, b, f, window * e)
-    _launch(BWD_DG_BF16, x, (x.data_ptr(), g.data_ptr(), idx.data_ptr(),
-                             _ptr(skip), dk.data_ptr(), _ptr(partial),
-                             _ptr(counter)),
+    _launch(name, x, (x.data_ptr(), g.data_ptr(), idx.data_ptr(),
+                      _ptr(skip), dk.data_ptr(), _ptr(partial),
+                      _ptr(counter)),
             dict(B=b, T=t, E=e, F=f, W=window))
     return dk
 
@@ -741,35 +764,37 @@ class TextCNNPoolEmbed(torch.autograd.Function):
         return None, None, dk, g.sum(0), None
 
 
-class TextCNNPoolBF16(torch.autograd.Function):
-    """(out, idx) of the op on the bf16 values of x and K, differentiable
-    in x, K and b: dK is the bf16 dG kernel's (bf16 values in f32), dx
-    (only when x needs it) the f32 dx kernel on the bf16 values of K,
-    rounded to bf16, and db the f32 sum of the gated g."""
+class TextCNNPool16(torch.autograd.Function):
+    """(out, idx) of the op on the values of x and K in the 16-bit
+    `dtype` (bfloat16 or float16), differentiable in x, K and b: dK is
+    that type's dG kernel's (16-bit values in f32), dx (only when x needs
+    it) the f32 dx kernel on the 16-bit values of K, rounded to the
+    16-bit type, and db the f32 sum of the gated g."""
 
     @staticmethod
-    def forward(ctx, x, kernel, bias, window, skip):
-        xb = x.to(torch.bfloat16).contiguous()
-        kb = kernel.to(torch.bfloat16).contiguous()
-        out, idx = textcnn_pool_forward_bf16(xb, kb, bias, window, skip)
-        ctx.window = window
-        ctx.save_for_backward(xb, kb, out, idx, skip)
+    def forward(ctx, x, kernel, bias, window, skip, dtype):
+        xh = x.to(dtype).contiguous()
+        kh = kernel.to(dtype).contiguous()
+        out, idx = textcnn_pool_forward_16(dtype, xh, kh, bias, window,
+                                           skip)
+        ctx.window, ctx.dtype = window, dtype
+        ctx.save_for_backward(xh, kh, out, idx, skip)
         ctx.mark_non_differentiable(idx)
         return out, idx
 
     @staticmethod
     def backward(ctx, g_out, _g_idx):
-        xb, kb, out, idx, skip = ctx.saved_tensors
-        w = ctx.window
+        xh, kh, out, idx, skip = ctx.saved_tensors
+        w, dtype = ctx.window, ctx.dtype
         g = torch.where(out > 0, g_out, torch.zeros((), dtype=g_out.dtype,
                                                     device=g_out.device))
         g = g.contiguous()
-        dx = (_bf16_values(textcnn_pool_bwd_dx(g, idx, kb.float(),
-                                               xb.shape[1], w, skip))
+        dx = (_values_16(textcnn_pool_bwd_dx(g, idx, kh.float(),
+                                             xh.shape[1], w, skip), dtype)
               if ctx.needs_input_grad[0] else None)
-        dk = (textcnn_pool_bwd_dg_bf16(xb, g, idx, w, skip)
+        dk = (textcnn_pool_bwd_dg_16(dtype, xh, g, idx, w, skip)
               if ctx.needs_input_grad[1] else None)
-        return dx, dk, g.sum(0), None, None
+        return dx, dk, g.sum(0), None, None, None
 
 
 def textcnn_pool(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
@@ -777,11 +802,12 @@ def textcnn_pool(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                  dtype: torch.dtype = torch.float32
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [B, F] f32, idx [B, F] int32); see the module docstring.
-    `dtype` is the conv's operand type: float32 or bfloat16."""
-    if dtype == torch.bfloat16:
-        return TextCNNPoolBF16.apply(x, kernel, bias, window, skip)
+    `dtype` is the conv's operand type: float32, bfloat16 or float16."""
+    if dtype in KERNELS_16:
+        return TextCNNPool16.apply(x, kernel, bias, window, skip, dtype)
     if dtype != torch.float32:
-        raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+        raise ValueError(f"dtype must be float32, bfloat16 or float16, got "
+                         f"{dtype}")
     return TextCNNPool.apply(x, kernel, bias, window, skip)
 
 

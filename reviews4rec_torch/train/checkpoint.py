@@ -12,9 +12,11 @@ checkpoint of the same run tag is never read as a torch one.
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional, Union
 
 import torch
+
+from ..parallel.mesh import local_params
 
 
 def checkpoint_path(hp) -> str:
@@ -40,3 +42,41 @@ def save_checkpoint(path: str, params: Dict[str, torch.Tensor], *,
 
 def load_checkpoint(path: str, map_location=None) -> Dict:
     return torch.load(path, map_location=map_location, weights_only=True)
+
+
+def restore_like(template: Union[torch.nn.Module, Mapping[str, torch.Tensor]],
+                 state_dict: Mapping[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+    """`state_dict` with the keys of `template` (a module or a
+    `state_dict`), each tensor placed on its template tensor's device and
+    cast to its dtype: a checkpoint read on another device comes back
+    where the template lives. A module laid out on a mesh
+    (`parallel.mesh.shard_model`) holds this rank's rows of each
+    row-sharded table, so the whole tables of `state_dict` are cut to
+    those rows first and the rank's shard shape is the one checked. A
+    missing or unexpected key, or another shape, raises ValueError."""
+    if isinstance(template, torch.nn.Module):
+        state_dict = local_params(template, dict(state_dict))
+        template = template.state_dict()
+    missing = sorted(set(template) - set(state_dict))
+    unexpected = sorted(set(state_dict) - set(template))
+    if missing or unexpected:
+        raise ValueError(f"state_dict does not match its template: missing "
+                         f"{missing}, unexpected {unexpected}")
+    out = {}
+    for key, want in template.items():
+        have = state_dict[key]
+        if tuple(have.shape) != tuple(want.shape):
+            raise ValueError(f"{key}: shape {tuple(have.shape)}, the "
+                             f"template's {tuple(want.shape)}")
+        out[key] = have.to(device=want.device, dtype=want.dtype)
+    return out
+
+
+def restore_params(path: str,
+                   template: Union[torch.nn.Module, Mapping[str, torch.Tensor]]
+                   ) -> Dict[str, torch.Tensor]:
+    """The `params` of the checkpoint at `path`, restored like `template`
+    (`restore_like`)."""
+    return restore_like(template,
+                        load_checkpoint(path, map_location="cpu")["params"])

@@ -39,9 +39,10 @@ def softmax_ce(logits: torch.Tensor, labels: torch.Tensor,
     return _mean(ce, weight, denom)
 
 
-def sigmoid_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def optax_sigmoid_ce(logits: torch.Tensor, labels: torch.Tensor
+                     ) -> torch.Tensor:
     """Numerically stable binary cross-entropy with logits, elementwise:
-    max(x, 0) - x * y + log1p(exp(-|x|))."""
+    max(x, 0) - x * y + log1p(exp(-|x|)) (the JAX package's name)."""
     return (torch.clamp(logits, min=0) - logits * labels
             + torch.log1p(torch.exp(-logits.abs())))
 
@@ -49,7 +50,7 @@ def sigmoid_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def sigmoid_ce_point(logits: torch.Tensor, labels: torch.Tensor,
                      weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Pointwise sigmoid cross-entropy on binary labels."""
-    return _mean(sigmoid_ce(logits, labels), weight)
+    return _mean(optax_sigmoid_ce(logits, labels), weight)
 
 
 def bpr(pos: torch.Tensor, neg: torch.Tensor,

@@ -1,25 +1,31 @@
-"""`compute_dtype="bfloat16"`: the port's bf16 TextCNN op against the JAX
-package's XLA TextCNN branch at bf16 (`reviews4rec_tpu/models/layers.py`
-without `use_pallas`), both on the CPU.
+"""`compute_dtype="bfloat16"` and `"float16"`: the port's 16-bit TextCNN
+op against the JAX package's XLA TextCNN branch at that type
+(`reviews4rec_tpu/models/layers.py` without `use_pallas`), both on the
+CPU. Every case runs at both types unless it says otherwise.
 
 - The op: JAX's `TextCNN` module with an identity `fc` (so its output is
   the pooled conv) under `jax.vjp`, against the port's
-  `textcnn_pool(..., dtype=torch.bfloat16)` with the plain versions of
-  the bf16 kernels. out within 1e-5 absolute; db within 1e-5; dK, which
-  both give as f32 holding bf16 values (JAX's cotangent of
-  `kernel.astype(bfloat16)`), equal or one bf16 ulp apart where the f32
-  sum, taken in another order, sits on a rounding boundary: at most 1%
-  of the elements (the share is printed; 0.03-0.07% on the card's
-  kernel against the plain version at the serving shape).
-- deepconn, deepconn++, NARRE and transnet++ at bf16 from the same flax
-  params: serving outputs within 1e-5, and 4 Adam steps at dropout 0
-  within the bounds of tests/test_torch_train.py (losses 1e-5 relative,
-  params 5e-4 absolute; NARRE's attention output biases, whose gradient
-  is 0 in exact arithmetic, held within steps * lr of the init, as in
+  `textcnn_pool(..., dtype=...)` with the plain versions of the 16-bit
+  kernels. out within 1e-5 absolute; db within 1e-5; dK, which both give
+  as f32 holding 16-bit values (JAX's cotangent of
+  `kernel.astype(dtype)`), equal or one ulp of the type apart where the
+  f32 sum, taken in another order, sits on a rounding boundary: at most
+  1% of the elements (the share is printed; 0.03-0.07% on the card's bf16
+  kernel against the plain version at the serving shape). At float16
+  also with g scaled by 1e-6, so that dK spans f16's normal and
+  subnormal values and 0.
+- deepconn, deepconn++, NARRE and transnet++ from the same flax params:
+  serving outputs within 1e-5, and Adam steps at dropout 0 (4 at bf16,
+  8 at f16) within the bounds of tests/test_torch_train.py (losses 1e-5
+  relative over the first 4 steps, 5e-5 by step 8, params 5e-4
+  absolute; NARRE's attention output biases, whose gradient is 0 in
+  exact arithmetic, held within steps * lr of the init, as in
   tests/test_torch_narre.py).
-- The bf16 op on `table[rows]` and on `table[ids]` gives the bits of the
-  op on the gathered x, so the entity cache and the fused gather keep
-  their outputs at bf16.
+- The 16-bit op on `table[rows]` and on `table[ids]` gives the bits of
+  the op on the gathered x, so the entity cache and the fused gather
+  keep their outputs at 16 bits.
+- The doc caches: JAX's and the port's cached steps at the type, and
+  the port's cached steps bitwise its uncached ones.
 """
 
 import flax.linen as nn
@@ -48,31 +54,59 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
 GEOM = dict(batch_size=16, input_length=64, latent_size=8,
-            narre_num_reviews=4, narre_num_words=16, dropout=0.0,
-            compute_dtype="bfloat16")
+            narre_num_reviews=4, narre_num_words=16, dropout=0.0)
 SHIFT_FREE = {"NARRE": ("att_user.fc1.bias", "att_item.fc1.bias")}
+# (JAX type, torch type, significant bits, least normal exponent)
+TYPES = {"bfloat16": (jnp.bfloat16, torch.bfloat16, 8, -126),
+         "float16": (jnp.float16, torch.float16, 11, -14)}
+DTYPES = list(TYPES)
+# Adam steps of the uncached comparison at each type
+STEPS = {"bfloat16": 4, "float16": 8}
 
 
-def _bf16_values(a: np.ndarray) -> np.ndarray:
-    return np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
+def _values(a: np.ndarray, dtype: str) -> np.ndarray:
+    """The f32 values of a rounded to `dtype` by JAX's convert."""
+    return np.asarray(jnp.asarray(a).astype(TYPES[dtype][0])
+                      .astype(jnp.float32))
 
 
-def _ulp_bf16(a: np.ndarray) -> np.ndarray:
-    """The bf16 spacing at each value (8 significant bits)."""
-    e = np.floor(np.log2(np.maximum(np.abs(a), np.finfo(np.float32).tiny)))
-    return np.exp2(e - 7)
+def _ulp(a: np.ndarray, dtype: str) -> np.ndarray:
+    """The spacing of `dtype` at each value (its subnormals' below its
+    least normal)."""
+    _, _, bits, emin = TYPES[dtype]
+    e = np.floor(np.log2(np.maximum(np.abs(a), 2.0 ** emin)))
+    return np.exp2(e - (bits - 1))
 
 
 @pytest.mark.parametrize("b,t,e,f,w,seed", [
     (8, 40, 16, 24, 3, 0), (5, 13, 20, 100, 3, 1), (4, 30, 8, 12, 5, 2)])
-def test_op_matches_jax_xla_branch(b, t, e, f, w, seed):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_op_matches_jax_xla_branch(dtype, b, t, e, f, w, seed):
+    _op_vs_jax(dtype, b, t, e, f, w, seed, 1.0)
+
+
+@pytest.mark.parametrize("b,t,e,f,w,seed", [
+    (8, 40, 16, 24, 3, 3), (16, 50, 64, 100, 3, 4)])
+def test_f16_subnormal_dk_matches_jax(b, t, e, f, w, seed):
+    """g scaled by 1e-6: most dK values are f16 subnormals, some round to
+    0, and both frameworks keep the subnormals."""
+    jdk = _op_vs_jax("float16", b, t, e, f, w, seed, 1e-6)
+    tiny = 2.0 ** TYPES["float16"][3]
+    sub = (jdk != 0) & (np.abs(jdk) < tiny)
+    print(f"dK subnormal {sub.mean():.2%}, zero {(jdk == 0).mean():.2%}")
+    assert sub.mean() > 0.5 and (jdk == 0).any()
+
+
+def _op_vs_jax(dtype, b, t, e, f, w, seed, g_scale) -> np.ndarray:
+    """The 16-bit op against JAX's branch on a random case (g times
+    g_scale); returns JAX's dK."""
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(b, t, e)).astype(np.float32)
     k = (0.2 * rng.normal(size=(w * e, f))).astype(np.float32)
     bias = (0.1 * rng.normal(size=f)).astype(np.float32)
-    g = rng.normal(size=(b, f)).astype(np.float32)
+    g = (g_scale * rng.normal(size=(b, f))).astype(np.float32)
     mod = JaxTextCNN(latent_size=f, dropout=0.0, window=w, num_filters=f,
-                     compute_dtype=jnp.bfloat16)
+                     compute_dtype=TYPES[dtype][0])
     params = {"conv_kernel": jnp.asarray(k), "conv_bias": jnp.asarray(bias),
               "fc": {"kernel": jnp.eye(f, dtype=jnp.float32),
                      "bias": jnp.zeros(f, jnp.float32)}}
@@ -83,56 +117,68 @@ def test_op_matches_jax_xla_branch(b, t, e, f, w, seed):
     want, vjp = jax.vjp(fwd, jnp.asarray(x), params)
     jdx, jgrads = vjp(jnp.asarray(g))
     jdk = np.asarray(jgrads["conv_kernel"])
-    np.testing.assert_array_equal(_bf16_values(jdk), jdk)
+    np.testing.assert_array_equal(_values(jdk, dtype), jdk)
 
     xt = torch.from_numpy(x).requires_grad_(True)
     kt = torch.from_numpy(k).requires_grad_(True)
     bt = torch.from_numpy(bias).requires_grad_(True)
-    out, _ = textcnn.textcnn_pool(xt, kt, bt, w, None, torch.bfloat16)
+    out, _ = textcnn.textcnn_pool(xt, kt, bt, w, None, TYPES[dtype][1])
     out.backward(torch.from_numpy(g))
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
                                atol=1e-5, rtol=0)
     np.testing.assert_allclose(bt.grad.numpy(),
                                np.asarray(jgrads["conv_bias"]), atol=1e-5)
     pdk = kt.grad.numpy()
-    np.testing.assert_array_equal(_bf16_values(pdk), pdk)
+    np.testing.assert_array_equal(_values(pdk, dtype), pdk)
     diff = np.abs(pdk - jdk)
-    assert (diff <= _ulp_bf16(jdk) * 1.0001).all()
+    assert (diff <= _ulp(jdk, dtype) * 1.0001).all()
     share = float((diff > 0).mean())
-    print(f"dK one bf16 ulp apart: {share:.4%} of {pdk.size}")
+    print(f"dK one {dtype} ulp apart: {share:.4%} of {pdk.size}")
     assert share <= 0.01
-    # dx: bf16 values, where the same windows won
-    assert np.array_equal(_bf16_values(xt.grad.numpy()), xt.grad.numpy())
+    # dx: 16-bit values, where the same windows won
+    assert np.array_equal(_values(xt.grad.numpy(), dtype), xt.grad.numpy())
+    return jdk
 
 
-def test_plain_versions_are_the_f32_op_on_bf16_values():
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_plain_versions_are_the_f32_op_on_bf16_values(dtype):
+    """At either 16-bit type, the plain versions of the forward and dG
+    kernels are the f32 plain op on the 16-bit values, the dK rounded to
+    the type once."""
+    tdt = TYPES[dtype][1]
     rng = np.random.default_rng(7)
     x = torch.from_numpy(rng.normal(size=(3, 11, 8)).astype(np.float32))
     k = torch.from_numpy(rng.normal(size=(24, 5)).astype(np.float32))
     bias = torch.zeros(5)
-    xb, kb = x.to(torch.bfloat16), k.to(torch.bfloat16)
-    out, idx = textcnn.textcnn_pool_forward_bf16(xb, kb, bias, 3)
+    xb, kb = x.to(tdt), k.to(tdt)
+    out, idx = textcnn.textcnn_pool_forward_16(tdt, xb, kb, bias, 3)
     want = textcnn.textcnn_pool_reference(xb.float(), kb.float(), bias, 3)
     assert torch.equal(out, want[0]) and torch.equal(idx, want[1])
     g = torch.from_numpy(rng.normal(size=(3, 5)).astype(np.float32))
-    dk = textcnn.textcnn_pool_bwd_dg_bf16(xb, g, idx, 3)
+    dk = textcnn.textcnn_pool_bwd_dg_16(tdt, xb, g, idx, 3)
     f32 = textcnn.textcnn_pool_backward_reference(xb.float(), kb.float(), g,
                                                   idx, 3)[1]
-    assert torch.equal(dk, f32.to(torch.bfloat16).float())
+    assert torch.equal(dk, f32.to(tdt).float())
 
 
 def test_dtype_must_be_float32_or_bfloat16():
+    """The op takes float32, bfloat16 and float16 operands (float16 used
+    to be refused here) and refuses any other type, naming the three."""
     x = torch.zeros(1, 4, 2)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
+    out, _ = textcnn.textcnn_pool(x, torch.zeros(6, 3), torch.zeros(3), 3,
+                                  None, torch.float16)
+    assert out.shape == (1, 3) and out.dtype == torch.float32
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
         textcnn.textcnn_pool(x, torch.zeros(6, 3), torch.zeros(3), 3, None,
-                             torch.float16)
+                             torch.float64)
 
 
-def test_rows_and_ids_gather_first_at_bf16():
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rows_and_ids_gather_first_at_bf16(dtype):
     rng = np.random.default_rng(3)
     conv = PortTextCNN(8, 4, dropout=0.0, num_filters=6,
                        generator=torch.Generator().manual_seed(0),
-                       compute_dtype="bfloat16").eval()
+                       compute_dtype=dtype).eval()
     table = torch.from_numpy(rng.normal(size=(20, 8)).astype(np.float32))
     ids = torch.from_numpy(rng.integers(0, 20, size=(5, 9)))
     docs = table[ids]
@@ -154,9 +200,10 @@ def port_dataset(dataset, tmp_path_factory):
     return PortDataset.load(str(d))
 
 
-def _pair(dataset, port_dataset, mt):
-    jh = dataset.apply_to(JaxHP(model_type=mt, **GEOM))
-    ph = port_dataset.apply_to(PortHP(model_type=mt, **GEOM))
+def _pair(dataset, port_dataset, mt, dtype):
+    jh = dataset.apply_to(JaxHP(model_type=mt, **GEOM, compute_dtype=dtype))
+    ph = port_dataset.apply_to(PortHP(model_type=mt, **GEOM,
+                                      compute_dtype=dtype))
     jm = jax_build(jh, dataset.word_vectors)
     sample = next(iter(Batcher(dataset.materialize(jh, "train"), 4)))
     params = jm.init({"params": jax.random.PRNGKey(3),
@@ -176,13 +223,14 @@ MODELS = ["deepconn", "deepconn++", "NARRE", "transnet++"]
 
 
 @pytest.mark.parametrize("mt", MODELS)
-def test_serving_matches_jax(mt, dataset, port_dataset):
-    jh, ph, jm, params, tm = _pair(dataset, port_dataset, mt)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_serving_matches_jax(dtype, mt, dataset, port_dataset):
+    jh, ph, jm, params, tm = _pair(dataset, port_dataset, mt, dtype)
     batch = next(iter(Batcher(dataset.materialize(jh, "test"), 16)))
     want = _first(jm.apply({"params": params},
                            jax.tree_util.tree_map(jnp.asarray, batch),
                            train=False))
-    # the bf16 outputs are not the f32 ones
+    # the 16-bit outputs are not the f32 ones
     f32 = jax_build(jh.replace(compute_dtype="float32"), dataset.word_vectors)
     other = _first(f32.apply({"params": params},
                              jax.tree_util.tree_map(jnp.asarray, batch),
@@ -196,23 +244,26 @@ def test_serving_matches_jax(mt, dataset, port_dataset):
 
 
 @pytest.mark.parametrize("mt", MODELS)
-def test_adam_steps_match_jax(mt, dataset, port_dataset):
-    jh, ph, jm, params, tm = _pair(dataset, port_dataset, mt)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_adam_steps_match_jax(dtype, mt, dataset, port_dataset):
+    jh, ph, jm, params, tm = _pair(dataset, port_dataset, mt, dtype)
     init = params_from_flax(params)
-    batches = list(Batcher(dataset.materialize(jh, "train"), 16))[:4]
+    batches = list(Batcher(dataset.materialize(jh, "train"),
+                           16))[:STEPS[dtype]]
     opt = jax_loop.make_optimizer(jh)
     state = jax_loop.TrainState(params, opt.init(params),
                                 jnp.zeros((), jnp.int32))
     step = jax_loop.make_train_step(make_apply_fn(jm), opt, mt)
     port_opt = loop.make_optimizer(ph, tm)
     tm.train()
-    for b in batches:
+    for s, b in enumerate(batches):
         state, m = step(state, jax.tree_util.tree_map(jnp.asarray, b),
                         jax.random.PRNGKey(0))
         loss, sq_sum, n = loop.train_step(tm, port_opt, to_device(b, CPU))
-        np.testing.assert_allclose(loss.item(), float(m["loss"]), rtol=1e-5)
+        rtol = 1e-5 if s < 4 else 5e-5
+        np.testing.assert_allclose(loss.item(), float(m["loss"]), rtol=rtol)
         np.testing.assert_allclose(sq_sum.item(), float(m["sq_sum"]),
-                                   rtol=1e-5)
+                                   rtol=rtol)
         assert n.item() == float(m["n"])
     want = params_from_flax(state.params)
     got = tm.state_dict()
@@ -228,12 +279,16 @@ def test_adam_steps_match_jax(mt, dataset, port_dataset):
 
 
 # ---------------------------------------------------------------------
-# the doc caches at bf16: without `use_pallas` both packages cache the
+# the doc caches at 16 bits: without `use_pallas` both packages cache the
 # embedded docs at `compute_dtype` (`cache_dtype_for`)
 # ---------------------------------------------------------------------
 CACHE_STEPS = 8
 # the share of a tensor's elements that may take a flipped Adam step
 FLIP_SHARE = 5e-3
+# (steps whose losses are held to 1e-5, the bound of all 8, filter
+# columns of a conv kernel that may lie 2 * steps * lr from JAX's) of the
+# cached comparison at each type; why f16's differ: the test below
+CACHE_BOUNDS = {"bfloat16": (4, 5e-5, 0), "float16": (2, 2e-4, 1)}
 DOCS = ("user_doc", "item_doc")
 
 
@@ -277,20 +332,22 @@ def _cached_steps(tm, ph, cache, steps=CACHE_STEPS):
 
 
 @pytest.mark.parametrize("kind", ["per_example", "entity"])
-def test_cached_steps_match_jax(kind, dataset, port_dataset):
-    """8 steps of deepconn++ at bf16 over JAX's cache
-    (`make_cached_train_step`) and over the port's, both at bf16, from the
-    same params at dropout 0: the uncached bf16 test's bounds (losses
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cached_steps_match_jax(dtype, kind, dataset, port_dataset):
+    """8 steps of deepconn++ at the 16-bit type over JAX's cache
+    (`make_cached_train_step`) and over the port's, both at that type,
+    from the same params at dropout 0: the uncached test's bounds (losses
     1e-5 relative over the first 4 steps, params 5e-4)."""
-    jh, ph, jm, params, tm = _pair(dataset, port_dataset, "deepconn++")
+    jh, ph, jm, params, tm = _pair(dataset, port_dataset, "deepconn++",
+                                   dtype)
     if kind == "entity":
         jh = jh.replace(cache_doc_embeds=True, cache_entity=True)
         ph = ph.replace(cache_doc_embeds=True, cache_entity=True)
-    assert loop.cache_dtype_for(ph) == torch.bfloat16
-    assert jax_loop.cache_dtype_for(jh) == jnp.bfloat16
+    assert loop.cache_dtype_for(ph) == TYPES[dtype][1]
+    assert jax_loop.cache_dtype_for(jh) == TYPES[dtype][0]
     jc, pc = _caches(dataset, port_dataset, jh, ph, kind)
     docs = pc.tables if kind == "entity" else pc
-    assert all(docs[k].dtype == torch.bfloat16 for k in DOCS)
+    assert all(docs[k].dtype == TYPES[dtype][1] for k in DOCS)
     opt = jax_loop.make_optimizer(jh)
     state = jax_loop.TrainState(params, opt.init(params),
                                 jnp.zeros((), jnp.int32))
@@ -306,9 +363,19 @@ def test_cached_steps_match_jax(kind, dataset, port_dataset):
     # the uncached test's bound over its 4 steps; from step 5 on the
     # uncached bf16 steps themselves drift further (1.9e-5 relative at
     # step 7, where a bf16 rounding of K falls the other way), and the
-    # cached steps are those steps bit for bit (the test below)
-    np.testing.assert_allclose(losses[:4], want_losses[:4], rtol=1e-5)
-    np.testing.assert_allclose(losses, want_losses, rtol=5e-5)
+    # cached steps are those steps bit for bit (the test below). At f16
+    # the entity run meets a near-tie at step 3: two windows of one
+    # (b, f) 1.7e-7 apart in float64, which the two frameworks' f32 sums
+    # (in other orders, on params 1.5e-6 apart) rank the other way, so
+    # the step routes that gradient to the other window and Adam moves
+    # that filter's column of K (104 of its 192 elements) by up to 3.3 lr
+    # by step 8; the losses of steps 4-8 are then up to 1.2e-4 off. So
+    # f16 holds 1e-5 over the 2 steps before it and 2e-4 to the end, and
+    # lets one filter column of a conv kernel move that far.
+    early, late, tie_cols = CACHE_BOUNDS[dtype]
+    np.testing.assert_allclose(losses[:early], want_losses[:early],
+                               rtol=1e-5)
+    np.testing.assert_allclose(losses, want_losses, rtol=late)
     want = params_from_flax(state.params)
     assert set(got) == set(want)
     flips = 0
@@ -320,19 +387,25 @@ def test_cached_steps_match_jax(kind, dataset, port_dataset):
         # many item windows are 0): at most 2 * steps * lr apart
         far = diff > 5e-4
         flips += int(far.sum())
-        assert far.mean() <= FLIP_SHARE, (k, far.mean())
+        cols = (np.unique(np.nonzero(far)[1]) if k.endswith("conv_kernel")
+                else ())
+        assert far.mean() <= FLIP_SHARE or (
+            k.endswith("conv_kernel") and 0 < len(cols) <= tie_cols), \
+            (k, far.mean(), len(cols))
         assert diff.max() <= 2 * CACHE_STEPS * ph.lr * 1.001, k
     print(f"{kind}: {flips} param elements beyond 5e-4")
 
 
 @pytest.mark.parametrize("kind", ["per_example", "entity"])
-def test_cached_steps_are_bitwise_uncached(kind, dataset, port_dataset):
-    """The port's bf16 cache against its own uncached bf16 steps on the
-    same records, docs embedded in the step: the same losses and params,
-    bit for bit (the bf16 cast of a word row commutes with the gather)."""
-    _, ph, _, _, tm = _pair(dataset, port_dataset, "deepconn++")
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cached_steps_are_bitwise_uncached(dtype, kind, dataset,
+                                           port_dataset):
+    """The port's 16-bit cache against its own uncached steps at the type
+    on the same records, docs embedded in the step: the same losses and
+    params, bit for bit (the cast of a word row commutes with the
+    gather)."""
+    jh, ph, _, _, tm = _pair(dataset, port_dataset, "deepconn++", dtype)
     init = {k: v.clone() for k, v in tm.state_dict().items()}
-    jh = dataset.apply_to(JaxHP(model_type="deepconn++", **GEOM))
     _, cached = _caches(dataset, port_dataset, jh, ph, kind)
     _, ids = _caches(dataset, port_dataset, jh, ph, kind, id_keys=DOCS)
     docs = ids.tables if kind == "entity" else ids
@@ -343,3 +416,46 @@ def test_cached_steps_are_bitwise_uncached(kind, dataset, port_dataset):
     assert got[0] == want[0]
     for k in want[1]:
         assert torch.equal(got[1][k], want[1][k]), k
+
+
+# ---------------------------------------------------------------------
+# every TextCNN model at float16 through `api.run` and `serve.predict`
+# ---------------------------------------------------------------------
+CACHES = {"uncached": {}, "per_example": dict(cache_doc_embeds=True),
+          "entity": dict(cache_doc_embeds=True, cache_entity=True)}
+
+
+@pytest.mark.parametrize("cache", list(CACHES))
+@pytest.mark.parametrize("mt", ["deepconn", "deepconn++", "NARRE",
+                                "transnet", "transnet++"])
+def test_f16_models_train_and_serve(mt, cache, port_dataset, tmp_path,
+                                    monkeypatch):
+    """`build_model` at `compute_dtype="float16"` (no `use_pallas`)
+    trains each TextCNN model an epoch through `api.run`, uncached and
+    on the per-example and entity doc caches (held at f16), every conv
+    of training, validation and the test pass at f16; the restored
+    checkpoint serves finite predictions."""
+    from reviews4rec_torch import api as port_api
+    from reviews4rec_torch.models import layers as port_layers
+    from reviews4rec_torch.serve import predict
+
+    dtypes = []
+    pool = port_layers.textcnn_pool
+
+    def counted(*args):
+        dtypes.append(args[-1])
+        return pool(*args)
+
+    monkeypatch.setattr(port_layers, "textcnn_pool", counted)
+    ph = port_dataset.apply_to(PortHP(
+        model_type=mt, **dict(GEOM, dropout=0.5), compute_dtype="float16",
+        epochs=1, log_dir=str(tmp_path), model_dir=str(tmp_path),
+        **CACHES[cache]))
+    if cache != "uncached":
+        assert loop.cache_dtype_for(ph) == torch.float16
+    metrics, _, _ = port_api.run(ph, port_dataset, device="cpu")
+    assert np.isfinite(metrics["MSE"]) and metrics["MSE"] > 0
+    assert dtypes and set(dtypes) == {torch.float16}
+    pred = predict(ph, port_dataset, "test", device=CPU)
+    assert pred.shape == (len(port_dataset.splits["test"].rating),)
+    assert np.isfinite(pred).all()

@@ -88,16 +88,15 @@ def test_forward_with_skip_spans(dataset, port_dataset):
 
 def test_build_model_raises_for_unported_models(port_dataset):
     """HFT and SVD fit by their own runners (`api.run`), so `build_model`
-    raises the JAX package's `ValueError` for them; an option the port
-    does not have raises `NotImplementedError` naming its ROADMAP.md
-    item."""
+    raises the JAX package's `ValueError` for them; a conv dtype the port
+    has no kernel for raises a `ValueError` naming the three it has."""
     for mt in ("HFT", "SVD"):
         hp = port_dataset.apply_to(PortHP(model_type=mt))
         with pytest.raises(ValueError, match="is not an SGD model"):
             port_build(hp, port_dataset.word_vectors, device="cpu")
     hp = port_dataset.apply_to(PortHP(model_type="deepconn",
-                                      compute_dtype="float16"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+                                      compute_dtype="float64"))
+    with pytest.raises(ValueError, match="float32, bfloat16, float16"):
         port_build(hp, port_dataset.word_vectors, device="cpu")
 
 

@@ -260,8 +260,8 @@ def test_run_returns_the_jax_metric_keys_and_restores(dataset, port_dataset,
 @pytest.mark.parametrize("option,err,match", [
     (dict(cache_doc_embeds=True, mesh_shape=(2, 1)), ValueError,
      "parallel.distributed.initialize"),
-    (dict(compute_dtype="float16"), NotImplementedError,
-     "ROADMAP.md.*Queue 1 item 18"),
+    (dict(compute_dtype="float64"), ValueError,
+     "float32, bfloat16, float16 only"),
     (dict(mesh_shape=(2, 1)), ValueError, "parallel.distributed.initialize"),
     (dict(seq_parallel=True, mesh_shape=(1, 2)), ValueError,
      "parallel.distributed.initialize"),
@@ -269,9 +269,10 @@ def test_run_returns_the_jax_metric_keys_and_restores(dataset, port_dataset,
      "parallel.distributed.initialize"),
 ])
 def test_unported_options_raise(option, err, match, port_dataset, tmp_path):
-    """float16 is not ported; a mesh is (tests/test_torch_parallel.py
-    runs it on gloo ranks), but never as one process: without the process
-    group of its ranks it raises the ValueError naming
+    """A conv dtype without a kernel (float64) is refused; a mesh is
+    ported (tests/test_torch_parallel.py runs it on gloo ranks), but
+    never as one process: without the process group of its ranks it
+    raises the ValueError naming
     `parallel.distributed.initialize` and the CLI's flags."""
     hp = port_dataset.apply_to(PortHP(
         model_type="deepconn", log_dir=str(tmp_path),
@@ -313,9 +314,10 @@ def test_seq_parallel_raises_jax_s_error(mt, option, dataset, port_dataset):
 def test_bf16_compute_dtype_matches_jax(mt, dataset, port_dataset):
     """JAX's XLA TextCNN branch computes its conv on bf16 operands under
     `compute_dtype="bfloat16"` (its outputs move off the f32 ones); the
-    port's bf16 TextCNN gives JAX's bf16 outputs within 1e-5. float16
-    stays refused there, naming item 18. Under `use_pallas` the JAX
-    kernels pick their own dot dtype and the port builds, in f32."""
+    port's bf16 TextCNN gives JAX's bf16 outputs within 1e-5. float64,
+    which JAX's branch takes, is refused there (the port has no kernel
+    for it). Under `use_pallas` the JAX kernels pick their own dot dtype
+    and the port builds, in f32."""
     geom = dict(GEOM, model_type=mt, dropout=0.0, narre_num_reviews=4,
                 narre_num_words=16)
     jh = dataset.apply_to(JaxHP(**geom))
@@ -340,9 +342,8 @@ def test_bf16_compute_dtype_matches_jax(mt, dataset, port_dataset):
         got = tm(to_device(host, CPU))
     got = got[0] if isinstance(got, tuple) else got
     np.testing.assert_allclose(got.numpy(), out(jm16), atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 18"):
-        port_build(ph.replace(compute_dtype="float16"),
+    with pytest.raises(ValueError, match="float32, bfloat16, float16"):
+        port_build(ph.replace(compute_dtype="float64"),
                    port_dataset.word_vectors, device="cpu")
     port_build(ph.replace(use_pallas=True), port_dataset.word_vectors,
                device="cpu")

@@ -25,13 +25,19 @@ held against JAX on a machine that has no JAX (`chip_smoke.py`):
   deepconn++ `loss`, `grad1/<path>` (the gradient of step 1) and
   `params/<path>` after `STEPS` Adam steps at dropout 0 on the first
   `STEPS` train batches.
+- `fp16_ref.npz`: the same at `compute_dtype="float16"`, and the library
+  layers no model builds, at a small width: `lib/ln/x`, `lib/ln/params/
+  <path>` (moved off the init) and `lib/ln/out` of `LayerNorm`, the same
+  under `lib/ffn/` for `PosFFN`, and `lib/pe/<length>_<dim>_<zero_pad>_
+  <scale>` tables of `positional_encoding`.
 
 It runs on the CPU:
 
-    python tests/torch_fixtures/make_nonsgd_ref.py [neighbors] [hft] [bf16]
+    python tests/torch_fixtures/make_nonsgd_ref.py [neighbors] [hft] \
+        [bf16] [fp16]
 
-(no argument: all three). neighbors takes about 2 minutes, hft about
-1 minute and bf16 a few minutes.
+(no argument: all four). neighbors takes about 2 minutes, hft about
+1 minute and bf16 and fp16 a few minutes each.
 """
 
 from __future__ import annotations
@@ -58,6 +64,8 @@ from reviews4rec_tpu.config import HyperParams  # noqa: E402
 from reviews4rec_tpu.data.batcher import Batcher  # noqa: E402
 from reviews4rec_tpu.data.corpus import ReviewDataset  # noqa: E402
 from reviews4rec_tpu.models import build_model, hft, neighbors  # noqa: E402
+from reviews4rec_tpu.models.layers import (LayerNorm, PosFFN,  # noqa: E402
+                                           positional_encoding)
 from reviews4rec_tpu.train.evaluate import make_apply_fn  # noqa: E402
 from reviews4rec_tpu.train.loop import (TrainState, _batch_loss,  # noqa: E402
                                         make_optimizer, make_train_step)
@@ -71,11 +79,16 @@ GEOM = dict(dataset="e2e", latent_size=10, batch_size=256, eval_num_negs=99,
             seed=0)
 NEIGHBORS = ("baseline", "SVD", "SVD++", "NMF", "kNN")
 HFT_FLAGS = dict(latent_reg=4.0)
-BF16 = dict(input_length=1000, dropout=0.0, compute_dtype="bfloat16")
+HALF = dict(input_length=1000, dropout=0.0)
 SERVE_ROWS = 512
 STEPS = 8
 OUT = {"neighbors": HERE / "neighbors_ref.npz", "hft": HERE / "hft_ref.npz",
-       "bf16": HERE / "bf16_ref.npz"}
+       "bf16": HERE / "bf16_ref.npz", "fp16": HERE / "fp16_ref.npz"}
+# the library layers' shapes: LayerNorm's and PosFFN's x, PosFFN's hidden
+# width, positional_encoding's (length, dim, zero_pad, scale)
+LIB_X, LIB_HIDDEN = (2, 20, 64), 64
+LIB_PE = ((128, 64, False, False), (64, 64, True, True), (37, 15, False,
+                                                            True))
 
 
 def jax_init(mt: str, hp: HyperParams, U: int, I: int) -> dict:
@@ -200,13 +213,15 @@ def make_hft(ds) -> dict:
     return arrays
 
 
-def make_bf16(ds) -> dict:
+def make_half(ds, compute_dtype: str) -> dict:
+    """deepconn and deepconn++ at the 16-bit `compute_dtype`."""
     ref = dict(np.load(HERE / "e2e_ref.npz"))
+    half = dict(HALF, compute_dtype=compute_dtype)
     arrays = {"geometry": np.asarray(json.dumps(
-        dict(GEOM, **BF16, serve_rows=SERVE_ROWS, steps=STEPS)))}
+        dict(GEOM, **half, serve_rows=SERVE_ROWS, steps=STEPS)))}
     for mt in MODELS:
         t0 = time.time()
-        hp = ds.apply_to(HyperParams(model_type=mt, **GEOM, **BF16))
+        hp = ds.apply_to(HyperParams(model_type=mt, **GEOM, **half))
         model = build_model(hp, ds.word_vectors)
         apply_fn = make_apply_fn(model)
         params = _init_params(ref, mt, ds.word_vectors)
@@ -243,11 +258,38 @@ def make_bf16(ds) -> dict:
     return arrays
 
 
+def make_library() -> dict:
+    """LayerNorm, PosFFN and positional_encoding at a small width, their
+    params moved off the init so that every one of them matters."""
+    rng = np.random.default_rng(0)
+    x = jnp.asarray(rng.normal(size=LIB_X).astype(np.float32) * 2.0 + 0.5)
+    arrays = {}
+    for name, mod in (("ln", LayerNorm()), ("ffn", PosFFN(hidden=LIB_HIDDEN))):
+        params = mod.init(jax.random.PRNGKey(0), x)["params"]
+        params = jax.tree_util.tree_map(
+            lambda v: v + jnp.asarray(0.3 * rng.normal(size=v.shape),
+                                      jnp.float32), params)
+        arrays[f"lib/{name}/x"] = np.asarray(x)
+        for path, v in _flat(params).items():
+            arrays[f"lib/{name}/params/{path}"] = v
+        arrays[f"lib/{name}/out"] = np.asarray(mod.apply({"params": params},
+                                                         x))
+    for length, dim, zero_pad, scale in LIB_PE:
+        arrays[f"lib/pe/{length}_{dim}_{int(zero_pad)}_{int(scale)}"] = \
+            np.asarray(positional_encoding(length, dim, zero_pad, scale))
+    return arrays
+
+
+def make_fp16(ds) -> dict:
+    return {**make_half(ds, "float16"), **make_library()}
+
+
 def main(argv) -> None:
     os.chdir(ROOT)
     parts = argv or list(OUT)
     ds = ReviewDataset.load(HyperParams(**GEOM).data_dir())
-    make = {"neighbors": make_neighbors, "hft": make_hft, "bf16": make_bf16}
+    make = {"neighbors": make_neighbors, "hft": make_hft,
+            "bf16": lambda d: make_half(d, "bfloat16"), "fp16": make_fp16}
     for part in parts:
         arrays = make[part](ds)
         np.savez_compressed(OUT[part], **arrays)
