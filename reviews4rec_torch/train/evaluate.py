@@ -34,6 +34,7 @@ from ..config import HyperParams
 from ..data.batcher import Batcher
 from ..parallel.mesh import host_slice, model_mesh
 from ..utils.device import to_device
+from .profiler import annotate
 
 
 def source_pred(preds):
@@ -208,27 +209,37 @@ def score_grid(model: torch.nn.Module, records: Dict[str, np.ndarray],
                this_doc_words: int = 0) -> np.ndarray:
     """Scores [M, C] of a candidate grid (positive in column 0). With
     `entity_tables` the records are id-only and each batch's docs are
-    gathered on the device (`assemble_entity_grid`)."""
+    gathered on the device (`assemble_entity_grid`). Spans, a batch:
+    `score_grid.place` (the batch drawn and copied to the device),
+    `score_grid.assemble`, `score_grid.forward`; a call:
+    `score_grid.fetch` (the scores back on the host)."""
     model.eval()
     mesh = model_mesh(model)
     if mesh is not None:   # whole rows for every data rank
         n = mesh.shape[mesh.data_axis]
         batch_size = -(-batch_size // n) * n
     scores, weights = [], []
-    for batch in Batcher(records, batch_size):
-        placed = to_device(host_slice(batch, mesh), device)
+    batcher = Batcher(records, batch_size)
+    batches = iter(batcher)
+    for _ in range(len(batcher)):
+        with annotate("score_grid.place"):
+            batch = next(batches)
+            placed = to_device(host_slice(batch, mesh), device)
+            weights.append(batch["weight"].astype(bool))
         if entity_tables is not None:
-            placed = assemble_entity_grid(placed, entity_tables,
-                                          this_doc_words)
-        scores.append(source_pred(model(placed)))
-        weights.append(batch["weight"].astype(bool))
+            with annotate("score_grid.assemble"):
+                placed = assemble_entity_grid(placed, entity_tables,
+                                              this_doc_words)
+        with annotate("score_grid.forward"):
+            scores.append(source_pred(model(placed)))
     if not scores:
         return np.zeros((0,) + records["item"].shape[1:], np.float32)
-    host = torch.stack(scores)
-    if mesh is not None:
-        host = _gather_rows(host, mesh)
-    host = host.cpu().numpy()
-    return np.concatenate([s[w] for s, w in zip(host, weights)])
+    with annotate("score_grid.fetch"):
+        host = torch.stack(scores)
+        if mesh is not None:
+            host = _gather_rows(host, mesh)
+        host = host.cpu().numpy()
+        return np.concatenate([s[w] for s, w in zip(host, weights)])
 
 
 def positive_ranks(scores: np.ndarray) -> np.ndarray:
@@ -279,7 +290,9 @@ def eval_ranking(model: torch.nn.Module, neg_records: Dict[str, np.ndarray],
                  entity_tables: Optional[Dict[str, torch.Tensor]] = None
                  ) -> Dict[str, float]:
     """HR@k / NDCG@k at `hp.eval_ks` over per-user candidate sets; with
-    `entity_tables`, over id-only grids whose docs come from them."""
-    scores = score_grid(model, neg_records, batch_size, device,
-                        entity_tables, grid_this_doc_words(hp))
-    return ranks_to_metrics(positive_ranks(scores), hp.eval_ks)
+    `entity_tables`, over id-only grids whose docs come from them. One
+    call is one `eval_ranking` span."""
+    with annotate("eval_ranking"):
+        scores = score_grid(model, neg_records, batch_size, device,
+                            entity_tables, grid_this_doc_words(hp))
+        return ranks_to_metrics(positive_ranks(scores), hp.eval_ks)

@@ -90,7 +90,7 @@ from ..utils.logging import file_write, log_end_epoch
 from .checkpoint import load_checkpoint, save_checkpoint
 from .evaluate import eval_ranking, evaluate, evaluate_cached
 from .losses import bpr, hinge, softmax_ce
-from .profiler import Throughput, annotate
+from .profiler import Throughput, annotate, count
 
 Params = Dict[str, torch.Tensor]
 
@@ -299,6 +299,12 @@ class ScanSteps:
     the device across groups. Each replay adds the kernel launches
     counted during capture to `ops.textcnn.launches`. A failure to capture or replay raises; a
     group never falls back to eager steps on the card.
+
+    Spans (`train.profiler.annotate`): `scan.ring_wait` (the host waiting
+    for its pinned slot's last copy), `scan.stage` (the group stacked
+    into the slot and its copies enqueued; on the CPU the copy itself),
+    `scan.capture` (counted in `profiler.counters["scan.captures"]`) and
+    `scan.replay`.
     """
 
     def __init__(self, model: torch.nn.Module,
@@ -350,15 +356,18 @@ class ScanSteps:
                 self._body(s)
             return
         if self.graph is None or self._addresses != self._state_addresses():
-            self._capture()
-        try:
-            self.graph.replay()
-        except RuntimeError as exc:
-            raise RuntimeError(f"CUDA-graph replay of {self.steps} training "
-                               f"steps failed: {exc}") from exc
+            with annotate("scan.capture"):
+                count("scan.captures")
+                self._capture()
+        with annotate("scan.replay"):
+            try:
+                self.graph.replay()
+            except RuntimeError as exc:
+                raise RuntimeError(f"CUDA-graph replay of {self.steps} "
+                                   f"training steps failed: {exc}") from exc
         from ..ops import textcnn
-        for name, count in self.launches.items():
-            textcnn.launches[name] += count
+        for name, n in self.launches.items():
+            textcnn.launches[name] += n
 
     def _step(self, batch: Dict[str, torch.Tensor]) -> None:
         """One step on a batch on the device ({"row", "weight"} with a
@@ -385,8 +394,10 @@ class ScanSteps:
                                device=self.device)
                 for k, v in first.items()}
         if not self.on_card:
-            for k, dst in self.static.items():
-                dst.copy_(torch.from_numpy(np.stack([b[k] for b in group])))
+            with annotate("scan.stage"):
+                for k, dst in self.static.items():
+                    dst.copy_(torch.from_numpy(
+                        np.stack([b[k] for b in group])))
             return
         slot = self._slot
         self._slot ^= 1
@@ -395,14 +406,16 @@ class ScanSteps:
                                                pin_memory=True)
                                 for k, v in self.static.items()}
         else:
-            self._events[slot].synchronize()   # its last copy has left
-        for k, host in self._ring[slot].items():
-            arr = host.numpy()
-            for s, batch in enumerate(group):
-                arr[s] = batch[k]
-            self.static[k].copy_(host, non_blocking=True)
-        self._events[slot] = torch.cuda.Event()
-        self._events[slot].record()
+            with annotate("scan.ring_wait"):
+                self._events[slot].synchronize()   # its last copy has left
+        with annotate("scan.stage"):
+            for k, host in self._ring[slot].items():
+                arr = host.numpy()
+                for s, batch in enumerate(group):
+                    arr[s] = batch[k]
+                self.static[k].copy_(host, non_blocking=True)
+            self._events[slot] = torch.cuda.Event()
+            self._events[slot].record()
 
     def _tensors(self):
         """The parameters and the tensors of their optimizer state."""
@@ -503,38 +516,40 @@ def train_epoch(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 
     On a mesh (`parallel.mesh.shard_model`) every rank takes its rows of
     each batch, and the epoch's sums are summed over the data axis."""
-    model.train()
-    mesh = model_mesh(model)
-    tp = Throughput()
-    bs, remaining = batcher.batch_size, batcher.n
-    if scan is not None:
-        scan.start_epoch(generator)
-        for group in _groups(batcher, scan.steps):
-            with annotate("train_step" if len(group) < scan.steps
-                          else "train_group"):
-                scan.run(group)
-            for _ in group:
+    with annotate("train_epoch"):
+        model.train()
+        mesh = model_mesh(model)
+        tp = Throughput()
+        bs, remaining = batcher.batch_size, batcher.n
+        if scan is not None:
+            scan.start_epoch(generator)
+            for group in _groups(batcher, scan.steps):
+                with annotate("train_step" if len(group) < scan.steps
+                              else "train_group"):
+                    scan.run(group)
+                for _ in group:
+                    tp.add(min(bs, remaining))
+                    remaining -= bs
+            sq_sum, n = scan.sq_sum, scan.n
+        else:
+            sq_sum = torch.zeros((), device=device)
+            n = torch.zeros((), device=device)
+            for batch in _prefetch(batcher, device, mesh=mesh):
+                with annotate("train_step"):
+                    if cache is not None:
+                        batch = gather_cached_batch(cache, batch["row"],
+                                                    batch["weight"])
+                    _, s, c = train_step(model, optimizer, batch, generator,
+                                         loss_name, hinge_margin)
+                sq_sum += s
+                n += c
                 tp.add(min(bs, remaining))
                 remaining -= bs
-        sq_sum, n = scan.sq_sum, scan.n
-    else:
-        sq_sum = torch.zeros((), device=device)
-        n = torch.zeros((), device=device)
-        for batch in _prefetch(batcher, device, mesh=mesh):
-            with annotate("train_step"):
-                if cache is not None:
-                    batch = gather_cached_batch(cache, batch["row"],
-                                                batch["weight"])
-                _, s, c = train_step(model, optimizer, batch, generator,
-                                     loss_name, hinge_margin)
-            sq_sum += s
-            n += c
-            tp.add(min(bs, remaining))
-            remaining -= bs
-    if mesh is not None:
-        sq_sum, n = mesh.all_reduce(torch.stack([sq_sum, n]), mesh.data_axis)
-    total, count = float(sq_sum), float(n)   # the epoch's one sync
-    return {"MSE": round(total / max(count, 1.0), 4), **tp.metrics()}
+        if mesh is not None:
+            sq_sum, n = mesh.all_reduce(torch.stack([sq_sum, n]),
+                                        mesh.data_axis)
+        total, seen = float(sq_sum), float(n)   # the epoch's one sync
+        return {"MSE": round(total / max(seen, 1.0), 4), **tp.metrics()}
 
 
 # ---------------------------------------------------------------------

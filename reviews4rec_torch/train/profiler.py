@@ -5,8 +5,16 @@
   CUDA where there is a card), written to `logdir` as a Chrome /
   TensorBoard trace; yields the profiler, so a caller can read
   `key_averages()`. No logdir: no trace.
-- `annotate(name)`: a named range (`record_function`, plus an NVTX range
-  on CUDA) that shows up in both kinds of trace.
+- `annotate(name)`: a named span, a `record_function` range entered
+  only while a torch profiler records (`trace`, or any
+  `torch.profiler.profile` around the call). It then lands in the
+  profiler's timeline beside the device's events, on their clock, and
+  nests under the span that encloses it. With no profiler recording it
+  checks one flag and creates nothing: under a microsecond a span.
+- `counters` and `count(name, n)`: named event counts since the process
+  started (`scan.captures`: graph captures of `train.loop.ScanSteps`).
+  The kernel-launch counts stay with their ops (`ops.textcnn.launches`,
+  `ops.neighbors.launches`).
 - `Throughput`: examples/s and ms per step for the epoch banner.
 """
 
@@ -15,7 +23,7 @@ from __future__ import annotations
 import contextlib
 import time
 from dataclasses import dataclass, field
-from typing import Iterator, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -35,14 +43,25 @@ def trace(logdir: Optional[str]) -> Iterator[Optional[torch.profiler.profile]]:
         yield prof
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    with torch.profiler.record_function(name):
-        if torch.cuda.is_available():
-            with torch.cuda.nvtx.range(name):
-                yield
-        else:
-            yield
+_recording = torch._C._autograd._profiler_enabled
+_UNRECORDED = contextlib.nullcontext()
+
+
+def annotate(name: str):
+    """`with annotate(name):` a span of the program: a `record_function`
+    range while a torch profiler records, else one shared no-op context
+    (a flag read, nothing created)."""
+    if _recording():
+        return torch.profiler.record_function(name)
+    return _UNRECORDED
+
+
+counters: Dict[str, int] = {}
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to counter `name`."""
+    counters[name] = counters.get(name, 0) + n
 
 
 @dataclass
