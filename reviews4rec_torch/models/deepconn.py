@@ -84,12 +84,32 @@ class DeepCoNN(nn.Module):
         if u_lead != lead:
             u = u.reshape(u_lead + u.shape[-1:]).expand(
                 lead + u.shape[-1:]).reshape(-1, u.shape[-1])
-        cat = torch.cat([u, i], dim=-1)
+        return self.pair_head(u, i, batch["user"], batch["item"],
+                              generator).reshape(lead)
 
+    # The split a ranking call factorizes its grid by
+    # (`train.evaluate.score_grid`): each distinct entity's tower once,
+    # then the head on each pair's two tower vectors.
+    def entity_towers(self, side: str, table: torch.Tensor,
+                      ids: torch.Tensor) -> torch.Tensor:
+        """[n, L] tower outputs of `side`'s ("user" or "item") entities
+        `ids` ([n] int), read by id from the side's entity doc table
+        (`train.loop.build_entity_tables`: f32 [N, T, E] to the
+        row-gathered kernels, or int [N, T] word ids)."""
+        conv = self.user_conv if side == "user" else self.item_conv
+        return conv(table, table=self.word_vectors, rows=ids)
+
+    def pair_head(self, u: torch.Tensor, i: torch.Tensor,
+                  users: torch.Tensor, items: torch.Tensor,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+        """[P] ratings of P pairs from their [P, L] user and item tower
+        vectors and their user and item ids (P of each, in any shape;
+        only deepconn++'s biases read them)."""
+        cat = torch.cat([u, i], dim=-1)
         if self.use_fm:
-            return (self.global_bias[0] + self.fm(cat)).reshape(lead)
-        rating = (self.final(cat, generator)
-                  + take_rows(self, self.user_bias, batch["user"].reshape(-1))
-                  + take_rows(self, self.item_bias, batch["item"].reshape(-1))
-                  + self.global_bias[0])
-        return rating.reshape(lead)
+            return self.global_bias[0] + self.fm(cat)
+        return (self.final(cat, generator)
+                + take_rows(self, self.user_bias, users.reshape(-1))
+                + take_rows(self, self.item_bias, items.reshape(-1))
+                + self.global_bias[0])

@@ -34,7 +34,7 @@ from ..config import HyperParams
 from ..data.batcher import Batcher
 from ..parallel.mesh import host_slice, model_mesh
 from ..utils.device import to_device
-from .profiler import annotate
+from .profiler import annotate, count
 
 
 def source_pred(preds):
@@ -202,6 +202,13 @@ def assemble_entity_grid(batch: Dict[str, torch.Tensor],
     return b
 
 
+def _splits_towers(model: torch.nn.Module) -> bool:
+    """Whether `model` exposes its towers and its head apart
+    (`entity_towers`, `pair_head`: deepconn and deepconn++)."""
+    return (callable(getattr(model, "entity_towers", None))
+            and callable(getattr(model, "pair_head", None)))
+
+
 @torch.inference_mode()
 def score_grid(model: torch.nn.Module, records: Dict[str, np.ndarray],
                batch_size: int, device: torch.device,
@@ -209,12 +216,24 @@ def score_grid(model: torch.nn.Module, records: Dict[str, np.ndarray],
                this_doc_words: int = 0) -> np.ndarray:
     """Scores [M, C] of a candidate grid (positive in column 0). With
     `entity_tables` the records are id-only and each batch's docs are
-    gathered on the device (`assemble_entity_grid`). Spans, a batch:
-    `score_grid.place` (the batch drawn and copied to the device),
-    `score_grid.assemble`, `score_grid.forward`; a call:
-    `score_grid.fetch` (the scores back on the host)."""
+    gathered on the device (`assemble_entity_grid`); for a model that
+    splits its towers from its head, off a mesh, the call instead
+    encodes each distinct user and item once (`_score_factorized`).
+    Spans, a batch: `score_grid.place` (the batch drawn and copied to
+    the device), `score_grid.assemble`, `score_grid.forward`; a call:
+    `score_grid.fetch` (the scores back on the host). Counters, a call:
+    `score_grid.tower_slots` (the towers the grid names: a user's per
+    grid row and an item's per pair) and `score_grid.towers` (those its
+    launches encode)."""
     model.eval()
     mesh = model_mesh(model)
+    slots = int(records["item"].shape[0] + records["item"].size)
+    count("score_grid.tower_slots", slots)
+    if (entity_tables is not None and mesh is None
+            and _splits_towers(model)):
+        return _score_factorized(model, records, batch_size, device,
+                                 entity_tables)
+    count("score_grid.towers", slots)
     if mesh is not None:   # whole rows for every data rank
         n = mesh.shape[mesh.data_axis]
         batch_size = -(-batch_size // n) * n
@@ -232,6 +251,12 @@ def score_grid(model: torch.nn.Module, records: Dict[str, np.ndarray],
                                               this_doc_words)
         with annotate("score_grid.forward"):
             scores.append(source_pred(model(placed)))
+    return _fetch_scores(scores, weights, records, mesh)
+
+
+def _fetch_scores(scores: List[torch.Tensor], weights: List[np.ndarray],
+                  records: Dict[str, np.ndarray], mesh=None) -> np.ndarray:
+    """The batches' scores on the host, their padding rows dropped."""
     if not scores:
         return np.zeros((0,) + records["item"].shape[1:], np.float32)
     with annotate("score_grid.fetch"):
@@ -240,6 +265,60 @@ def score_grid(model: torch.nn.Module, records: Dict[str, np.ndarray],
             host = _gather_rows(host, mesh)
         host = host.cpu().numpy()
         return np.concatenate([s[w] for s, w in zip(host, weights)])
+
+
+def _score_factorized(model: torch.nn.Module, records: Dict[str, np.ndarray],
+                      batch_size: int, device: torch.device,
+                      tables: Dict[str, torch.Tensor]) -> np.ndarray:
+    """`score_grid` over entity tables by the model's split. Span
+    `score_grid.towers`: the call's distinct users and items
+    (`np.unique` over the records) encoded once each by
+    `entity_towers`, in even chunks of at most `batch_size` x C docs
+    (the joint path's largest launch), and each pair's two tower slots
+    (the inverse index) placed. Then a batch: the batch placed as the
+    joint path places it, each pair's two tower vectors taken
+    (`score_grid.assemble`) and `pair_head` run on them
+    (`score_grid.forward`). Evaluation draws no dropout and masks
+    nothing, so each pair's score is the joint forward's arithmetic."""
+    items = records["item"]
+    m, c = items.shape
+    u_ids, u_inv = np.unique(records["user"][:, 0], return_inverse=True)
+    i_ids, i_inv = np.unique(items.reshape(-1), return_inverse=True)
+    count("score_grid.towers", len(u_ids) + len(i_ids))
+    batcher = Batcher(records, batch_size)
+    with annotate("score_grid.towers"):
+        slots = np.zeros((2, len(batcher) * batch_size, c), np.int64)
+        slots[0, :m] = u_inv[:, None]
+        slots[1, :m] = i_inv.reshape(m, c)
+        placed = to_device({"user": u_ids.astype(np.int32),
+                            "item": i_ids.astype(np.int32), "slots": slots},
+                           device)
+        vecs = {}
+        for side in ("user", "item"):
+            ids = placed[side]
+            parts = max(1, -(-len(ids) // (batch_size * c)))
+            step = max(1, -(-len(ids) // parts))
+            vecs[side] = [model.entity_towers(side, tables[side + "_doc"],
+                                              ids[s:s + step])
+                          for s in range(0, len(ids), step)]
+        vecs = {k: torch.cat(v) for k, v in vecs.items() if v}
+        slots = placed["slots"]
+    scores, weights = [], []
+    batches = iter(batcher)
+    for j in range(len(batcher)):
+        with annotate("score_grid.place"):
+            batch = next(batches)
+            placed = to_device(batch, device)
+            weights.append(batch["weight"].astype(bool))
+        with annotate("score_grid.assemble"):
+            lead = tuple(placed["item"].shape)
+            u_slot, i_slot = slots[:, j * batch_size:(j + 1) * batch_size]
+            u = vecs["user"].index_select(0, u_slot.reshape(-1))
+            i = vecs["item"].index_select(0, i_slot.reshape(-1))
+        with annotate("score_grid.forward"):
+            scores.append(model.pair_head(u, i, placed["user"],
+                                          placed["item"]).reshape(lead))
+    return _fetch_scores(scores, weights, records)
 
 
 def positive_ranks(scores: np.ndarray) -> np.ndarray:

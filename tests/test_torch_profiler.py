@@ -24,9 +24,10 @@ STEPS = 5
 SPANS = {"train_epoch", "train_group", "train_step", "scan.ring_wait",
          "scan.stage", "scan.capture", "scan.replay", "eval_ranking",
          "score_grid.place", "score_grid.assemble", "score_grid.forward",
-         "score_grid.fetch"}
+         "score_grid.fetch", "score_grid.towers"}
 LEAVES = {"scan.ring_wait", "scan.stage", "scan.replay",
-          "score_grid.place", "score_grid.assemble", "score_grid.fetch"}
+          "score_grid.place", "score_grid.assemble", "score_grid.fetch",
+          "score_grid.towers"}
 
 
 @pytest.fixture(scope="module")
@@ -161,6 +162,14 @@ def test_eval_ranking_spans_and_nesting(corpus):
             [None] * batches, name
     assert [_parent_span(e) for e in _names(inside, "score_grid.fetch")] \
         == ["eval_ranking"]
+    # deepconn over entity tables: its towers once a call, before the
+    # call's batches
+    towers = _names(inside, "score_grid.towers")
+    assert [_parent_span(e) for e in towers] == ["eval_ranking"]
+    assert towers[0].time_range.end <= min(
+        e.time_range.start for e in _names(inside, "score_grid.place"))
+    assert [_parent_span(e) for e in _names(outside, "score_grid.towers")] \
+        == [None]
     assert not [e for e in spans if _parent_span(e) in LEAVES]
 
 
