@@ -179,7 +179,12 @@
    psum and a2a lookups and `seq_parallel` deepconn on (1, 2) at
    T=1000, 8 steps each against one process; ms a step on the mesh and
    in one process.
-20. Prints the card, one JSON line of kernel numbers and, last, the
+20. NARRE at the `narre-videogames5` configuration's full size on seed
+   3200000108's first benchmark group (`narre_group`): step 0's
+   forward, dK, db, entity-row gathers and embedding gradients,
+   attention backward and first Adam update against float64, then the
+   group through the benchmark's train entry within its limits.
+21. Prints the card, one JSON line of kernel numbers and, last, the
    result line. Any failed check raises and the exit code is not 0.
    Each phase prints the seconds since the start as it begins.
 
@@ -326,7 +331,7 @@ PHASES = ("kernels", "rows", "serve", "train", "input_grad",
           "review_train", "review_entity", "mf_serve", "mf_train",
           "factorized", "embed", "embed_train", "scan", "mpcn_serve",
           "mpcn_train", "rank_train", "bf16", "neighbors", "hft", "cli",
-          "mesh")
+          "mesh", "narre_group")
 # untrained deepconn's test MSE on the e2e corpus (e2e_ref.npz): two
 # epochs of training must land below it
 UNTRAINED_MSE = 1.524
@@ -2210,6 +2215,250 @@ def _idx_near_ties(torch, textcnn, mt: str, model, batch) -> None:
                          f"(max|out diff| there {gap:.1e})")
     print(f"{mt} step-1 argmax near-ties, kernel vs plain f32: "
           + ", ".join(parts))
+
+
+# ---------------------------------------------------------------------
+# NARRE at the benchmark's full size on the group where the card once
+# departed from the float64 reference (`narre_group`)
+# ---------------------------------------------------------------------
+# seed 3200000108's first `narre.train` group: before the near-tie
+# refinement the forward kernel gave one window of a near-tie (user
+# tower, (b, f) = (1036, 96), starts 31 and 60, 1.65e-7 apart in
+# float64) the gradient float64 gives the other, and the group's median
+# leaf update read 1.18e-3 against the reference
+NARRE_GROUP_SEED = 3200000108
+# relative to float64; each with its reason at its use
+NARRE_OUT_TOL = 1e-5
+NARRE_GRAD_TOL = 1e-5
+NARRE_ADAM_TOL = 1e-5
+
+
+def _rel(torch, got, want) -> float:
+    want = want.double()
+    return float(torch.linalg.vector_norm(got.double() - want)
+                 / max(float(torch.linalg.vector_norm(want)), 1e-30))
+
+
+def narre_group(torch, textcnn, device) -> None:
+    """NARRE at `narre-videogames5`'s full size (`portbench.corpus` and
+    `portbench.weights` from seed 3200000108) on the first group that
+    `portbench.drivers.Train.first_steps` draws for that seed: step 0's
+    parts on the card against their plain versions, in this order, each
+    tolerance with its reason beside the check:
+
+    1. each tower's forward: out within NARRE_OUT_TOL x max(1, |out|)
+       of float64, and idx (after `refine_ties`) the float64 first
+       argmax wherever out > 0;
+    2. dK of `textcnn_pool_bwd_dg_f32` on the launch's own (x, g, idx)
+       within NARRE_GRAD_TOL of float64 (relative L2);
+    3. db, the conv bias's gradient, within NARRE_GRAD_TOL;
+    4. the docs, context ids and skip rows gathered from the entity
+       tables bitwise the ones built from the corpus's review lists, and
+       the gradients of the id-embedding tables (neighbor context and
+       ids) within NARRE_GRAD_TOL of float64;
+    5. `_attend`'s backward: the attention scorers' gradients within
+       NARRE_GRAD_TOL of float64 (the output biases, whose gradient is
+       0 in exact arithmetic, left out);
+    6. the first Adam update within NARRE_ADAM_TOL x lr of float64 Adam
+       on the same gradients.
+
+    Then the whole group through the benchmark's train entry (warm-up
+    epoch, CUDA-graph replay): `correct` within
+    `portbench/limits/narre.train.json`."""
+    import numpy as np
+
+    from portbench import check, corpus, drivers, reference, run, weights
+    from portbench.corpus import stream, torch_seed
+    from reviews4rec_torch.models import layers
+    from reviews4rec_torch.train import loop
+    from reviews4rec_torch.utils.device import to_device
+
+    seed = NARRE_GROUP_SEED
+    bench = run.load_json(run.ROOT, "BENCHMARK.json")
+    _, cfg, traffic, limits = run.cell_files(bench, "narre.train")
+    data = corpus.generate(cfg, seed, device)
+    w = weights.make(cfg, data.num_users, data.num_items, seed, device)
+    sess = drivers.Session(cfg, traffic, data, w, seed, device)
+    hp, model = sess.hp, sess.model
+    recs = sess.dataset.materialize_entity(hp, "train")
+    cache = loop.EntityCache(to_device(recs, device),
+                             loop.build_entity_tables(hp, sess.dataset,
+                                                      device))
+    b = hp.batch_size
+    rows = stream(seed, "check-rows").permutation(len(recs["rating"]))[:b]
+    gseed = torch_seed(seed, "dropout-check")
+    tu, ti, ty = data.splits["train"]
+    users, items, y = tu[rows], ti[rows], ty[rows]
+
+    # the float64 reference's step 0: predictions and gradients
+    ref = reference.Reference(cfg, data, w, device)
+    w64 = {k: v.clone().requires_grad_(True) for k, v in ref.w.items()}
+    gen = torch.Generator(device=device).manual_seed(gseed)
+    inp = ref.batch_inputs(users, items)
+    pred64 = ref.forward(w64, users, items, inp, gen)
+    loss64 = torch.mean((pred64 - ref._t(y)) ** 2)
+    g64 = dict(zip(w64, torch.autograd.grad(loss64, list(w64.values()))))
+
+    # 4a. the gather: docs, context ids, skip rows
+    batch = loop.gather_cached_batch(
+        cache, torch.as_tensor(rows, device=device),
+        torch.ones(b, device=device))
+    for side, ctx, skip in (("u", "items_reviewed", "user_skip"),
+                            ("i", "users_who_gave", "item_skip")):
+        doc = batch["user_doc" if side == "u" else "item_doc"]
+        want = ref.wv[inp[side + "doc"]]
+        if not torch.equal(doc.double(), want):
+            fail(f"narre_group: gathered {side} docs differ from the "
+                 f"corpus's review lists")
+        if not torch.equal(batch[ctx].long(), inp[side + "ctx"]):
+            fail(f"narre_group: gathered {ctx} differ from the corpus's")
+        if not torch.equal(batch[skip].long(), inp[side + "skip"]):
+            fail(f"narre_group: gathered {skip} differ from the corpus's")
+
+    # step 0 on the card, each tower's op and dG launch recorded
+    pools, dgs = [], []
+    real_pool, real_dg = layers.textcnn_pool, textcnn.textcnn_pool_bwd_dg
+
+    def pool(x, k, bias, window=3, skip=None, dtype=torch.float32):
+        out, idx = real_pool(x, k, bias, window, skip, dtype)
+        pools.append((x, k.detach(), bias.detach(), window, out.detach(),
+                       idx))
+        return out, idx
+
+    def dg(x, g, idx, window=3, skip=None):
+        dk = real_dg(x, g, idx, window, skip)
+        dgs.append((x, g, idx, window, dk))
+        return dk
+
+    layers.textcnn_pool, textcnn.textcnn_pool_bwd_dg = pool, dg
+    try:
+        opt = loop.make_optimizer(hp, model)
+        model.train()
+        gen = torch.Generator(device=device).manual_seed(gseed)
+        preds = model(batch, generator=gen)
+        loss, _ = loop._batch_loss(preds, batch)
+        loss.backward()
+    finally:
+        layers.textcnn_pool, textcnn.textcnn_pool_bwd_dg = real_pool, real_dg
+    torch.cuda.synchronize()
+    print(f"narre_group seed {seed}: step 0 loss {loss.item():.9f} "
+          f"(float64 {loss64.item():.9f}), max |pred diff| "
+          f"{(preds.double() - pred64).abs().max().item():.2e}")
+
+    # 1. forward: out within NARRE_OUT_TOL x max(1, |out|) of float64 —
+    # the 3xTF32 sums read up to 1.4e-6 at this shape, a wrong row or
+    # window moves out by 1e-2 or more; idx the float64 first argmax
+    # wherever out > 0: the refinement takes float64's window at every
+    # near-tie the kernel's sums could order the other way
+    for name, (x, k, bias, window, out, idx) in zip(("user", "item"), pools):
+        # the kernel's own float64 pass against its plain version on the
+        # kernel's unrefined values: the same windows, bitwise
+        o2, i2, s2 = textcnn.textcnn_pool_forward(x, k, bias, window,
+                                                  second=True)
+        want = textcnn.refine_ties(x, k, bias, window, None, o2, i2, s2)
+        near = int(textcnn.near_ties(o2, s2, bias).sum())
+        print(f"narre_group {name} tower near-ties: {near} refined, "
+              f"{int((want != i2).sum())} of them moved; the kernel's "
+              f"refine equals refine_ties: {torch.equal(idx, want)}")
+        if not torch.equal(idx, want) or not torch.equal(out, o2):
+            fail(f"narre_group: the {name} tower's refined forward "
+                 f"departs from its plain version")
+        out64, idx64 = textcnn.textcnn_pool_reference(
+            x.double(), k.double(), bias.double(), window)
+        err = float(((out.double() - out64).abs()
+                     / out64.abs().clamp(min=1.0)).max())
+        live = out > 0
+        moved = int(((idx.long() != idx64.long()) & live).sum())
+        print(f"narre_group {name} tower forward: max out error {err:.2e} "
+              f"(limit {NARRE_OUT_TOL:g}), idx off float64's at {moved} "
+              f"of {int(live.sum())} live (b, f)")
+        if err > NARRE_OUT_TOL or moved:
+            fail(f"narre_group: the {name} tower's forward departs from "
+                 f"float64")
+
+    # 2. dK: f32 sums over 2560 docs a column, which read up to 2.3e-7
+    # (kernel) and 1.3e-6 (plain f32) of float64 on seeds 3200000101 to
+    # -108; one doc routed to a near-tie's rival reads 1e-3 or more
+    for name, (x, g, idx, window, dk) in zip(("user", "item"), dgs):
+        dk64 = textcnn._dg_reference(x.double(), g.double(), idx, window,
+                                     None)
+        plain = textcnn._dg_reference(x, g, idx, window, None)
+        err, err_plain = _rel(torch, dk, dk64), _rel(torch, plain, dk64)
+        print(f"narre_group {name} dK: {err:.2e} of float64 (plain f32 "
+              f"{err_plain:.2e}; limit {NARRE_GRAD_TOL:g})")
+        if err > NARRE_GRAD_TOL:
+            fail(f"narre_group: the {name} tower's dK departs from float64")
+
+    # 3.-5. the leaves' gradients against float64's: f32 sums read 1e-7
+    # to 4e-6 of float64 here; the attention scorers' output biases have
+    # gradient 0 in exact arithmetic (a softmax ignores a shift), so they
+    # are left out, as `portbench.check` leaves out leaves under a
+    # thousandth of the median leaf's moment
+    params = dict(model.named_parameters())
+    norms = {k: float(torch.linalg.vector_norm(v)) for k, v in g64.items()}
+    floor = 1e-3 * float(np.median(list(norms.values())))
+    order = ([f"{s}_conv.conv_bias" for s in ("user", "item")]
+             + ["user_embedding", "item_embedding"]
+             + [k for k in params if k.startswith("att_")]
+             + [k for k in params if not k.startswith(("att_", "user_emb",
+                                                        "item_emb"))
+                and not k.endswith("conv_bias")])
+    worst = 0.0
+    for k in order:
+        if norms[k] < floor:
+            print(f"narre_group grad {k}: left out (float64 norm "
+                  f"{norms[k]:.1e})")
+            continue
+        err = _rel(torch, params[k].grad, g64[k])
+        worst = max(worst, err)
+        if err > NARRE_GRAD_TOL:
+            fail(f"narre_group: the gradient of {k} departs from float64 "
+                 f"({err:.2e})")
+    print(f"narre_group gradients: worst leaf {worst:.2e} of float64 "
+          f"(limit {NARRE_GRAD_TOL:g})")
+
+    # 6. the first Adam update, from the gradient plus weight decay as
+    # Adam sums them in f32: a few f32 roundings of a step of at most lr
+    # (Adam's first step is lr * g / (|g| + eps)), beyond the one ulp of
+    # the f32 parameter the step lands in; a gradient of the wrong sign
+    # reads 2 lr
+    before = {k: v.detach().double().clone() for k, v in params.items()}
+    grads = {k: torch.add(v.grad, v.detach(), alpha=hp.weight_decay).double()
+             for k, v in params.items()}
+    opt.step()
+    b1, b2 = reference.BETAS
+    worst = 0.0
+    for k, p in params.items():
+        m, v = (1 - b1) * grads[k], (1 - b2) * grads[k] ** 2
+        step64 = hp.lr * (m / (1 - b1)) / (torch.sqrt(v / (1 - b2))
+                                            + reference.EPS)
+        got = p.detach()
+        ulp = (torch.nextafter(got.abs(), torch.full_like(got, float("inf")))
+               - got.abs()).double()
+        err = ((got.double() - (before[k] - step64)).abs() - ulp).clamp(min=0)
+        worst = max(worst, float(err.max()) / hp.lr)
+    print(f"narre_group first Adam update: worst element {worst:.2e} lr "
+          f"off float64 beyond an ulp of the parameter (limit "
+          f"{NARRE_ADAM_TOL:g} lr)")
+    if worst > NARRE_ADAM_TOL:
+        fail("narre_group: the first Adam update departs from float64")
+    del sess, model, opt, cache, batch, preds, loss, pools, dgs, ref, w64
+    del g64, inp, pred64
+    torch.cuda.empty_cache()
+
+    # the whole group, as the benchmark checks it
+    train = drivers.Train(cfg, traffic, data, w, seed, device)
+    out = dict(train.outputs)
+    del train
+    torch.cuda.empty_cache()
+    numbers = run.check_numbers(cfg, traffic, data, w, device, out, limits,
+                                tf32=False)
+    ok, checks, asides = check.judge(numbers, limits)
+    print("narre_group benchmark group: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in numbers.items())
+        + f"; correct {ok} within {limits}")
+    if not ok:
+        fail(f"narre_group: the group departs from the reference: {checks}")
 
 
 def load_flax_params_from(model, fixture, mt: str) -> None:
@@ -5854,6 +6103,10 @@ def main(argv=None) -> None:
     # (uncached steps) and the rows kernels (entity api.run) in every rank
     if enter("mesh"):
         paths["mesh"] = mesh_phase(torch, textcnn, ds, device)
+    # NARRE at the benchmark's full size on seed 3200000108's first
+    # group: step 0's parts against float64, then the benchmark's check
+    if enter("narre_group"):
+        narre_group(torch, textcnn, device)
     done = time.perf_counter() - start
     ends = [t for _, t in began[1:]] + [done]
     print(f"[{done:.1f} s] phases done; seconds by phase: " + ", ".join(

@@ -72,9 +72,36 @@
 //   stage, the lower start winning on equal values. Every start's sum
 //   runs the same mma sequence in the same k order, so windows of equal
 //   content give bit-equal values and the tie goes to the lower start.
+// - Near-ties (plain-x form only): each column also keeps its second
+//   value, the largest of a start other than the winner's, equal values
+//   included, merged across lanes and warps with the max (the loser's
+//   best or either side's second), and written to `second` when the
+//   caller passes it. The 3xTF32 sums sit up to about 1.4e-6 from
+//   float64 at NARRE's shape (B = 2560, T = 100), against about 1e-7
+//   for f32 sums: enough to order two windows of a near-tie the other
+//   way, and so route that (b, f)'s gradient to the window exact
+//   arithmetic does not pick. With `refine` each near-tie (out -
+//   second at most 1e-5 x max(1, out), out > 0, and out not relu(bias),
+//   the value every all-zero window gives exactly) goes on a list in
+//   global memory (`ties`) as its row ends. Once every block has listed
+//   its rows' near-ties (the blocks are all resident, so they can wait for
+//   each other), the blocks share the list out, one entry at a time to a
+//   block: K's column and every window's value in f32 (a thread a window,
+//   from the row's words staged in a ring stage no tile needs any more),
+//   then in float64 the windows within the same tolerance of that f32
+//   maximum; idx becomes the first start of the largest float64 value.
+//   About 50 of the 256,000 (b, f) of a NARRE tower launch are listed, so
+//   a block takes at most one or two. (A pass at each row's end cost 8-15%
+//   of the launch at NARRE's shape: a barrier a row, and a block waiting on
+//   its own near-ties; one after each block's last row, 10%: the busiest
+//   block's tail.) `ops/textcnn.py::refine_ties` is its plain version.
+//   The rows and ids forms keep no second value and refine nothing:
+//   their code is unchanged.
 // - Registers: 52 accumulators, 26 running maxima and 26 starts, the A
 //   fragments and the B slots in flight: 205-212 a thread, no spills
-//   (ptxas at sm_90a), so 8 warps fit the SM's 64K registers.
+//   (ptxas at sm_90a), so 8 warps fit the SM's 64K registers; the
+//   plain-x form's 26 second values add to that (PERF.md keeps ptxas's
+//   count).
 //
 // Shared memory at the serving shape: K 24 k-steps x 13 n-tiles x 32
 // lanes x 16 B = 159,744 B; x ring 2 x 130 rows x 68 floats = 70,720 B;
@@ -202,6 +229,9 @@ constexpr int kStartsPerWarp = 16;  // one m16 tile
 constexpr int kMaxNTiles = 13;      // n8 tiles a block: 104 filters
 constexpr int kStages = 2;
 constexpr int kMaxWindow = 8;
+// a (b, f) whose out - second is at most kTieTol * max(1, out) is a
+// near-tie, which `refine` recomputes in float64 (ops/textcnn.py's TIE_TOL)
+constexpr float kTieTol = 1e-5f;
 
 // where a tile's word rows come from
 enum Source { kPlain = 0, kRows = 1, kIds = 2 };
@@ -217,11 +247,12 @@ __host__ __device__ constexpr int k_slots(int e, int window, int nt) {
 }
 
 // floats of one stage of the x ring: the tile's word rows, or the merge
-// of the warps' (value, start) per filter, which it takes at a row's end
+// of the warps' (value, start, second value) per filter, which it takes
+// at a row's end
 __host__ __device__ constexpr int stage_floats(int e, int window, int nt, int warps) {
-  return (warps * kStartsPerWarp + window - 1) * row_pitch(e) > 2 * warps * nt * 8
+  return (warps * kStartsPerWarp + window - 1) * row_pitch(e) > 3 * warps * nt * 8
              ? (warps * kStartsPerWarp + window - 1) * row_pitch(e)
-             : 2 * warps * nt * 8;
+             : 3 * warps * nt * 8;
 }
 
 // bytes of shared memory one block takes: K, the x ring, the bias and,
@@ -321,13 +352,21 @@ __device__ __forceinline__ void tile_mma(float (&acc)[kMaxNTiles][4], const floa
 // t of batch row b is x[rows[b * T + t]].
 // Block: blockDim.x / 32 warps of 16 starts each; filters
 // [blockIdx.y * nt * 8, + nt * 8).
+// kSrc == kPlain also keeps, per (b, f), the largest value of a start
+// other than idx's (equal values included) and writes it to `second`
+// where that is not null; with `refine`, idx of a near-tie is the first
+// start of the largest window value recomputed in float64.
 template <int W, int kSrc>
 __global__ void __launch_bounds__(kMaxWarps * 32, 1)
 textcnn_pool_fwd_kernel(const float* __restrict__ x, const int* __restrict__ rows,
                         const float* __restrict__ k, const float* __restrict__ bias,
                         const int* __restrict__ skip, float* __restrict__ out,
-                        int* __restrict__ idx, int N, int B, int T, int E, int F, int nt,
-                        int vec16) {
+                        int* __restrict__ idx, float* __restrict__ second,
+                        int* __restrict__ ties, int N, int B, int T, int E, int F, int nt,
+                        int vec16, int refine) {
+  constexpr bool kSecond = kSrc == kPlain;
+  __shared__ int tie_max;  // f32 bits of a column's largest window value
+  __shared__ int tie_take;
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int lane = tid & 31;
@@ -454,13 +493,132 @@ textcnn_pool_fwd_kernel(const float* __restrict__ x, const int* __restrict__ row
 
   float best[kMaxNTiles][2];
   int best_s[kMaxNTiles][2];
+  float sec[kSecond ? kMaxNTiles : 1][2];
 #pragma unroll
   for (int j = 0; j < kMaxNTiles; ++j)
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       best[j][c] = -1.f;  // every valid start gives relu(.) >= 0
       best_s[j][c] = 0;
+      if constexpr (kSecond) sec[j][c] = -1.f;
     }
+
+  // one listed near-tie (row b, filter f) by the whole block, in
+  // `scratch` (`stage` floats of the ring): K's column, every window's
+  // f32 value (a thread a window, from the row's words staged chunk by
+  // chunk with the skip span zeroed), then in float64 only the windows
+  // within kTieTol of the f32 maximum (f32 sums sit far closer to exact
+  // than the 3xTF32 ones): idx becomes the first start of the largest
+  // float64 value among them. Called by every thread after a barrier.
+  auto refine_tie = [&](float* scratch, int b, int f) {
+    const int span = W * E;
+    const int xpitch = E + 1;  // starts a thread apart fall in distinct banks
+    float* kcol = scratch;
+    float* vals = kcol + span;
+    double* v64 = reinterpret_cast<double*>(
+        (reinterpret_cast<uintptr_t>(vals + t_out) + 7) & ~(uintptr_t)7);
+    float* xw = reinterpret_cast<float*>(v64 + t_out);
+    const int cw = (int)((scratch + stage - xw) / xpitch) - (W - 1);  // windows a chunk
+    const int chunks = cw > 0 ? (t_out + cw - 1) / cw : 0;
+    {
+      const float bf = __ldg(bias + f);
+      const int lo = skip != nullptr ? skip[2 * b] : 0;
+      const int hi = skip != nullptr ? lo + skip[2 * b + 1] : 0;
+      // words c0 - (W - 1) .. c0 + n - 1 of row b into xw, 0 outside the
+      // doc and inside the skip span: asynchronous copies, all in flight
+      // at once (with K's column on the first chunk), then waited for
+      auto stage_words = [&](int c0, int n) {
+        for (int j = tid; j < (n + W - 1) * E; j += nthreads) {
+          const int rw = j / E;
+          const int e = j - rw * E;
+          const int p = c0 - (W - 1) + rw;
+          const bool in = p >= 0 && p < T && (p < lo || p >= hi);
+          cp_async4(xw + rw * xpitch + e, in ? x + ((size_t)b * T + p) * E + e : x, in ? 4 : 0);
+        }
+        if (c0 == 0)
+          for (int q = tid; q < span; q += nthreads) cp_async4(kcol + q, k + (size_t)q * F + f, 4);
+        cp_async_commit();
+        cp_async_wait<0>();
+      };
+      if (chunks == 0) return;
+      if (tid == 0) tie_max = 0;
+      for (int c = 0; c < chunks; ++c) {
+        const int c0 = c * cw;
+        const int n = min(cw, t_out - c0);
+        __syncthreads();
+        stage_words(c0, n);
+        __syncthreads();
+        for (int sw = tid; sw < n; sw += nthreads) {
+          // four partial sums over e mod 4, so that the loads run ahead
+          float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+          for (int w = 0; w < W; ++w) {
+            const float* xr = xw + (sw + w) * xpitch;
+            const float* kr = kcol + w * E;
+            int e = 0;
+            for (; e + 4 <= E; e += 4) {
+              a0 = fmaf(xr[e], kr[e], a0);
+              a1 = fmaf(xr[e + 1], kr[e + 1], a1);
+              a2 = fmaf(xr[e + 2], kr[e + 2], a2);
+              a3 = fmaf(xr[e + 3], kr[e + 3], a3);
+            }
+            for (; e < E; ++e) a0 = fmaf(xr[e], kr[e], a0);
+          }
+          const float v = fmaxf((a0 + a1) + (a2 + a3) + bf, 0.f);
+          vals[c0 + sw] = v;
+          atomicMax(&tie_max, __float_as_int(v));  // v >= 0: the bits order as the values
+        }
+      }
+      __syncthreads();
+      const float vmax = __int_as_float(tie_max);
+      const float cut = vmax - kTieTol * fmaxf(vmax, 1.f);
+      for (int c = 0; c < chunks; ++c) {
+        const int c0 = c * cw;
+        const int n = min(cw, t_out - c0);
+        if (chunks > 1) {
+          __syncthreads();
+          stage_words(c0, n);
+          __syncthreads();
+        }
+        // a warp a window: lane l sums offsets l, l + 32, ... of the
+        // window's W*E products, a fixed xor butterfly adds the lanes up
+        // (windows of equal content get the same bits)
+        for (int sw = warp; sw < n; sw += warps) {
+          double v = -1.0;
+          if (vals[c0 + sw] >= cut) {
+            double acc = 0.0;
+            for (int q = lane; q < span; q += 32) {
+              const int w = q / E;
+              acc = fma((double)xw[(sw + w) * xpitch + (q - w * E)], (double)kcol[q], acc);
+            }
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+            v = fmax(acc + (double)bf, 0.0);
+          }
+          if (lane == 0) v64[c0 + sw] = v;
+        }
+      }
+      __syncthreads();
+      if (tid < 32) {
+        // the largest float64 value, then its first start
+        double best = -1.0;
+        for (int sw = tid; sw < t_out; sw += 32) best = fmax(best, v64[sw]);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          best = fmax(best, __shfl_xor_sync(0xffffffffu, best, off));
+        int first = t_out;
+        for (int sw = tid; sw < t_out; sw += 32)
+          if (v64[sw] == best) {
+            first = sw;
+            break;
+          }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          first = min(first, __shfl_xor_sync(0xffffffffu, first, off));
+        if (tid == 0) idx[(size_t)b * F + f] = first;
+      }
+    }
+    __syncthreads();  // the scratch is free again
+  };
 
   const uint4* kl = kq + lane;
   for (int it = 0; it < items; ++it) {
@@ -488,6 +646,7 @@ textcnn_pool_fwd_kernel(const float* __restrict__ x, const int* __restrict__ row
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const float v = fmaxf(acc[j][2 * half + c] + (c ? bj.y : bj.x), 0.f);
+          if constexpr (kSecond) sec[j][c] = fmaxf(sec[j][c], fminf(v, best[j][c]));
           if (v > best[j][c]) {
             best[j][c] = v;
             best_s[j][c] = s;
@@ -503,6 +662,7 @@ textcnn_pool_fwd_kernel(const float* __restrict__ x, const int* __restrict__ row
     __syncthreads();
     float* merge_v = xt;  // [warps][nf]
     int* merge_i = reinterpret_cast<int*>(xt + warps * nf);
+    float* merge_sec = xt + 2 * warps * nf;
 #pragma unroll
     for (int j = 0; j < kMaxNTiles; ++j) {
       if (j < nt) {
@@ -510,10 +670,18 @@ textcnn_pool_fwd_kernel(const float* __restrict__ x, const int* __restrict__ row
         for (int c = 0; c < 2; ++c) {
           float v = best[j][c];
           int s = best_s[j][c];
+          float sv = 0.f;
+          if constexpr (kSecond) sv = sec[j][c];
 #pragma unroll
           for (int off = 4; off < 32; off <<= 1) {
             const float ov = __shfl_xor_sync(0xffffffffu, v, off);
             const int os = __shfl_xor_sync(0xffffffffu, s, off);
+            if constexpr (kSecond) {
+              // the second of two halves: the loser's best or the
+              // winner's second
+              const float osv = __shfl_xor_sync(0xffffffffu, sv, off);
+              sv = fmaxf(fmaxf(sv, osv), fminf(v, ov));
+            }
             if (ov > v || (ov == v && os < s)) {
               v = ov;
               s = os;
@@ -522,9 +690,11 @@ textcnn_pool_fwd_kernel(const float* __restrict__ x, const int* __restrict__ row
           if (g == 0) {
             merge_v[warp * nf + 8 * j + 2 * tq + c] = v;
             merge_i[warp * nf + 8 * j + 2 * tq + c] = s;
+            if constexpr (kSecond) merge_sec[warp * nf + 8 * j + 2 * tq + c] = sv;
           }
           best[j][c] = -1.f;
           best_s[j][c] = 0;
+          if constexpr (kSecond) sec[j][c] = -1.f;
         }
       }
     }
@@ -545,9 +715,12 @@ textcnn_pool_fwd_kernel(const float* __restrict__ x, const int* __restrict__ row
       if (f >= F) continue;
       float v = merge_v[col];
       int s = merge_i[col];
+      float sv = 0.f;
+      if constexpr (kSecond) sv = merge_sec[col];
       for (int ow = 1; ow < warps; ++ow) {
         const float ov = merge_v[ow * nf + col];
         const int os = merge_i[ow * nf + col];
+        if constexpr (kSecond) sv = fmaxf(fmaxf(sv, merge_sec[ow * nf + col]), fminf(v, ov));
         if (ov > v || (ov == v && os < s)) {
           v = ov;
           s = os;
@@ -555,8 +728,50 @@ textcnn_pool_fwd_kernel(const float* __restrict__ x, const int* __restrict__ row
       }
       out[(size_t)b * F + f] = row_ok ? v : __int_as_float(0x7fc00000);  // NaN
       idx[(size_t)b * F + f] = row_ok ? s : -1;
+      if constexpr (kSecond) {
+        if (second != nullptr) second[(size_t)b * F + f] = sv;
+        // a near-tie, unless its max is the all-zero window's value
+        // (equal content: every such window gives relu(bias) exactly)
+        if (refine && v > 0.f && v - sv <= kTieTol * fmaxf(v, 1.f) && v != fmaxf(bs[col], 0.f)) {
+          const int slot = atomicAdd(&ties[0], 1);
+          ties[4 + 2 * slot] = b;
+          ties[5 + 2 * slot] = f;
+        }
+      }
     }
     // the next copies into this stage follow the next item's barrier
+  }
+  if constexpr (kSecond) {
+    if (refine) {
+      // the launch's near-ties, shared out over every block once all have
+      // listed theirs: the blocks are all resident (one a multiprocessor,
+      // no more than the card has), so the wait ends; ties[0] counts the
+      // list, ties[1] the blocks done listing, ties[2] hands out entries,
+      // and the last block to leave (ties[3]) sets all four back to 0
+      const int blocks = (int)(gridDim.x * gridDim.y);
+      __threadfence();  // this thread's entries, before the block counts itself done
+      __syncthreads();  // every tile read: the ring is free
+      if (tid == 0) {
+        atomicAdd(&ties[1], 1);
+        while (*reinterpret_cast<volatile int*>(&ties[1]) < blocks) __nanosleep(32);
+        __threadfence();
+        tie_max = atomicAdd(&ties[0], 0);  // the list's length, for the loop below
+      }
+      __syncthreads();
+      const int listed = tie_max;
+      for (;;) {
+        __syncthreads();
+        if (tid == 0) tie_take = atomicAdd(&ties[2], 1);
+        __syncthreads();
+        const int t = tie_take;
+        if (t >= listed) break;
+        refine_tie(xs, __ldcg(&ties[4 + 2 * t]), __ldcg(&ties[5 + 2 * t]));
+      }
+      if (tid == 0 && atomicAdd(&ties[3], 1) == blocks - 1) {
+        ties[0] = ties[1] = ties[2] = ties[3] = 0;
+        __threadfence();
+      }
+    }
   }
 }
 
@@ -581,16 +796,24 @@ Config choose(int E, int F, int W, bool ids, int max_smem) {
 
 template <int W, int kSrc>
 int launch(const float* x, const int* rows, const float* k, const float* bias,
-           const int* skip, float* out, int* idx, int N, int B, int T, int E, int F,
-           cudaStream_t stream) {
+           const int* skip, float* out, int* idx, float* second, int* ties, int N, int B, int T,
+           int E, int F, int refine, cudaStream_t stream) {
   int dev = 0, max_smem = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const Config cfg = choose(E, F, W, kSrc == kIds, max_smem);
+  // the kernel's static shared memory (the near-tie list) comes out of
+  // the same per-block total; read once per instantiation
+  static int static_smem = -1;
+  if (static_smem < 0) {
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, textcnn_pool_fwd_kernel<W, kSrc>);
+    if (err != cudaSuccess) return (int)err;
+    static_smem = (int)attr.sharedSizeBytes;
+  }
+  const Config cfg = choose(E, F, W, kSrc == kIds, max_smem - static_smem);
   if (cfg.nt == 0) return (int)cudaErrorInvalidConfiguration;
   // raised once per instantiation, not on every launch (nor inside a
   // CUDA-graph capture after a first launch)
@@ -607,26 +830,43 @@ int launch(const float* x, const int* rows, const float* k, const float* bias,
   blocks = blocks < 1 ? 1 : (blocks > B ? B : blocks);
   const int vec16 = E % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   textcnn_pool_fwd_kernel<W, kSrc><<<dim3(blocks, cfg.chunks), cfg.warps * 32, cfg.smem,
-                                     stream>>>(x, rows, k, bias, skip, out, idx, N, B, T, E,
-                                               F, cfg.nt, vec16);
+                                     stream>>>(x, rows, k, bias, skip, out, idx, second, ties,
+                                               N, B, T, E, F, cfg.nt, vec16, refine);
   return (int)cudaGetLastError();
 }
 
 template <int kSrc>
 int dispatch(const float* x, const int* rows, const float* k, const float* bias,
-             const int* skip, float* out, int* idx, int N, int B, int T, int E, int F, int W,
-             void* stream) {
+             const int* skip, float* out, int* idx, float* second, int* ties, int N, int B,
+             int T, int E, int F, int W, int refine, void* stream) {
   if (N <= 0 || B <= 0 || T <= 0 || E <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
+  if (refine && ties == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (W) {
-    case 1: return launch<1, kSrc>(x, rows, k, bias, skip, out, idx, N, B, T, E, F, s);
-    case 2: return launch<2, kSrc>(x, rows, k, bias, skip, out, idx, N, B, T, E, F, s);
-    case 3: return launch<3, kSrc>(x, rows, k, bias, skip, out, idx, N, B, T, E, F, s);
-    case 4: return launch<4, kSrc>(x, rows, k, bias, skip, out, idx, N, B, T, E, F, s);
-    case 5: return launch<5, kSrc>(x, rows, k, bias, skip, out, idx, N, B, T, E, F, s);
-    case 6: return launch<6, kSrc>(x, rows, k, bias, skip, out, idx, N, B, T, E, F, s);
-    case 7: return launch<7, kSrc>(x, rows, k, bias, skip, out, idx, N, B, T, E, F, s);
-    case 8: return launch<8, kSrc>(x, rows, k, bias, skip, out, idx, N, B, T, E, F, s);
+    case 1:
+      return launch<1, kSrc>(x, rows, k, bias, skip, out, idx, second, ties, N, B, T, E, F,
+                               refine, s);
+    case 2:
+      return launch<2, kSrc>(x, rows, k, bias, skip, out, idx, second, ties, N, B, T, E, F,
+                               refine, s);
+    case 3:
+      return launch<3, kSrc>(x, rows, k, bias, skip, out, idx, second, ties, N, B, T, E, F,
+                               refine, s);
+    case 4:
+      return launch<4, kSrc>(x, rows, k, bias, skip, out, idx, second, ties, N, B, T, E, F,
+                               refine, s);
+    case 5:
+      return launch<5, kSrc>(x, rows, k, bias, skip, out, idx, second, ties, N, B, T, E, F,
+                               refine, s);
+    case 6:
+      return launch<6, kSrc>(x, rows, k, bias, skip, out, idx, second, ties, N, B, T, E, F,
+                               refine, s);
+    case 7:
+      return launch<7, kSrc>(x, rows, k, bias, skip, out, idx, second, ties, N, B, T, E, F,
+                               refine, s);
+    case 8:
+      return launch<8, kSrc>(x, rows, k, bias, skip, out, idx, second, ties, N, B, T, E, F,
+                               refine, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1045,12 +1285,19 @@ size_t textcnn_pool_fwd_smem_bytes(int e, int window) {
 int textcnn_pool_fwd_max_window() { return kMaxWindow; }
 
 // x [B, T, E], k [W*E, F], bias [F], skip [B, 2] or null, all contiguous;
-// out [B, F] f32 and idx [B, F] int32. Launches on `stream` and returns
-// the CUDA error code of the launch (0 on success).
+// out [B, F] f32 and idx [B, F] int32; second [B, F] f32 or null: the
+// largest value of a start other than idx's, -1 where there is none.
+// With refine != 0, idx of each near-tie (out > 0, out - second <=
+// 1e-5 * max(1, out), out != relu(bias[f])) is the first start of the
+// largest window value recomputed in float64; `ties` is then int32
+// [4 + 2 * B * F] whose first four are 0 (the launch leaves them 0),
+// else null. Launches on `stream` and returns the CUDA error code of the
+// launch (0 on success).
 int textcnn_pool_fwd_f32(const float* x, const float* k, const float* bias, const int* skip,
-                         float* out, int* idx, int B, int T, int E, int F, int W,
-                         void* stream) {
-  return dispatch<kPlain>(x, nullptr, k, bias, skip, out, idx, B, B, T, E, F, W, stream);
+                         float* out, int* idx, float* second, int* ties, int B, int T, int E,
+                         int F, int W, int refine, void* stream) {
+  return dispatch<kPlain>(x, nullptr, k, bias, skip, out, idx, second, ties, B, B, T, E, F, W,
+                          refine, stream);
 }
 
 // The row-gathered forward: table [N, T, E] and rows [B] int32 in place of
@@ -1059,7 +1306,8 @@ int textcnn_pool_fwd_f32(const float* x, const float* k, const float* bias, cons
 int textcnn_pool_fwd_rows_f32(const float* table, const int* rows, const float* k,
                               const float* bias, const int* skip, float* out, int* idx,
                               int N, int B, int T, int E, int F, int W, void* stream) {
-  return dispatch<kRows>(table, rows, k, bias, skip, out, idx, N, B, T, E, F, W, stream);
+  return dispatch<kRows>(table, rows, k, bias, skip, out, idx, nullptr, nullptr, N, B, T, E, F,
+                         W, 0, stream);
 }
 
 // The word-gathered forward: a word table [V, E] and ids [B, T] int32 in
@@ -1069,7 +1317,8 @@ int textcnn_pool_fwd_rows_f32(const float* table, const int* rows, const float* 
 int textcnn_pool_fwd_ids_f32(const float* table, const int* ids, const float* k,
                              const float* bias, float* out, int* idx, int V, int B, int T,
                              int E, int F, int W, void* stream) {
-  return dispatch<kIds>(table, ids, k, bias, nullptr, out, idx, V, B, T, E, F, W, stream);
+  return dispatch<kIds>(table, ids, k, bias, nullptr, out, idx, nullptr, nullptr, V, B, T, E, F,
+                        W, 0, stream);
 }
 
 // bf16 operands: x [B, T, E] and k [W*E, F] as bf16 (bit patterns),

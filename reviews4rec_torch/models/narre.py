@@ -5,6 +5,13 @@ MLP head plus biases. Counterpart of `reviews4rec_tpu/models/narre.py`.
 The per-review layout is [R=10 reviews, W=100 words]; review slot j of
 an entity aligns with neighbor-id slot j (the data pipeline emits both
 lists in the same order).
+
+Spans (`train.profiler.annotate`, ranges only while a profiler
+records): `narre.towers` (the two per-review TextCNN towers),
+`narre.attend` (both sides' review attention) and `narre.head` (id
+embeddings, the MLP head and the biases). A step replayed from a CUDA
+graph runs none of them; the review counters are the trainer's
+(`train.loop.review_counts`).
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..train.profiler import annotate
 from .layers import (Dropout, MLPTower, ScorerMLP, TextCNN, doc_shape,
                      take_rows)
 
@@ -93,29 +101,36 @@ class NARRE(nn.Module):
 
         # per-review encoding: reviews folded into the batch axis
         wv = self.word_vectors
-        uf = self.user_conv(udoc.reshape((ub_rows * r,) + u_tail[1:]),
-                            table=wv, generator=generator
-                            ).reshape(ub_rows, r, -1)
-        itf = self.item_conv(idoc.reshape((b * r,) + i_tail[1:]),
-                             table=wv, generator=generator).reshape(b, r, -1)
+        with annotate("narre.towers"):
+            uf = self.user_conv(udoc.reshape((ub_rows * r,) + u_tail[1:]),
+                                table=wv, generator=generator
+                                ).reshape(ub_rows, r, -1)
+            itf = self.item_conv(idoc.reshape((b * r,) + i_tail[1:]),
+                                 table=wv, generator=generator
+                                 ).reshape(b, r, -1)
 
         # the user's reviews attend over the items they were written
         # about, the item's over the users who wrote them
-        u_att = self._attend(uf, take_rows(self, self.item_embedding, reviewed),
-                             self.att_user, generator, batch.get("user_skip"))
-        i_att = self._attend(itf, take_rows(self, self.user_embedding,
-                                            who_gave),
-                             self.att_item, generator, batch.get("item_skip"))
-        if u_lead != lead:
-            u_att = u_att.reshape(u_lead + u_att.shape[-1:]).expand(
-                lead + u_att.shape[-1:]).reshape(-1, u_att.shape[-1])
+        with annotate("narre.attend"):
+            u_att = self._attend(uf, take_rows(self, self.item_embedding,
+                                               reviewed),
+                                 self.att_user, generator,
+                                 batch.get("user_skip"))
+            i_att = self._attend(itf, take_rows(self, self.user_embedding,
+                                                who_gave),
+                                 self.att_item, generator,
+                                 batch.get("item_skip"))
+            if u_lead != lead:
+                u_att = u_att.reshape(u_lead + u_att.shape[-1:]).expand(
+                    lead + u_att.shape[-1:]).reshape(-1, u_att.shape[-1])
 
-        u = u_att + self.dropout(
-            take_rows(self, self.user_embedding, user_id), generator)
-        i = i_att + self.dropout(
-            take_rows(self, self.item_embedding, item_id), generator)
-        rating = self.final(u * i, generator)[..., 0]
-        out = (rating + take_rows(self, self.user_bias, user_id)
-               + take_rows(self, self.item_bias, item_id)
-               + self.global_bias[0])
+        with annotate("narre.head"):
+            u = u_att + self.dropout(
+                take_rows(self, self.user_embedding, user_id), generator)
+            i = i_att + self.dropout(
+                take_rows(self, self.item_embedding, item_id), generator)
+            rating = self.final(u * i, generator)[..., 0]
+            out = (rating + take_rows(self, self.user_bias, user_id)
+                   + take_rows(self, self.item_bias, item_id)
+                   + self.global_bias[0])
         return out.reshape(lead)

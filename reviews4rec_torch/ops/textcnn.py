@@ -28,7 +28,17 @@ inside the skip span.
   kernel or raises: `csrc/textcnn_pool_fwd.cu`,
   `csrc/textcnn_pool_bwd_dg.cu` (dK) and `csrc/textcnn_pool_bwd_dx.cu`
   (dx, only when x needs a gradient). Each launch adds one to that
-  kernel's entry of `launches`.
+  kernel's entry of `launches`. Where a gradient will be routed (K or x
+  needs one), idx is held to exact arithmetic at max-pool near-ties:
+  for each (b, f) whose best and second values (the second: the largest
+  of a start other than idx's, equal values included) lie within
+  `TIE_TOL` x max(1, out) of each other, idx is the first start of the
+  largest window value recomputed in float64. The forward kernel does
+  that itself (`refine`); on the CPU `refine_ties` does it after the
+  plain version, and it is the kernel's plain version. The kernel's
+  3xTF32 sums sit up to about 1.4e-6 from float64 at NARRE's shape
+  (f32's own, about 1e-7), enough to give a window of a near-tie the
+  gradient that exact arithmetic gives its rival.
 - `textcnn_pool_rows`: the same op on `table[rows]` of a whole [N, T, E]
   entity doc table (the entity doc cache under `hp.pallas_fuse_rows`),
   a `TextCNNPoolRows` autograd function differentiable in K and b only.
@@ -97,7 +107,7 @@ SOURCE = {FWD: FWD, BWD_DG: BWD_DG, BWD_DX: BWD_DX, FWD_ROWS: FWD,
           FWD_BF16: FWD, BWD_DG_BF16: BWD_DG, FWD_F16: FWD,
           BWD_DG_F16: BWD_DG}
 # (pointer, int) argument counts of each entry point, before its stream
-_ARGS = {FWD: (6, 5), BWD_DG: (7, 5), BWD_DX: (6, 5), FWD_ROWS: (7, 6),
+_ARGS = {FWD: (8, 6), BWD_DG: (7, 5), BWD_DX: (6, 5), FWD_ROWS: (7, 6),
          BWD_DG_ROWS: (8, 6), FWD_IDS: (6, 6), BWD_DG_IDS: (7, 6),
          FWD_BF16: (6, 5), BWD_DG_BF16: (7, 5), FWD_F16: (6, 5),
          BWD_DG_F16: (7, 5)}
@@ -126,6 +136,10 @@ launches: Dict[str, int] = {name: 0 for name in KERNELS}
 # slices and int32 per-filter counters, zeroed once, which every launch
 # leaves 0 again; launches on one stream run in turn, so they share it
 _dg_workspaces: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+# the forward's near-tie list by (device, stream), as the dG workspace: four
+# int32 counters, zeroed once and left 0 by every launch, then the list's
+# (row, filter) pairs
+_tie_workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _span_mask(skip: torch.Tensor, t: int) -> torch.Tensor:
@@ -137,8 +151,11 @@ def _span_mask(skip: torch.Tensor, t: int) -> torch.Tensor:
 
 def textcnn_pool_reference(x: torch.Tensor, kernel: torch.Tensor,
                            bias: torch.Tensor, window: int = 3,
-                           skip: Optional[torch.Tensor] = None
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+                           skip: Optional[torch.Tensor] = None,
+                           second: bool = False):
+    """(out, idx), and with `second` the second value too: the largest
+    value of a start other than idx's, equal values included (-1 where
+    there is none)."""
     b, t, e = x.shape
     if skip is not None:
         x = torch.where(_span_mask(skip, t)[..., None],
@@ -155,7 +172,61 @@ def textcnn_pool_reference(x: torch.Tensor, kernel: torch.Tensor,
                           dtype=torch.int32)[None, :, None]
     last = torch.full((), t_out, dtype=torch.int32, device=x.device)
     idx = torch.where(y == out[:, None, :], starts, last).amin(dim=1)
-    return out, idx
+    if not second:
+        return out, idx
+    others = y.scatter(1, idx[:, None, :].long(),
+                       torch.full((), -1.0, dtype=y.dtype, device=y.device)
+                       .expand(b, 1, y.shape[2]))
+    return out, idx, torch.maximum(others.amax(dim=1),
+                                   torch.full_like(out, -1.0))
+
+
+# a (b, f) is a near-tie when out - second <= TIE_TOL * max(1, out):
+# seven times the largest gap between the forward kernel's window values
+# and float64 that chip_smoke.py reads at NARRE's shape (1.4e-6)
+TIE_TOL = 1e-5
+
+
+def near_ties(out: torch.Tensor, second: torch.Tensor, bias: torch.Tensor
+              ) -> torch.Tensor:
+    """[B, F] bool: out > 0, out - second <= TIE_TOL * max(1, out), and
+    out is not relu(bias[f]), the value every all-zero window gives
+    exactly (windows of equal content, whose tie the first start takes
+    in any precision)."""
+    return ((out > 0) & (out - second <= TIE_TOL * torch.clamp(out, min=1.0))
+            & (out != torch.relu(bias)[None, :]))
+
+
+def refine_ties(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                window: int, skip: Optional[torch.Tensor], out: torch.Tensor,
+                idx: torch.Tensor, second: torch.Tensor) -> torch.Tensor:
+    """idx with each near-tie (b, f) (`near_ties`) taken from float64:
+    the first start of the largest window value of that (b, f), each
+    window summed in float64. The plain version of the forward kernel's
+    `refine`."""
+    rows, cols = near_ties(out, second, bias).nonzero(as_tuple=True)
+    if rows.numel() == 0:
+        return idx
+    t, e = x.shape[1], x.shape[2]
+    xs = x.index_select(0, rows)
+    if skip is not None:
+        xs = torch.where(_span_mask(skip.index_select(0, rows), t)[..., None],
+                         torch.zeros((), dtype=xs.dtype, device=xs.device),
+                         xs)
+    halo = window - 1
+    xp = F.pad(xs.double(), (0, 0, halo, halo))            # [n, T+2h, E]
+    taps = kernel.double().reshape(window, e, -1)[:, :, cols]  # [W, E, n]
+    per_tap = torch.bmm(xp, taps.permute(2, 1, 0))        # [n, T+2h, W]
+    t_out = t + halo
+    vals = sum(per_tap[:, w:w + t_out, w] for w in range(window))
+    vals = torch.relu(vals + bias.double()[cols][:, None])
+    starts = torch.arange(t_out, device=x.device, dtype=idx.dtype)[None, :]
+    first = torch.where(vals == vals.amax(dim=1, keepdim=True), starts,
+                        torch.full((), t_out, dtype=idx.dtype,
+                                   device=x.device)).amin(dim=1)
+    refined = idx.clone()
+    refined[rows, cols] = first
+    return refined
 
 
 def _taps(idx: torch.Tensor, window: int) -> Tuple[torch.Tensor,
@@ -369,6 +440,18 @@ def _dg_workspace(ref: torch.Tensor, b: int, f: int, span: int
     return partial, counter
 
 
+def _tie_workspace(ref: torch.Tensor, n: int) -> torch.Tensor:
+    """The forward's near-tie list on the current stream: int32, at least
+    `n` long, its first four values 0."""
+    dev = ref.device
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    ties = _tie_workspaces.get(key)
+    if ties is None or ties.numel() < n:
+        ties = torch.zeros(n, dtype=torch.int32, device=dev)
+        _tie_workspaces[key] = ties
+    return ties
+
+
 def _check_cuda(what: str, tensors, dtypes) -> None:
     dev = tensors[0][1].device
     if dev.type != "cuda":
@@ -421,12 +504,20 @@ def _check_forward(x, kernel, bias, window, skip, rows=None,
 
 def textcnn_pool_forward(x: torch.Tensor, kernel: torch.Tensor,
                          bias: torch.Tensor, window: int = 3,
-                         skip: Optional[torch.Tensor] = None
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, idx) without autograd: the plain version on the CPU, else
-    `csrc/textcnn_pool_fwd.cu`."""
+                         skip: Optional[torch.Tensor] = None,
+                         second: bool = False, refine: bool = False):
+    """(out, idx) without autograd, and with `second` the second value
+    [B, F] too (`textcnn_pool_reference`'s); with `refine`, idx of each
+    near-tie from float64 (`refine_ties`): the plain version on the CPU,
+    else `csrc/textcnn_pool_fwd.cu`."""
     if x.device.type == "cpu":
-        return textcnn_pool_reference(x, kernel, bias, window, skip)
+        if not (second or refine):
+            return textcnn_pool_reference(x, kernel, bias, window, skip)
+        out, idx, sec = textcnn_pool_reference(x, kernel, bias, window, skip,
+                                               second=True)
+        if refine:
+            idx = refine_ties(x, kernel, bias, window, skip, out, idx, sec)
+        return (out, idx, sec) if second else (out, idx)
     _check_forward(x, kernel, bias, window, skip)
     b, t, e = x.shape
     f = kernel.shape[1]
@@ -436,10 +527,14 @@ def textcnn_pool_forward(x: torch.Tensor, kernel: torch.Tensor,
                          f"1..{max_window}")
     out = torch.empty((b, f), dtype=torch.float32, device=x.device)
     idx = torch.empty((b, f), dtype=torch.int32, device=x.device)
+    sec = (torch.empty((b, f), dtype=torch.float32, device=x.device)
+           if second else None)
+    ties = _tie_workspace(x, 4 + 2 * b * f) if refine else None
     _launch(FWD, x, (x.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
-                     _ptr(skip), out.data_ptr(), idx.data_ptr()),
-            dict(B=b, T=t, E=e, F=f, W=window))
-    return out, idx
+                     _ptr(skip), out.data_ptr(), idx.data_ptr(), _ptr(sec),
+                     _ptr(ties)),
+            dict(B=b, T=t, E=e, F=f, W=window, refine=int(refine)))
+    return (out, idx, sec) if second else (out, idx)
 
 
 def _check_backward(what, g, idx, other, skip, window) -> None:
@@ -686,11 +781,15 @@ def textcnn_pool_bwd_dg_16(dtype: torch.dtype, x: torch.Tensor,
 class TextCNNPool(torch.autograd.Function):
     """(out, idx) of the op, differentiable in x, K and b. The backward
     computes dx only when x needs it (the JAX op's `need_dx`); a tower
-    over the frozen word table never asks for it."""
+    over the frozen word table never asks for it. Where x or K needs a
+    gradient, idx is refined at near-ties (the forward's `refine`)
+    before it is saved and returned."""
 
     @staticmethod
     def forward(ctx, x, kernel, bias, window, skip):
-        out, idx = textcnn_pool_forward(x, kernel, bias, window, skip)
+        out, idx = textcnn_pool_forward(
+            x, kernel, bias, window, skip,
+            refine=ctx.needs_input_grad[0] or ctx.needs_input_grad[1])
         ctx.window = window
         ctx.save_for_backward(x, kernel, out, idx, skip)
         ctx.mark_non_differentiable(idx)

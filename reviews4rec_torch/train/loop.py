@@ -64,14 +64,24 @@ takes its rows of each batch, the caches keep each data rank's example
 rows, the gradients are summed over the mesh before Adam, and the
 checkpoint, whole tables gathered, is written by the primary process.
 The metrics are the single-device ones up to the order of the sums.
+
+Over NARRE's per-review entity cache (rows > 1) every training step adds
+to four counters of `train.profiler.counters`, from the host's own row
+ids, graph replays included (`review_counts`): `narre.review_rows` and
+`narre.review_words` (the review rows and word slots the two towers
+encode), `narre.review_rows_live` (the rows holding a review the step
+does not mask) and `narre.review_words_live` (the slots holding a
+word). The gather of those tables is the span `cache.gather_rows`.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import os
 import statistics
 import time
+import weakref
 from typing import Dict, Iterable, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -144,10 +154,66 @@ class ClippedAdam(torch.optim.Adam):
         return super().step(closure)
 
 
+class Adam(torch.optim.Adam):
+    """torch's Adam with additive L2, whose capturable step takes its bias
+    corrections 1 - beta^t in float64 on the device. torch's capturable
+    form raises the f32 beta to the f32 step count: 1 - f32(0.999) is
+    1.3e-5 off 1e-3 at t = 1, which moved every update of the first steps
+    by about 6e-6 of itself against Adam in exact arithmetic (enough, on
+    NARRE, to move a max-pool near-tie a few steps later). The rest is
+    torch's arithmetic in f32. A group whose parameters all have a
+    gradient advances their step counts together, so one count gives its
+    corrections; a group with a parameter left without one takes torch's
+    step, as do the non-capturable (CPU) groups."""
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        groups = [g for g in self.param_groups
+                  if g["capturable"] and not g["amsgrad"] and not g["maximize"]
+                  and all(p.grad is not None for p in g["params"])]
+        if len(groups) != len(self.param_groups):
+            return super().step(closure)
+        for group in groups:
+            params = group["params"]
+            if not params:
+                continue
+            beta1, beta2 = group["betas"]
+            for p in params:
+                state = self.state[p]
+                if not state:
+                    state["step"] = torch.zeros((), dtype=torch.float32,
+                                                device=p.device)
+                    state["exp_avg"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+                    state["exp_avg_sq"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+            steps = [self.state[p]["step"] for p in params]
+            exp_avgs = [self.state[p]["exp_avg"] for p in params]
+            exp_avg_sqs = [self.state[p]["exp_avg_sq"] for p in params]
+            grads = [p.grad for p in params]
+            torch._foreach_add_(steps, 1)
+            if group["weight_decay"]:
+                grads = torch._foreach_add(grads, params,
+                                           alpha=group["weight_decay"])
+            torch._foreach_lerp_(exp_avgs, grads, 1 - beta1)
+            torch._foreach_mul_(exp_avg_sqs, beta2)
+            torch._foreach_addcmul_(exp_avg_sqs, grads, grads, 1 - beta2)
+            t = steps[0].double()
+            step_size = (group["lr"] / (1 - torch.pow(beta1, t))).float()
+            bc2_sqrt = torch.sqrt(1 - torch.pow(beta2, t)).float()
+            denom = torch._foreach_sqrt(exp_avg_sqs)
+            torch._foreach_div_(denom, bc2_sqrt)
+            torch._foreach_add_(denom, group["eps"])
+            update = torch._foreach_div(exp_avgs, denom)
+            torch._foreach_mul_(update, step_size)
+            torch._foreach_sub_(params, update)
+        return None
+
+
 def make_optimizer(hp: HyperParams, model: torch.nn.Module
                    ) -> torch.optim.Optimizer:
-    """Adam with additive L2 (MPCN: `ClippedAdam`). On the card it is
-    built `capturable` (step count and bias corrections as device
+    """Adam with additive L2 (`Adam`; MPCN: `ClippedAdam`). On the card it
+    is built `capturable` (step count and bias corrections as device
     tensors) for every `hp.scan_steps`, so that steps replayed from a
     CUDA graph and single steps run the same arithmetic."""
     params = list(model.parameters())
@@ -158,8 +224,8 @@ def make_optimizer(hp: HyperParams, model: torch.nn.Module
         return ClippedAdam(params, hp.mpcn_lr, hp.mpcn_l2, hp.mpcn_clip_norm,
                            capturable=capturable, sharded=sharded,
                            mesh=model_mesh(model))
-    return torch.optim.Adam(params, lr=hp.lr, weight_decay=hp.weight_decay,
-                            capturable=capturable)
+    return Adam(params, lr=hp.lr, weight_decay=hp.weight_decay,
+                capturable=capturable)
 
 
 def _batch_loss(preds, batch: Dict[str, torch.Tensor],
@@ -263,9 +329,13 @@ def _lookahead(it: Iterable, depth: int = 2) -> Iterator:
 
 
 def _prefetch(batcher: Batcher, device: torch.device, depth: int = 2,
-              mesh=None):
-    return _lookahead((_place(host_slice(b, mesh), device) for b in batcher),
-                      depth)
+              mesh=None, counts=None):
+    def placed():
+        for b in batcher:
+            b = host_slice(b, mesh)
+            count_reviews(counts, [b])
+            yield _place(b, device)
+    return _lookahead(placed(), depth)
 
 
 class ScanSteps:
@@ -304,7 +374,9 @@ class ScanSteps:
     for its pinned slot's last copy), `scan.stage` (the group stacked
     into the slot and its copies enqueued; on the CPU the copy itself),
     `scan.capture` (counted in `profiler.counters["scan.captures"]`) and
-    `scan.replay`.
+    `scan.replay`. Each group's batches add to the review counters
+    (`count_reviews`) from their host row ids, whether they replay or run
+    eagerly.
     """
 
     def __init__(self, model: torch.nn.Module,
@@ -317,6 +389,7 @@ class ScanSteps:
         self.objective = (loss_name, hinge_margin)
         self.steps, self.device, self.cache = steps, device, cache
         self.mesh = model_mesh(model)
+        self.counts = review_counts(cache)
         self.on_card = device.type == "cuda" and self.mesh is None
         self.sq_sum = torch.zeros((), device=device)
         self.n = torch.zeros((), device=device)
@@ -345,11 +418,12 @@ class ScanSteps:
     def run(self, group) -> None:
         """Train on a list of host batches: one dispatch for S of them,
         single steps for fewer."""
+        group = [host_slice(batch, self.mesh) for batch in group]
+        count_reviews(self.counts, group)
         if len(group) < self.steps:
             for batch in group:
-                self._step(_place(host_slice(batch, self.mesh), self.device))
+                self._step(_place(batch, self.device))
             return
-        group = [host_slice(batch, self.mesh) for batch in group]
         self._stage(group)
         if not self.on_card:
             for s in range(self.steps):
@@ -534,7 +608,8 @@ def train_epoch(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         else:
             sq_sum = torch.zeros((), device=device)
             n = torch.zeros((), device=device)
-            for batch in _prefetch(batcher, device, mesh=mesh):
+            for batch in _prefetch(batcher, device, mesh=mesh,
+                                   counts=review_counts(cache)):
                 with annotate("train_step"):
                     if cache is not None:
                         batch = gather_cached_batch(cache, batch["row"],
@@ -661,13 +736,81 @@ def gather_cached_batch(cache, rows: torch.Tensor, weight: torch.Tensor
     mesh `rows` are this rank's rows of the batch."""
     if isinstance(cache, EntityCache):
         batch = _take(cache.example, rows)
-        for dk, table in cache.tables.items():
-            batch[dk] = (table if dk.endswith("__table") else
-                         table.index_select(0, batch[ENTITY_ID_KEY[dk]]))
+        # NARRE's per-review tables are the ones with neighbor ids
+        with (annotate("cache.gather_rows") if "users_who_gave" in cache.tables
+              else _NO_SPAN):
+            for dk, table in cache.tables.items():
+                batch[dk] = (table if dk.endswith("__table") else
+                             table.index_select(0, batch[ENTITY_ID_KEY[dk]]))
     else:
         batch = _take(cache, rows)
     batch["weight"] = weight
     return batch
+
+
+_NO_SPAN = contextlib.nullcontext()
+# review_counts' results by id of the cache's skip array: (a weak
+# reference to that array, the counts), dropped once the array is gone
+_review_counts: Dict[int, Tuple[weakref.ref, Dict[str, np.ndarray]]] = {}
+
+
+def review_counts(cache) -> Optional[Dict[str, np.ndarray]]:
+    """For an EntityCache of NARRE's per-review tables ("user_doc"
+    [U, R, W(, E)] beside the neighbor-id tables) holding training
+    examples (their "user_skip" rows), the host int64 [N] counts of each
+    example by counter name: the review rows (`narre.review_rows`, 2 R)
+    and word slots (`narre.review_words`, 2 R W) a step's towers encode
+    for it, the rows holding a review the step does not mask
+    (`narre.review_rows_live`: a row with a word, not the pair's own) and
+    the word slots holding a word in those rows
+    (`narre.review_words_live`; a word is a non-zero id, or a non-zero
+    embedded vector). Read from the cache once, in one pass
+    over its tables and one copy to the host; kept while its example
+    arrays live. None for any other cache, and on a mesh."""
+    if (not isinstance(cache, EntityCache) or "users_who_gave" not in
+            cache.tables or not isinstance(cache.example, dict)
+            or "user_skip" not in cache.example):
+        return None
+    key = cache.example["user_skip"]
+    held = _review_counts.get(id(key))
+    if held is not None and held[0]() is key:
+        return held[1]
+    per_side = []
+    for doc, ent, skip in (("user_doc", "user", "user_skip"),
+                           ("item_doc", "item", "item_skip")):
+        table = cache.tables[doc]
+        words = torch.cat([(t != 0).any(-1) if t.is_floating_point()
+                           else (t != 0)
+                           for t in table.split(512)]).sum(-1)   # [N, R]
+        ex = words.index_select(0, cache.example[ent].long())      # [n, R]
+        r, w = table.shape[1], table.shape[2]
+        own = (torch.arange(r, device=ex.device)[None, :]
+               == cache.example[skip].long()[:, None])
+        ex = torch.where(own, torch.zeros_like(ex), ex)
+        per_side.append((r, w, ex))
+    r_all = sum(r for r, _, _ in per_side)
+    out = {"narre.review_rows_live": sum((ex > 0).sum(-1)
+                                         for _, _, ex in per_side),
+           "narre.review_words_live": sum(ex.sum(-1) for _, _, ex in per_side)}
+    out = {k: v.to(torch.int64).cpu().numpy() for k, v in out.items()}
+    n = len(out["narre.review_rows_live"])
+    out["narre.review_rows"] = np.full(n, r_all, np.int64)
+    out["narre.review_words"] = np.full(
+        n, sum(r * w for r, w, _ in per_side), np.int64)
+    for k in [k for k, (ref, _) in _review_counts.items() if ref() is None]:
+        del _review_counts[k]
+    _review_counts[id(key)] = (weakref.ref(key), out)
+    return out
+
+
+def count_reviews(counts: Optional[Dict[str, np.ndarray]], batches) -> None:
+    """Add the host batches' examples ({"row", ...}, padding rows
+    included: the towers encode them) to the review counters."""
+    if counts is None:
+        return
+    rows = np.concatenate([np.asarray(b["row"]) for b in batches])
+    for name, per_example in counts.items():
+        count(name, int(per_example[rows].sum()))
 
 
 def _fuse_tables(tables: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
