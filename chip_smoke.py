@@ -184,7 +184,14 @@
    forward, dK, db, entity-row gathers and embedding gradients,
    attention backward and first Adam update against float64, then the
    group through the benchmark's train entry within its limits.
-21. Prints the card, one JSON line of kernel numbers and, last, the
+21. `deepconn.rank`'s factorized ranking call at the
+   `deepconn-videogames5` configuration's full size (`rank_async`):
+   under `torch.cuda.set_sync_debug_mode("error")` from its one
+   placement to just before the fetch nothing synchronizes, one
+   placement for its 8 batches, and its scores bitwise those of the
+   same call with each batch placed on its own by a pageable copy
+   (the phase's copy of that path); then ms a call of each, in turns.
+22. Prints the card, one JSON line of kernel numbers and, last, the
    result line. Any failed check raises and the exit code is not 0.
    Each phase prints the seconds since the start as it begins.
 
@@ -331,7 +338,7 @@ PHASES = ("kernels", "rows", "serve", "train", "input_grad",
           "review_train", "review_entity", "mf_serve", "mf_train",
           "factorized", "embed", "embed_train", "scan", "mpcn_serve",
           "mpcn_train", "rank_train", "bf16", "neighbors", "hft", "cli",
-          "mesh", "narre_group")
+          "mesh", "narre_group", "rank_async")
 # untrained deepconn's test MSE on the e2e corpus (e2e_ref.npz): two
 # epochs of training must land below it
 UNTRAINED_MSE = 1.524
@@ -2459,6 +2466,151 @@ def narre_group(torch, textcnn, device) -> None:
         + f"; correct {ok} within {limits}")
     if not ok:
         fail(f"narre_group: the group departs from the reference: {checks}")
+
+
+# ---------------------------------------------------------------------
+# The factorized ranking call's one asynchronous placement (`rank_async`)
+# ---------------------------------------------------------------------
+RANK_ASYNC_SEED = 2300000101
+RANK_ASYNC_CALLS = 4      # calls checked bitwise
+RANK_ASYNC_TIMED = 20     # calls timed each way, in turns
+
+
+def _score_per_batch(torch, model, records, batch_size, device, tables):
+    """The factorized call as it ran before it placed everything once:
+    the distinct ids and the pairs' int64 tower slots placed by pageable
+    copies, the towers in the same chunks, then each batch copied to the
+    device on its own (`to_device`, a blocking copy a key) before its
+    slot gathers and `pair_head`."""
+    import numpy as np
+
+    from reviews4rec_torch.data.batcher import Batcher
+    from reviews4rec_torch.train import evaluate
+    from reviews4rec_torch.utils.device import to_device
+
+    items = records["item"]
+    m, c = items.shape
+    u_ids, u_inv = np.unique(records["user"][:, 0], return_inverse=True)
+    i_ids, i_inv = np.unique(items.reshape(-1), return_inverse=True)
+    batcher = Batcher(records, batch_size)
+    with torch.inference_mode():
+        slots = np.zeros((2, len(batcher) * batch_size, c), np.int64)
+        slots[0, :m] = u_inv[:, None]
+        slots[1, :m] = i_inv.reshape(m, c)
+        placed = to_device({"user": u_ids.astype(np.int32),
+                            "item": i_ids.astype(np.int32), "slots": slots},
+                           device)
+        vecs = {}
+        for side in ("user", "item"):
+            ids = placed[side]
+            parts = max(1, -(-len(ids) // (batch_size * c)))
+            step = max(1, -(-len(ids) // parts))
+            vecs[side] = torch.cat([
+                model.entity_towers(side, tables[side + "_doc"],
+                                    ids[s:s + step])
+                for s in range(0, len(ids), step)])
+        slots = placed["slots"]
+        scores, weights = [], []
+        for j, batch in enumerate(batcher):
+            b = to_device(batch, device)
+            weights.append(batch["weight"].astype(bool))
+            u_slot, i_slot = slots[:, j * batch_size:(j + 1) * batch_size]
+            u = vecs["user"].index_select(0, u_slot.reshape(-1))
+            i = vecs["item"].index_select(0, i_slot.reshape(-1))
+            scores.append(model.pair_head(u, i, b["user"], b["item"])
+                          .reshape(b["item"].shape))
+        return evaluate._fetch_scores(scores, weights, records)
+
+
+def rank_async(torch, device) -> None:
+    """`deepconn.rank`'s call at full size (`portbench`'s corpus, weights
+    and grids from seed RANK_ASYNC_SEED, 256 grid rows of 1 + 99, 32 rows
+    a batch): the first call with CUDA's sync debug mode at "error" from
+    `_place_call` to `_fetch_scores`, so any synchronizing copy or read
+    of a device value there raises; the counters read one placement for
+    its batches; RANK_ASYNC_CALLS calls' scores bitwise
+    `_score_per_batch`'s; then RANK_ASYNC_TIMED calls each way, in turns,
+    each timed on the host clock from a synchronized device to its
+    scores on the host."""
+    import numpy as np
+
+    from portbench import corpus, drivers, run, weights
+    from reviews4rec_torch.train import evaluate, profiler
+
+    seed = RANK_ASYNC_SEED
+    bench = run.load_json(run.ROOT, "BENCHMARK.json")
+    _, cfg, traffic, _ = run.cell_files(bench, "deepconn.rank")
+    data = corpus.generate(cfg, seed, device)
+    w = weights.make(cfg, data.num_users, data.num_items, seed, device)
+    sess = drivers.Rank(cfg, traffic, data, w, seed, device)
+    sess.close()       # warmed up; score_grid is the program's again
+    model, tables, bs = sess.model, sess.tables, traffic["grid_batch"]
+    calls = [sess.records(int(k)) for k in sess.order[:RANK_ASYNC_CALLS]]
+
+    def new(recs):
+        return evaluate.score_grid(model, recs, bs, device, tables)
+
+    def old(recs):
+        return _score_per_batch(torch, model, recs, bs, device, tables)
+
+    place, fetch = evaluate._place_call, evaluate._fetch_scores
+
+    def place_strict(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        return place(*a, **k)
+
+    def fetch_lenient(*a, **k):
+        torch.cuda.set_sync_debug_mode(0)
+        return fetch(*a, **k)
+
+    torch.cuda.synchronize()
+    before = dict(profiler.counters)
+    evaluate._place_call, evaluate._fetch_scores = place_strict, fetch_lenient
+    try:
+        first = new(calls[0])
+    except RuntimeError as exc:
+        fail(f"rank_async: the factorized call synchronized between its "
+             f"placement and its fetch: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        evaluate._place_call, evaluate._fetch_scores = place, fetch
+    moved = {k: profiler.counters.get(k, 0) - before.get(k, 0)
+             for k in ("score_grid.batches", "score_grid.placements")}
+    print(f"rank_async seed {seed}: no sync from the placement to the "
+          f"fetch (sync debug mode \"error\"); counters {moved}")
+    if moved != {"score_grid.batches": -(-len(calls[0]["item"]) // bs),
+                 "score_grid.placements": 1}:
+        fail(f"rank_async: one placement a call expected, got {moved}")
+
+    for j, recs in enumerate(calls):
+        got = first if j == 0 else new(recs)
+        want = old(recs)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            diff = (np.abs(got - want).max() if got.shape == want.shape
+                    else "shapes differ")
+            fail(f"rank_async: call {j}'s scores differ from the per-batch "
+                 f"placement's ({diff})")
+    print(f"rank_async: {len(calls)} calls' scores bitwise the per-batch "
+          f"placement's ({calls[0]['item'].size} pairs a call)")
+
+    ms = {"one placement": [], "per batch": []}
+    for k in range(RANK_ASYNC_TIMED):
+        recs = calls[k % len(calls)]
+        order = (("one placement", new), ("per batch", old))
+        for name, fn in (order if k % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(recs)
+            ms[name].append(1e3 * (time.perf_counter() - t0))
+    pairs = calls[0]["item"].size
+    print("rank_async ms a call, median (quartiles) of "
+          f"{RANK_ASYNC_TIMED}: " + "; ".join(
+              f"{name} {np.median(v):.3f} ({np.percentile(v, 25):.3f}-"
+              f"{np.percentile(v, 75):.3f}), "
+              f"{pairs / np.median(v) * 1e3:,.0f} pairs/s"
+              for name, v in ms.items()))
+    del sess, model, tables
+    torch.cuda.empty_cache()
 
 
 def load_flax_params_from(model, fixture, mt: str) -> None:
@@ -6107,6 +6259,10 @@ def main(argv=None) -> None:
     # group: step 0's parts against float64, then the benchmark's check
     if enter("narre_group"):
         narre_group(torch, textcnn, device)
+    # deepconn.rank's factorized call: no sync from its one placement to
+    # its fetch, scores bitwise the per-batch placement's
+    if enter("rank_async"):
+        rank_async(torch, device)
     done = time.perf_counter() - start
     ends = [t for _, t in began[1:]] + [done]
     print(f"[{done:.1f} s] phases done; seconds by phase: " + ", ".join(

@@ -220,11 +220,14 @@ def score_grid(model: torch.nn.Module, records: Dict[str, np.ndarray],
     splits its towers from its head, off a mesh, the call instead
     encodes each distinct user and item once (`_score_factorized`).
     Spans, a batch: `score_grid.place` (the batch drawn and copied to
-    the device), `score_grid.assemble`, `score_grid.forward`; a call:
+    the device; on the factorized path its slices of the call's one
+    placement), `score_grid.assemble`, `score_grid.forward`; a call:
     `score_grid.fetch` (the scores back on the host). Counters, a call:
     `score_grid.tower_slots` (the towers the grid names: a user's per
-    grid row and an item's per pair) and `score_grid.towers` (those its
-    launches encode)."""
+    grid row and an item's per pair), `score_grid.towers` (those its
+    launches encode), `score_grid.batches` (the batches it runs) and
+    `score_grid.placements` (the host-to-device copies it makes: one a
+    batch, one a call on the factorized path)."""
     model.eval()
     mesh = model_mesh(model)
     slots = int(records["item"].shape[0] + records["item"].size)
@@ -239,11 +242,13 @@ def score_grid(model: torch.nn.Module, records: Dict[str, np.ndarray],
         batch_size = -(-batch_size // n) * n
     scores, weights = [], []
     batcher = Batcher(records, batch_size)
+    count("score_grid.batches", len(batcher))
     batches = iter(batcher)
     for _ in range(len(batcher)):
         with annotate("score_grid.place"):
             batch = next(batches)
             placed = to_device(host_slice(batch, mesh), device)
+            count("score_grid.placements")
             weights.append(batch["weight"].astype(bool))
         if entity_tables is not None:
             with annotate("score_grid.assemble"):
@@ -271,54 +276,85 @@ def _score_factorized(model: torch.nn.Module, records: Dict[str, np.ndarray],
                       batch_size: int, device: torch.device,
                       tables: Dict[str, torch.Tensor]) -> np.ndarray:
     """`score_grid` over entity tables by the model's split. Span
-    `score_grid.towers`: the call's distinct users and items
-    (`np.unique` over the records) encoded once each by
-    `entity_towers`, in even chunks of at most `batch_size` x C docs
-    (the joint path's largest launch), and each pair's two tower slots
-    (the inverse index) placed. Then a batch: the batch placed as the
-    joint path places it, each pair's two tower vectors taken
+    `score_grid.towers`: everything the call's device work reads placed
+    in one copy (`_place_call`), then the call's distinct users and items
+    (`np.unique` over the records) encoded once each by `entity_towers`,
+    in even chunks of at most `batch_size` x C docs (the joint path's
+    largest launch). Then a batch: its slices of the placed grids
+    (`score_grid.place`), each pair's two tower vectors taken
     (`score_grid.assemble`) and `pair_head` run on them
-    (`score_grid.forward`). Evaluation draws no dropout and masks
-    nothing, so each pair's score is the joint forward's arithmetic."""
+    (`score_grid.forward`), on the joint path's [batch_size, C] shapes.
+    Nothing waits for the device before the fetch: on CUDA the copy is
+    asynchronous, so the batches' host work overlaps the towers.
+    Evaluation draws no dropout and masks nothing, so each pair's score
+    is the joint forward's arithmetic."""
     items = records["item"]
     m, c = items.shape
     u_ids, u_inv = np.unique(records["user"][:, 0], return_inverse=True)
     i_ids, i_inv = np.unique(items.reshape(-1), return_inverse=True)
     count("score_grid.towers", len(u_ids) + len(i_ids))
-    batcher = Batcher(records, batch_size)
+    nb = -(-m // batch_size)
+    count("score_grid.batches", nb)
+    if not nb:
+        return _fetch_scores([], [], records)
+    rows = nb * batch_size
     with annotate("score_grid.towers"):
-        slots = np.zeros((2, len(batcher) * batch_size, c), np.int64)
-        slots[0, :m] = u_inv[:, None]
-        slots[1, :m] = i_inv.reshape(m, c)
-        placed = to_device({"user": u_ids.astype(np.int32),
-                            "item": i_ids.astype(np.int32), "slots": slots},
-                           device)
+        placed = _place_call(records, u_ids, u_inv, i_ids, i_inv, rows,
+                             device)
+        count("score_grid.placements")
+        ids = {"user": placed[:len(u_ids)],
+               "item": placed[len(u_ids):len(u_ids) + len(i_ids)]}
+        # [user slot, item slot, user id, item id] of each grid row's
+        # pairs; rows m and on pad the last batch
+        grids = placed[len(u_ids) + len(i_ids):].view(4, rows, c)
         vecs = {}
         for side in ("user", "item"):
-            ids = placed[side]
-            parts = max(1, -(-len(ids) // (batch_size * c)))
-            step = max(1, -(-len(ids) // parts))
-            vecs[side] = [model.entity_towers(side, tables[side + "_doc"],
-                                              ids[s:s + step])
-                          for s in range(0, len(ids), step)]
-        vecs = {k: torch.cat(v) for k, v in vecs.items() if v}
-        slots = placed["slots"]
+            n = len(ids[side])
+            parts = -(-n // (batch_size * c))
+            step = -(-n // parts)
+            vecs[side] = torch.cat([
+                model.entity_towers(side, tables[side + "_doc"],
+                                    ids[side][s:s + step])
+                for s in range(0, n, step)])
+    real = np.arange(rows) < m
     scores, weights = [], []
-    batches = iter(batcher)
-    for j in range(len(batcher)):
+    for j in range(nb):
+        rows_j = slice(j * batch_size, (j + 1) * batch_size)
         with annotate("score_grid.place"):
-            batch = next(batches)
-            placed = to_device(batch, device)
-            weights.append(batch["weight"].astype(bool))
+            u_slot, i_slot, users, cands = grids[:, rows_j]
+            weights.append(real[rows_j])
         with annotate("score_grid.assemble"):
-            lead = tuple(placed["item"].shape)
-            u_slot, i_slot = slots[:, j * batch_size:(j + 1) * batch_size]
             u = vecs["user"].index_select(0, u_slot.reshape(-1))
             i = vecs["item"].index_select(0, i_slot.reshape(-1))
         with annotate("score_grid.forward"):
-            scores.append(model.pair_head(u, i, placed["user"],
-                                          placed["item"]).reshape(lead))
+            scores.append(model.pair_head(u, i, users, cands).reshape(
+                cands.shape))
     return _fetch_scores(scores, weights, records)
+
+
+def _place_call(records: Dict[str, np.ndarray], u_ids: np.ndarray,
+                u_inv: np.ndarray, i_ids: np.ndarray, i_inv: np.ndarray,
+                rows: int, device: torch.device) -> torch.Tensor:
+    """One int32 buffer on `device`: the call's distinct user and item
+    ids, then [4, rows, C] grids of each pair's user and item tower slot
+    (the inverse indices) and user and item id, zero past the records'
+    rows. Built in pinned memory and copied asynchronously on CUDA, as
+    `train.loop._place` copies a batch."""
+    m, c = records["item"].shape
+    n_ids = len(u_ids) + len(i_ids)
+    pin = device.type == "cuda"
+    buf = torch.empty(n_ids + 4 * rows * c, dtype=torch.int32,
+                      pin_memory=pin)
+    host = buf.numpy()
+    host[:len(u_ids)] = u_ids
+    host[len(u_ids):n_ids] = i_ids
+    grids = host[n_ids:].reshape(4, rows, c)
+    grids[:, m:] = 0
+    grids[0, :m] = u_inv.reshape(m, 1)
+    grids[1, :m] = i_inv.reshape(m, c)
+    grids[2, :m] = records["user"]
+    grids[3, :m] = records["item"]
+    return buf.to(device, non_blocking=pin)
 
 
 def positive_ranks(scores: np.ndarray) -> np.ndarray:

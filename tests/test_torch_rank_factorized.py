@@ -9,9 +9,15 @@ pair's two tower vectors.
   repeat items across rows, name one user in two rows and end in a
   partial batch; `positive_ranks` and `eval_ranking`'s metrics are
   identical.
+- Its scores equal, bitwise, the per-batch-placement arithmetic it
+  replaced (`chip_smoke._score_per_batch`, which the `rank_async` phase
+  holds it against on the card), for one batch, several and a partial
+  last batch; it places the call once and copies no batch.
 - The counters: `score_grid.tower_slots` (grid rows + pairs) on either
   path; `score_grid.towers` the distinct ids on the factorized path,
-  the slots on the joint one.
+  the slots on the joint one; `score_grid.batches` on both;
+  `score_grid.placements` one a call on the factorized path, one a
+  batch on the joint one.
 - Every other case keeps the joint path, bitwise: NARRE and transnet(++)
   over entity tables, MPCN and deepconn on host-doc grids, and a model
   laid out on a mesh (a one-rank stand-in; the two-rank run is
@@ -21,6 +27,8 @@ pair's two tower vectors.
 import numpy as np
 import pytest
 import torch
+
+import chip_smoke
 
 from reviews4rec_torch.config import HyperParams
 from reviews4rec_torch.data.batcher import Batcher
@@ -118,10 +126,53 @@ def test_factorized_scores_equal_the_joint_path(case, corpus, monkeypatch):
     slots = ROWS + ROWS * CANDS
     distinct = len(np.unique(recs["user"][:, 0])) + len(np.unique(
         recs["item"]))
+    batches = -(-ROWS // BATCH)
     assert c_got == {"score_grid.tower_slots": slots,
-                     "score_grid.towers": distinct}
+                     "score_grid.towers": distinct,
+                     "score_grid.batches": batches,
+                     "score_grid.placements": 1}
     assert c_want == {"score_grid.tower_slots": slots,
-                      "score_grid.towers": slots}
+                      "score_grid.towers": slots,
+                      "score_grid.batches": batches,
+                      "score_grid.placements": batches}
+
+
+# grid rows a batch: one batch, several whole ones, a partial last one,
+# a row each
+BATCHES = [ROWS, ROWS // 2, BATCH, 1]
+
+
+@pytest.mark.parametrize("batch_size", BATCHES)
+@pytest.mark.parametrize("case", list(SPLIT))
+def test_factorized_scores_are_the_per_batch_placement_bitwise(
+        case, batch_size, corpus):
+    mt, kw = SPLIT[case]
+    hp, model = _setup(corpus, mt, **ENTITY, **kw)
+    tables = loop.build_entity_tables(hp, corpus, CPU)
+    recs = _grid(corpus)
+    got = evaluate.score_grid(model, recs, batch_size, CPU, tables)
+    want = chip_smoke._score_per_batch(torch, model, recs, batch_size, CPU,
+                                       tables)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("batch_size", BATCHES)
+def test_factorized_call_places_once(batch_size, corpus, monkeypatch):
+    """One placement a call whatever its batch count, and no batch
+    copied through `to_device`."""
+    hp, model = _setup(corpus, "deepconn++", **ENTITY)
+    tables = loop.build_entity_tables(hp, corpus, CPU)
+    recs = _grid(corpus)
+
+    def copied(*a, **k):
+        raise AssertionError("a factorized batch went through to_device")
+
+    monkeypatch.setattr(evaluate, "to_device", copied)
+    got, counted = _counted(monkeypatch, lambda: evaluate.score_grid(
+        model, recs, batch_size, CPU, tables))
+    assert got.shape == (ROWS, CANDS)
+    assert counted["score_grid.batches"] == -(-ROWS // batch_size)
+    assert counted["score_grid.placements"] == 1
 
 
 @pytest.mark.parametrize("mt", ["deepconn", "deepconn++"])
@@ -199,7 +250,8 @@ def test_an_empty_grid_gives_no_scores(corpus, monkeypatch):
     got, counted = _counted(monkeypatch, lambda: evaluate.score_grid(
         model, recs, BATCH, CPU, tables))
     assert got.shape == (0, CANDS)
-    assert counted == {"score_grid.tower_slots": 0, "score_grid.towers": 0}
+    assert counted == {"score_grid.tower_slots": 0, "score_grid.towers": 0,
+                       "score_grid.batches": 0}
 
 
 def test_tower_share_reader_reads_the_counters(monkeypatch):
@@ -237,3 +289,46 @@ def test_traced_rank_run_reports_the_tower_share(monkeypatch):
     assert result["correct"]
     share = result["metrics"]["entry.tower_share.rank"]
     assert share["unit"] == "%" and 0 < share["value"] < 100
+
+
+def test_placements_per_batch_reader_reads_the_counters(monkeypatch):
+    """`portbench/metrics/entry.placements_per_batch.py`: placements
+    over batches, nothing without the counters (the parent program's
+    case)."""
+    from portbench import run
+    read = run.reader("entry.placements_per_batch.rank").read
+    record = {"trace": {"window_s": 0.27, "host": {}},
+              "slice": {"units": 10, "steps": 10}}
+    monkeypatch.setattr(profiler, "counters", {})
+    assert read(record) is None
+    monkeypatch.setattr(profiler, "counters",
+                        {"score_grid.tower_slots": 25856,
+                         "score_grid.towers": 9960})
+    assert read(record) is None
+    monkeypatch.setattr(profiler, "counters", {"score_grid.batches": 8})
+    assert read(record) is None
+    monkeypatch.setattr(profiler, "counters", {"score_grid.batches": 0,
+                                               "score_grid.placements": 0})
+    assert read(record) is None
+    monkeypatch.setattr(profiler, "counters", {"score_grid.batches": 8,
+                                               "score_grid.placements": 1})
+    assert read(record) == 0.125
+    monkeypatch.setattr(profiler, "counters", {"score_grid.batches": 8,
+                                               "score_grid.placements": 8})
+    assert read(record) == 1.0
+    monkeypatch.delattr(profiler, "counters")
+    assert read(record) is None
+
+
+def test_traced_rank_run_reports_one_placement_a_call(monkeypatch):
+    """A shrunk CPU traced run of the ranking cell: calls of 8 grid rows
+    in batches of 4 read one placement over 2 batches."""
+    from portbench import run
+    from portbench.conftest import SEED, shrink
+    monkeypatch.setattr(profiler, "counters", {})
+    bench = run.load_json(run.ROOT, "BENCHMARK.json")
+    result = run.run_cell(bench, "deepconn.rank", SEED, 0.2, True, CPU, 0.0,
+                          shrink=shrink, log=lambda *a, **k: None)
+    assert result["correct"]
+    got = result["metrics"]["entry.placements_per_batch.rank"]
+    assert got == {"value": 0.5, "unit": "ratio"}
