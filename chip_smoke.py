@@ -195,7 +195,8 @@
    result line. Any failed check raises and the exit code is not 0.
    Each phase prints the seconds since the start as it begins.
 
-The kernel launch counts are set to 0 just before each path (serving,
+The kernel launch counts (each kernel's name in
+`train.profiler.counters`) are set to 0 just before each path (serving,
 3; training, 5; input gradient, 6; entity training against JAX, entity
 training through `api.run` and entity serving, 7; review serving,
 review training and the review entity cache, 8; id-model serving and
@@ -602,8 +603,16 @@ def _timed(torch, fn):
 
 
 def _reset(textcnn) -> None:
-    for name in textcnn.launches:
-        textcnn.launches[name] = 0
+    from reviews4rec_torch.train import profiler
+    for name in textcnn.KERNELS:
+        profiler.counters[name] = 0
+
+
+def _launches(textcnn) -> dict:
+    """Each TextCNN kernel's launches since the last `_reset` (their
+    counters in `train.profiler.counters`)."""
+    from reviews4rec_torch.train import profiler
+    return {name: profiler.counters.get(name, 0) for name in textcnn.KERNELS}
 
 
 def serve(torch, textcnn, ds, device) -> dict:
@@ -648,14 +657,14 @@ def serve(torch, textcnn, ds, device) -> dict:
                     hp, ds, model=model, device=device).topk(users, k=10)),
                 ("factorized_topk", lambda: FactorizedRecommender(
                     hp, ds, model=model, device=device).topk(users, k=10))):
-            before = textcnn.launches[textcnn.FWD]
+            before = _launches(textcnn)[textcnn.FWD]
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             r[phase] = fn()
             torch.cuda.synchronize()
             r[phase + "_s"] = time.perf_counter() - t1
-            r[phase + "_launches"] = textcnn.launches[textcnn.FWD] - before
-    launches = dict(textcnn.launches)
+            r[phase + "_launches"] = _launches(textcnn)[textcnn.FWD] - before
+    launches = _launches(textcnn)
     print(f"serving path: launches {launches}")
     if launches[textcnn.FWD] == 0:
         raise AssertionError("the serving path launched no kernel")
@@ -1043,14 +1052,14 @@ def check_rows(torch, textcnn) -> dict:
              else torch.randn(b, f, generator=gen)).cuda()
         x = table[rows.long()].contiguous()
 
-        out_r, idx_r = textcnn.textcnn_pool_fwd_rows(table, rows, k, bias, w,
-                                                     sk)
+        out_r, idx_r = textcnn.textcnn_pool_forward(table, k, bias, w, sk,
+                                                    rows=rows)
         out_x, idx_x = textcnn.textcnn_pool_forward(x, k, bias, w, sk)
         ref_out, ref_idx = textcnn.textcnn_pool_rows_reference(
             table, rows, k, bias, w, sk)
         gated = torch.where(out_r > 0, g, 0.0)
-        dk_r = textcnn.textcnn_pool_bwd_dg_rows(table, rows, gated, idx_r, w,
-                                                sk)
+        dk_r = textcnn.textcnn_pool_bwd_dg(table, gated, idx_r, w, sk,
+                                           rows=rows)
         dk_x = textcnn.textcnn_pool_bwd_dg(x, gated, idx_x, w, sk)
         dk_ref = textcnn._dg_reference(x, gated, ref_idx, w, sk)
         grads = []
@@ -1088,13 +1097,13 @@ def check_rows(torch, textcnn) -> dict:
         worst["dg"] = max(worst["dg"], dk_err)
         if j == 0:
             _check_deterministic(torch, textcnn.BWD_DG_ROWS, lambda: textcnn
-                                 .textcnn_pool_bwd_dg_rows(table, rows,
-                                                           gated, idx_r, w))
+                                 .textcnn_pool_bwd_dg(table, gated, idx_r, w,
+                                                      rows=rows))
             _check_bad_rows_dg(torch, textcnn, table, rows, gated, idx_r, w)
             bad = rows.clone()
             bad[2], bad[3] = -1, n
-            out_b, idx_b = textcnn.textcnn_pool_fwd_rows(table, bad, k, bias,
-                                                         w)
+            out_b, idx_b = textcnn.textcnn_pool_forward(table, k, bias, w,
+                                                        rows=bad)
             keep = torch.ones(b, dtype=torch.bool, device="cuda")
             keep[2:4] = False
             ok = (bool(torch.isnan(out_b[2:4]).all())
@@ -1127,10 +1136,10 @@ def _check_rows_dg_wide(torch, textcnn) -> float:
             torch, n, t, e, f, w, seed=58 + j))
         rows = _rows_for(torch, n, b, seed=8 + j)
         x = table[rows.long()].contiguous()
-        out, idx = textcnn.textcnn_pool_fwd_rows(table, rows, k, bias, w)
+        out, idx = textcnn.textcnn_pool_forward(table, k, bias, w, rows=rows)
         g = torch.randn(b, f, generator=torch.Generator().manual_seed(208 + j))
         gated = torch.where(out > 0, g.cuda(), 0.0)
-        dk_r = textcnn.textcnn_pool_bwd_dg_rows(table, rows, gated, idx, w)
+        dk_r = textcnn.textcnn_pool_bwd_dg(table, gated, idx, w, rows=rows)
         dk_x = textcnn.textcnn_pool_bwd_dg(x, gated, idx, w)
         dk_ref = textcnn._dg_reference(x, gated, idx, w, None)
         _, idx32 = textcnn.textcnn_pool_reference(x, k, bias, w)
@@ -1160,10 +1169,10 @@ def _check_bad_rows_dg(torch, textcnn, table, rows, gated, idx, w) -> None:
     n, t, e = table.shape
     bad = rows.clone()
     bad[2], bad[3] = -1, n
-    dk_bad = textcnn.textcnn_pool_bwd_dg_rows(table, bad, gated, idx, w)
+    dk_bad = textcnn.textcnn_pool_bwd_dg(table, gated, idx, w, rows=bad)
     quiet = gated.clone()
     quiet[2:4] = 0.0
-    dk_quiet = textcnn.textcnn_pool_bwd_dg_rows(table, rows, quiet, idx, w)
+    dk_quiet = textcnn.textcnn_pool_bwd_dg(table, quiet, idx, w, rows=rows)
     # [W, F]: some tap of a bad row's non-zero g lies in the doc
     pos = (idx[2:4].long()[:, None, :] - (w - 1)
            + torch.arange(w, device="cuda")[None, :, None])
@@ -1201,7 +1210,7 @@ def time_rows(torch, textcnn) -> dict:
                          .manual_seed(11)).to(torch.int32).cuda()
     rows_l = rows.long()
     distinct = int(rows.unique().numel())
-    out, idx = textcnn.textcnn_pool_fwd_rows(table, rows, k, bias, w)
+    out, idx = textcnn.textcnn_pool_forward(table, k, bias, w, rows=rows)
     g = torch.randn(b, f, generator=torch.Generator().manual_seed(7)).cuda()
     g = torch.where(out > 0, g, 0.0)
 
@@ -1235,14 +1244,14 @@ def time_rows(torch, textcnn) -> dict:
     fwd_bytes = 4.0 * (distinct * t * e + w * e * f + f + b) + 8.0 * b * f
     nz = g != 0
     gather = lambda: table.index_select(0, rows_l)       # noqa: E731
-    dg = lambda: textcnn.textcnn_pool_bwd_dg_rows(       # noqa: E731
-        table, rows, g, idx, w)
+    dg = lambda: textcnn.textcnn_pool_bwd_dg(          # noqa: E731
+        table, g, idx, w, rows=rows)
     res = {
         "fwd": dict(
             _bound(flops, fwd_bytes),
             bound_tc_ms=_tc_bound_ms(flops, fwd_bytes),
-            ms=_median_ms(torch, lambda: textcnn.textcnn_pool_fwd_rows(
-                table, rows, k, bias, w)),
+            ms=_median_ms(torch, lambda: textcnn.textcnn_pool_forward(
+                table, k, bias, w, rows=rows)),
             plain_ms=_median_ms(torch, lambda: textcnn
                                 .textcnn_pool_rows_reference(table, rows, k,
                                                              bias, w)),
@@ -1269,11 +1278,11 @@ def time_rows(torch, textcnn) -> dict:
                         generator=torch.Generator("cuda").manual_seed(1))
     rows = torch.randint(0, n, (b,), generator=torch.Generator()
                          .manual_seed(12)).to(torch.int32).cuda()
-    out, idx = textcnn.textcnn_pool_fwd_rows(table, rows, k, bias, w)
+    out, idx = textcnn.textcnn_pool_forward(table, k, bias, w, rows=rows)
     g = torch.randn(b, f, generator=torch.Generator().manual_seed(8)).cuda()
     g = torch.where(out > 0, g, 0.0)
-    dg = lambda: textcnn.textcnn_pool_bwd_dg_rows(       # noqa: E731
-        table, rows, g, idx, w)
+    dg = lambda: textcnn.textcnn_pool_bwd_dg(          # noqa: E731
+        table, g, idx, w, rows=rows)
     res["dg_narre"] = dict(_dg_bound(torch, g, idx, t, e, w, rows, n),
                            ms=_median_ms(torch, dg), **_per_launch(torch, dg))
     return res
@@ -1537,7 +1546,7 @@ def train_product(torch, textcnn, ds, device) -> dict:
         metrics, _, _ = run(hp, ds, device=device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(textcnn.launches)
+        launches = _launches(textcnn)
         banners = re.findall(_BANNER, open(hp.log_file()).read())
         print(f"training path: api.run deepconn, {hp.epochs} epochs of "
               f"{steps // hp.epochs} steps, {wall:.1f} s: launches "
@@ -1672,7 +1681,7 @@ def train_input_grad(torch, textcnn, ds, device, steps: int = 3) -> dict:
         opt.zero_grad(set_to_none=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(textcnn.launches)
+    launches = _launches(textcnn)
     losses = torch.stack(losses).cpu()
     errs = {n: (got[n].cpu() - want[n]).abs().max().item()
             / max(want[n].abs().max().item(), 1e-30) for n in want}
@@ -1729,7 +1738,7 @@ def train_entity_vs_jax(torch, textcnn, ds, device) -> dict:
                              (device, True, "rows kernels"),
                              (torch.device("cpu"), False, "CPU plain")):
         if dev.type == "cpu":
-            launches = dict(textcnn.launches)
+            launches = _launches(textcnn)
         cache = build_entity_cache(
             recs, {"user_doc": udocs, "item_doc": idocs}, ds.word_vectors,
             torch.float32, dev, keys=("user_doc", "item_doc"),
@@ -1815,7 +1824,7 @@ def train_entity_product(torch, textcnn, ds, device) -> dict:
         metrics, _, _ = run(hp, ds, device=device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(textcnn.launches)
+        launches = _launches(textcnn)
         banners = re.findall(_BANNER, open(hp.log_file()).read())
     print(f"entity training path: api.run deepconn, pallas_fuse_rows, "
           f"{hp.epochs} epochs of {steps // hp.epochs} steps, {wall:.1f} s, "
@@ -1945,7 +1954,7 @@ def serve_entity(torch, textcnn, ds, device) -> dict:
             hp, ds, model=model, device=device, entity=True))
         r["topk"], r["topk_s"] = _timed(torch, lambda: rec.topk(users, k=10))
         del rec
-    launches = dict(textcnn.launches)
+    launches = _launches(textcnn)
     print(f"entity serving path: launches {launches}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     if launches[textcnn.FWD] == 0 or any(
@@ -2087,7 +2096,7 @@ def review_serve(torch, textcnn, ds, device) -> dict:
         r["topk"], r["topk_s"] = _timed(torch, lambda: Recommender(
             hp, ds, model=model, item_chunk=128, device=device).topk(
                 users, k=10))
-    launches = dict(textcnn.launches)
+    launches = _launches(textcnn)
     print(f"review serving path: launches {launches}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     if launches[textcnn.FWD] == 0 or any(
@@ -2160,7 +2169,7 @@ def review_train(torch, textcnn, ds, device) -> dict:
         _steps_vs_ref(torch, model, make_optimizer(hp, model), batches, ref,
                       mt, "training steps",
                       flips=FLIP_SHARE)
-    _tower_launches(textcnn, textcnn.launches, steps, "review training "
+    _tower_launches(textcnn, _launches(textcnn), steps, "review training "
                     "steps")
     y = ds.splits["test"].rating
     for mt in ("NARRE", "transnet++"):
@@ -2173,13 +2182,14 @@ def review_train(torch, textcnn, ds, device) -> dict:
                 hp, ds, "test", model=build_model(hp, ds.word_vectors,
                                                   device=device),
                 device=device) - y) ** 2))
-            before = dict(textcnn.launches)
+            before = _launches(textcnn)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             metrics, _, _ = run(hp, ds, device=device)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            ran = {k: textcnn.launches[k] - before[k] for k in before}
+            now = _launches(textcnn)
+            ran = {k: now[k] - before[k] for k in before}
         print(f"{mt} api.run, 1 epoch: {wall:.1f} s, launches {ran}; test "
               f"{metrics}; untrained test MSE {untrained:.4f}")
         numbers = [v for k, v in metrics.items() if k != "dataset"]
@@ -2195,7 +2205,7 @@ def review_train(torch, textcnn, ds, device) -> dict:
         if ran[textcnn.BWD_DX] or ran[textcnn.FWD_ROWS] \
                 or ran[textcnn.BWD_DG_ROWS] or not ran[textcnn.BWD_DG]:
             raise AssertionError(f"{mt}: api.run launched {ran}")
-    launches = dict(textcnn.launches)
+    launches = _launches(textcnn)
     print(f"review training path: launches {launches}")
     return launches
 
@@ -2332,8 +2342,8 @@ def narre_group(torch, textcnn, device) -> None:
                        idx))
         return out, idx
 
-    def dg(x, g, idx, window=3, skip=None):
-        dk = real_dg(x, g, idx, window, skip)
+    def dg(x, g, idx, window=3, skip=None, **form):
+        dk = real_dg(x, g, idx, window, skip, **form)
         dgs.append((x, g, idx, window, dk))
         return dk
 
@@ -2480,13 +2490,16 @@ def _score_per_batch(torch, model, records, batch_size, device, tables):
     """The factorized call as it ran before it placed everything once:
     the distinct ids and the pairs' int64 tower slots placed by pageable
     copies, the towers in the same chunks, then each batch copied to the
-    device on its own (`to_device`, a blocking copy a key) before its
+    device on its own (`pageable`, a blocking copy a key) before its
     slot gathers and `pair_head`."""
     import numpy as np
 
     from reviews4rec_torch.data.batcher import Batcher
     from reviews4rec_torch.train import evaluate
-    from reviews4rec_torch.utils.device import to_device
+    from reviews4rec_torch.utils.device import host_tensor
+
+    def pageable(batch):
+        return {k: host_tensor(v).to(device) for k, v in batch.items()}
 
     items = records["item"]
     m, c = items.shape
@@ -2497,9 +2510,8 @@ def _score_per_batch(torch, model, records, batch_size, device, tables):
         slots = np.zeros((2, len(batcher) * batch_size, c), np.int64)
         slots[0, :m] = u_inv[:, None]
         slots[1, :m] = i_inv.reshape(m, c)
-        placed = to_device({"user": u_ids.astype(np.int32),
-                            "item": i_ids.astype(np.int32), "slots": slots},
-                           device)
+        placed = pageable({"user": u_ids.astype(np.int32),
+                           "item": i_ids.astype(np.int32), "slots": slots})
         vecs = {}
         for side in ("user", "item"):
             ids = placed[side]
@@ -2512,7 +2524,7 @@ def _score_per_batch(torch, model, records, batch_size, device, tables):
         slots = placed["slots"]
         scores, weights = [], []
         for j, batch in enumerate(batcher):
-            b = to_device(batch, device)
+            b = pageable(batch)
             weights.append(batch["weight"].astype(bool))
             u_slot, i_slot = slots[:, j * batch_size:(j + 1) * batch_size]
             u = vecs["user"].index_select(0, u_slot.reshape(-1))
@@ -2664,7 +2676,7 @@ def review_entity(torch, textcnn, ds, device) -> dict:
                       mt, "entity steps", p_tol=ENTITY_PARAMS_TOL,
                       flips=FLIP_SHARE)
         del cache, batches
-    _tower_launches(textcnn, textcnn.launches, steps, "review entity steps")
+    _tower_launches(textcnn, _launches(textcnn), steps, "review entity steps")
 
     users = init["serve_users"]
     models = _review_models(ds, device, init, **ENTITY)
@@ -2694,7 +2706,7 @@ def review_entity(torch, textcnn, ds, device) -> dict:
                     h_ids, h_scores)
         _check_topk(f"{mt} entity grid top-10 vs JAX", ids, scores,
                     init[f"{mt}/topk_ids"], init[f"{mt}/topk_scores"])
-    launches = dict(textcnn.launches)
+    launches = _launches(textcnn)
     print(f"review entity path: launches {launches}")
     if any(launches[k] for k in (textcnn.BWD_DX, textcnn.FWD_ROWS,
                                  textcnn.BWD_DG_ROWS)):
@@ -2816,7 +2828,7 @@ def _mf_models(ds, device, ref, **flags) -> dict:
 def _no_launches(textcnn, what: str) -> dict:
     """The launches since the last `_reset`, which must all be 0: the id
     models run no TextCNN."""
-    launches = dict(textcnn.launches)
+    launches = _launches(textcnn)
     if any(launches.values()):
         raise AssertionError(f"{what} launched a TextCNN kernel: {launches}")
     return launches
@@ -3088,13 +3100,13 @@ def factorized(torch, textcnn, ds, device):
     _reset(textcnn)
     results = {}
     for mt, (hp, model) in models.items():
-        before = textcnn.launches[textcnn.FWD]
+        before = _launches(textcnn)[textcnn.FWD]
         index, build_s = _timed(torch, lambda: FactorizedRecommender(
             hp, ds, model=model, item_chunk=chunk, device=device))
         top, query_s = _timed(torch, lambda: index.topk(users, k=10))
         results[mt] = dict(top=top, build_s=build_s, query_s=query_s,
-                           launches=textcnn.launches[textcnn.FWD] - before)
-    launches = dict(textcnn.launches)
+                           launches=_launches(textcnn)[textcnn.FWD] - before)
+    launches = _launches(textcnn)
     print(f"factorized path: launches {launches}")
     if launches[textcnn.FWD] == 0 or any(
             launches[k] for k in textcnn.KERNELS if k != textcnn.FWD):
@@ -3337,12 +3349,12 @@ def check_embed(torch, textcnn, ds) -> dict:
         g = (torch.randint(-3, 4, (b, f), generator=gen).float() if exact
              else torch.randn(b, f, generator=gen)).cuda()
         x = table[ids.long()].contiguous()
-        out_i, idx_i = textcnn.textcnn_pool_fwd_ids(ids, table, k, bias, w)
+        out_i, idx_i = textcnn.textcnn_pool_forward(table, k, bias, w, ids=ids)
         out_x, idx_x = textcnn.textcnn_pool_forward(x, k, bias, w)
         ref_out, ref_idx = textcnn.textcnn_pool_embed_reference(
             ids, table, k, bias, w)
         gated = torch.where(out_i > 0, g, 0.0)
-        dk_i = textcnn.textcnn_pool_bwd_dg_ids(ids, table, gated, idx_i, w)
+        dk_i = textcnn.textcnn_pool_bwd_dg(table, gated, idx_i, w, ids=ids)
         dk_x = textcnn.textcnn_pool_bwd_dg(x, gated, idx_x, w)
         dk_ref, db_ref = textcnn.textcnn_pool_embed_backward_reference(
             ids, table, gated, idx_i, w)
@@ -3385,8 +3397,8 @@ def check_embed(torch, textcnn, ds) -> dict:
         worst["dg"] = max(worst["dg"], dk_err)
         if j == 0:
             _check_deterministic(torch, textcnn.BWD_DG_IDS, lambda: textcnn
-                                 .textcnn_pool_bwd_dg_ids(ids, table, gated,
-                                                          idx_i, w))
+                                 .textcnn_pool_bwd_dg(table, gated, idx_i, w,
+                                                      ids=ids))
             _check_bad_ids(torch, textcnn, table, ids, k, bias, gated, idx_i,
                            out_x, w)
     return worst
@@ -3404,7 +3416,7 @@ def _check_bad_ids(torch, textcnn, table, ids, k, bias, gated, idx, out,
     e = table.shape[1]
     bad = ids.clone()
     bad[2, 7], bad[3, 9] = v, -1
-    out_b, idx_b = textcnn.textcnn_pool_fwd_ids(bad, table, k, bias, w)
+    out_b, idx_b = textcnn.textcnn_pool_forward(table, k, bias, w, ids=bad)
     keep = torch.ones(b, dtype=torch.bool, device="cuda")
     keep[2:4] = False
     fwd_ok = (bool(torch.isnan(out_b[2:4]).all())
@@ -3417,8 +3429,8 @@ def _check_bad_ids(torch, textcnn, table, ids, k, bias, gated, idx, out,
     p = int(starts[(starts >= 0) & (starts < t)][0])
     bad = ids.clone()
     bad[2, p] = v
-    dk_bad = textcnn.textcnn_pool_bwd_dg_ids(bad, table, gated, idx, w)
-    dk_good = textcnn.textcnn_pool_bwd_dg_ids(ids, table, gated, idx, w)
+    dk_bad = textcnn.textcnn_pool_bwd_dg(table, gated, idx, w, ids=bad)
+    dk_good = textcnn.textcnn_pool_bwd_dg(table, gated, idx, w, ids=ids)
     taps = idx[2].long()[None, :] - (w - 1) + torch.arange(
         w, device="cuda")[:, None]                       # [W, F]
     hit = (taps == p) & (gated[2] != 0)[None, :]
@@ -3475,17 +3487,17 @@ def time_embed(torch, textcnn, ds) -> dict:
                         ("_narre", (NARRE_SHAPE["b"], NARRE_SHAPE["t"]))):
         ids = _corpus_ids(torch, ds, b, t)
         k, bias = _weights(torch, e, f, w, False, 0)
-        out, idx = textcnn.textcnn_pool_fwd_ids(ids, table, k, bias, w)
+        out, idx = textcnn.textcnn_pool_forward(table, k, bias, w, ids=ids)
         g = torch.randn(b, f, generator=torch.Generator().manual_seed(7))
         g = torch.where(out > 0, g.cuda(), 0.0)
         distinct = int(ids.unique().numel())
         flops = 2.0 * b * (t + halo) * w * e * f
         fwd_bytes = (4.0 * (b * t + distinct * e + w * e * f + f)
                      + 8.0 * b * f)
-        fwd = lambda: textcnn.textcnn_pool_fwd_ids(  # noqa: E731
-            ids, table, k, bias, w)
-        dg = lambda: textcnn.textcnn_pool_bwd_dg_ids(  # noqa: E731
-            ids, table, g, idx, w)
+        fwd = lambda: textcnn.textcnn_pool_forward(  # noqa: E731
+            table, k, bias, w, ids=ids)
+        dg = lambda: textcnn.textcnn_pool_bwd_dg(  # noqa: E731
+            table, g, idx, w, ids=ids)
         res["fwd" + key] = dict(_bound(flops, fwd_bytes),
                                 bound_tc_ms=_tc_bound_ms(flops, fwd_bytes),
                                 distinct=distinct, **_per_launch(torch, fwd))
@@ -3700,7 +3712,7 @@ def embed_train(torch, textcnn, ds, device) -> dict:
               f"unfused run's: {same}")
         if not same:
             raise AssertionError(f"{mt}: fused training differs")
-    _ids_only(textcnn, textcnn.launches, "fused serving and training")
+    _ids_only(textcnn, _launches(textcnn), "fused serving and training")
 
     with tempfile.TemporaryDirectory() as tmp:
         hp = ds.apply_to(HyperParams(
@@ -3709,10 +3721,11 @@ def embed_train(torch, textcnn, ds, device) -> dict:
             log_dir=tmp, model_dir=tmp, **FUSED))
         steps = hp.epochs * math.ceil(len(ds.splits["train"]) /
                                       hp.batch_size)
-        before = dict(textcnn.launches)
+        before = _launches(textcnn)
         (metrics, _, _), wall = _timed(torch, lambda: run(hp, ds,
                                                           device=device))
-        ran = {k: textcnn.launches[k] - before[k] for k in before}
+        now = _launches(textcnn)
+        ran = {k: now[k] - before[k] for k in before}
         banners = re.findall(_BANNER, open(hp.log_file()).read())
         print(f"api.run deepconn fused gather, scan_steps 10, {hp.epochs} "
               f"epochs of {steps // hp.epochs} steps: {wall:.1f} s, launches "
@@ -3734,7 +3747,7 @@ def embed_train(torch, textcnn, ds, device) -> dict:
         if not abs(test_mse - metrics["MSE"]) <= 5e-5:
             raise AssertionError("the restored fused model serves another "
                                  "model")
-    launches = dict(textcnn.launches)
+    launches = _launches(textcnn)
     _ids_only(textcnn, launches, "the fused-gather path")
     print(f"fused-gather path: launches {launches}")
     return launches
@@ -3880,17 +3893,18 @@ def scan(torch, textcnn, ds, device) -> dict:
             model, opt = _scan_model(ds, device, hp)
             sc = (loop.ScanSteps(model, opt, steps, device, cache)
                   if steps > 1 else None)
-            before = dict(textcnn.launches)
+            before = _launches(textcnn)
             mse[steps] = [_scan_epoch(torch, ds, device, hp, recs, cache,
                                       model, opt, sc, ep)["MSE"]
                           for ep in range(1, epochs + 1)]
             torch.cuda.synchronize()
-            ran = {k: textcnn.launches[k] - before[k] for k in before
-                   if textcnn.launches[k] != before[k]}
+            now = _launches(textcnn)
+            ran = {k: now[k] - before[k] for k in before
+                   if now[k] != before[k]}
             runs[steps] = (model, opt, sc)
             print(f"scan {name}, scan_steps {steps}: {epochs} epoch(s), "
                   f"epoch MSE {mse[steps]}, TextCNN launches {ran}"
-                  + (f", a replay {sc.launches}" if sc else ""))
+                  + (f", a replay {sc.counted}" if sc else ""))
         same = all(torch.equal(a, b) for a, b in zip(
             runs[1][0].state_dict().values(),
             runs[10][0].state_dict().values()))
@@ -3937,7 +3951,7 @@ def scan(torch, textcnn, ds, device) -> dict:
           f"{seen[1]} and {seen[10]}, final params bitwise equal {same}")
     if not (same and seen[1] == seen[10] and len(seen[1]) == 3):
         raise AssertionError("scan NeuMF: scan_steps 10 differs from 1")
-    launches = dict(textcnn.launches)
+    launches = _launches(textcnn)
     print(f"scan path: launches {launches}")
     for k in (textcnn.FWD, textcnn.BWD_DG, textcnn.FWD_ROWS,
               textcnn.BWD_DG_ROWS, textcnn.FWD_IDS, textcnn.BWD_DG_IDS):
@@ -4365,7 +4379,7 @@ def rank_train(torch, textcnn, ds, device) -> dict:
                           f"{loss} steps on 1+5 grids",
                           shift_free=shift_free, rows=rows,
                           objective=(loss, hp.hinge_margin))
-        ran = dict(textcnn.launches)
+        ran = _launches(textcnn)
         want = 2 * steps if mt == "deepconn++" else 0
         print(f"  {case}: TextCNN launches {ran}")
         if not (ran[textcnn.FWD] == ran[textcnn.BWD_DG] == want and not any(
@@ -4570,7 +4584,8 @@ def _half(torch, textcnn, name: str) -> dict:
     type and short name, the two kernels' names, its significant bits
     and least normal exponent, and its fixture."""
     dtype = getattr(torch, name)
-    h = dict(dtype=dtype, kernels=textcnn.KERNELS_16[dtype])
+    h = dict(dtype=dtype, kernels=tuple(
+        n for n, k in textcnn.KERNELS.items() if k.dtype == dtype))
     if name == "bfloat16":
         return dict(h, short="bf16", bits=8, emin=-126,
                     fixture=BF16_FIXTURE)
@@ -4654,8 +4669,8 @@ def check_16(torch, textcnn, name: str) -> dict:
         skip = (None if spans is None else
                 torch.tensor(spans, dtype=torch.int32, device="cuda"))
         xh, kh = x.to(h["dtype"]), k.to(h["dtype"])
-        out, idx = textcnn.textcnn_pool_forward_16(h["dtype"], xh, kh, bias,
-                                                   w, skip)
+        out, idx = textcnn.textcnn_pool_forward(xh, kh, bias, w, skip,
+                                                dtype=h["dtype"])
         ref_out, ref_idx = textcnn.textcnn_pool_16_reference(
             h["dtype"], xh, kh, bias, w, skip)
         torch.cuda.synchronize()
@@ -4682,8 +4697,8 @@ def check_16(torch, textcnn, name: str) -> dict:
         g = g_scale * torch.randn(b, f,
                                   generator=torch.Generator().manual_seed(j))
         g = torch.where(out > 0, g.cuda(), 0.0)
-        dk = textcnn.textcnn_pool_bwd_dg_16(h["dtype"], xh, g, ref_idx, w,
-                                            skip)
+        dk = textcnn.textcnn_pool_bwd_dg(xh, g, ref_idx, w, skip,
+                                         dtype=h["dtype"])
         ref_dk = textcnn.textcnn_pool_16_dg_reference(h["dtype"], xh, g,
                                                       ref_idx, w, skip)
         torch.cuda.synchronize()
@@ -4777,7 +4792,7 @@ def time_16(torch, textcnn, name: str) -> dict:
     b, t, e, f, w = (SERVE_SHAPE[k] for k in "btefw")
     x, k, bias = (a.cuda() for a in _random_case(torch, b, t, e, f, w, 0))
     xh, kh = x.to(dt), k.to(dt)
-    out, idx = textcnn.textcnn_pool_forward_16(dt, xh, kh, bias, w)
+    out, idx = textcnn.textcnn_pool_forward(xh, kh, bias, w, dtype=dt)
     g = torch.randn(b, f, generator=torch.Generator().manual_seed(7)).cuda()
     g = torch.where(out > 0, g, 0.0)
     x_cf = xh.transpose(1, 2).contiguous()
@@ -4800,8 +4815,8 @@ def time_16(torch, textcnn, name: str) -> dict:
     nbytes = 2.0 * (b * t * e + w * e * f) + 4.0 * f + 8.0 * b * f
     t_ops, t_bytes = flops / PEAK_BF16_FLOP_S, nbytes / PEAK_BYTES_S
     x32, k32 = xh.float(), kh.float()
-    fwd = dict(ms=_median_ms(torch, lambda: textcnn.textcnn_pool_forward_16(
-        dt, xh, kh, bias, w)),
+    fwd = dict(ms=_median_ms(torch, lambda: textcnn.textcnn_pool_forward(
+        xh, kh, bias, w, dtype=dt)),
                plain_ms=_median_ms(torch, lambda: textcnn
                                    .textcnn_pool_16_reference(dt, xh, kh,
                                                               bias, w)),
@@ -4819,8 +4834,8 @@ def time_16(torch, textcnn, name: str) -> dict:
     dflops = 2.0 * int(nz.sum()) * w * e
     dbytes = 2.0 * cells * e + 4.0 * (2 * b * f + w * e * f)
     d_ops, d_bytes = dflops / PEAK_BF16_FLOP_S, dbytes / PEAK_BYTES_S
-    dg = dict(ms=_median_ms(torch, lambda: textcnn.textcnn_pool_bwd_dg_16(
-        dt, xh, g, idx, w)),
+    dg = dict(ms=_median_ms(torch, lambda: textcnn.textcnn_pool_bwd_dg(
+        xh, g, idx, w, dtype=dt)),
               plain_ms=_median_ms(torch, lambda: textcnn
                                   .textcnn_pool_16_dg_reference(dt, xh, g,
                                                                 idx, w)),
@@ -4833,14 +4848,14 @@ def time_16(torch, textcnn, name: str) -> dict:
     # a launch over 100 back-to-back calls: CUDA events and the
     # profiler's device time, the kernel and the f32 kernel on the values
     fwd.update({f"{k}_100": v for k, v in _per_launch(
-        torch, lambda: textcnn.textcnn_pool_forward_16(dt, xh, kh, bias,
-                                                       w)).items()})
+        torch, lambda: textcnn.textcnn_pool_forward(
+            xh, kh, bias, w, dtype=dt)).items()})
     fwd["f32_device_ms_100"] = _per_launch(
         torch, lambda: textcnn.textcnn_pool_forward(x32, k32, bias,
                                                     w))["device_ms"]
     dg.update({f"{k}_100": v for k, v in _per_launch(
-        torch, lambda: textcnn.textcnn_pool_bwd_dg_16(dt, xh, g, idx,
-                                                      w)).items()})
+        torch, lambda: textcnn.textcnn_pool_bwd_dg(
+            xh, g, idx, w, dtype=dt)).items()})
     dg["f32_device_ms_100"] = _per_launch(
         torch, lambda: textcnn.textcnn_pool_bwd_dg(x32, g, idx,
                                                    w))["device_ms"]
@@ -4920,7 +4935,7 @@ def models_16(torch, textcnn, ds, device, name: str) -> dict:
               f"{rel[:4].max():.2e}, over {len(rel)} {rel.max():.2e}")
         if not (rel[:4].max() <= 1e-5 and rel.max() <= 5e-5):
             raise AssertionError("f16 step losses differ from JAX's")
-    launches = dict(textcnn.launches)
+    launches = _launches(textcnn)
     print(f"{short} path: launches {launches}")
     if not all(launches[k] for k in h["kernels"]):
         raise AssertionError(f"the {short} path launched no {short} kernel")
@@ -5192,12 +5207,13 @@ def neighbors_fits(torch, ds, device) -> dict:
     from reviews4rec_torch.config import HyperParams
     from reviews4rec_torch.models import neighbors as nb
     from reviews4rec_torch.ops import neighbors as sgd_ops
+    from reviews4rec_torch.train import profiler
     from reviews4rec_torch.utils.io import load_npz
 
     ref = load_npz(str(NEIGHBORS_FIXTURE))
     geom = json.loads(str(ref["geometry"]))
     te = ds.splits["test"]
-    sgd_ops.launches[sgd_ops.SGD] = 0
+    profiler.counters[sgd_ops.SGD] = 0
     out = {}
     for mt in NEIGHBOR_MODELS:
         hp = ds.apply_to(HyperParams(model_type=mt, **geom))
@@ -5228,7 +5244,7 @@ def neighbors_fits(torch, ds, device) -> dict:
         out[mt] = dict(fit_s=secs, predict_s=pred_s, state_err=serr,
                        pred_err=perr,
                        metrics=metrics)
-    launches = dict(sgd_ops.launches)
+    launches = {sgd_ops.SGD: profiler.counters[sgd_ops.SGD]}
     print(f"neighbors path: launches {launches}")
     if launches[sgd_ops.SGD] < 6:
         raise AssertionError("the SGD fits launched the kernel too few times")
@@ -5535,7 +5551,7 @@ def cli_train(torch, textcnn, device) -> dict:
         got, out = _cli_main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        paths[name] = dict(textcnn.launches)
+        paths[name] = _launches(textcnn)
         said = [ln for ln in out.splitlines() if ln.startswith("host records")]
         print(f"{name}: python -m reviews4rec_torch {' '.join(flags)}: "
               f"{wall:.1f} s; {said[0] if said else 'no host records'}; "
@@ -5705,7 +5721,7 @@ def _mesh_deepconn(torch, textcnn, ds, device) -> dict:
         torch, model, opt, batches, load_npz(str(TRAIN_FIXTURE)), "deepconn",
         f"training steps on a (2, 1) mesh, rank {mesh.rank}", step=step)
     torch.cuda.synchronize()
-    launches = dict(textcnn.launches)
+    launches = _launches(textcnn)
     want = 2 * MESH_STEPS
     if not (launches[textcnn.FWD] == launches[textcnn.BWD_DG] == want):
         raise AssertionError(f"expected {want} forward and dG launches on "
@@ -5758,7 +5774,7 @@ def _mesh_entity_steps(torch, textcnn, ds, device) -> dict:
     _reset(textcnn)
     losses, params = _plain_steps(torch, model, opt, batches, step)
     torch.cuda.synchronize()
-    launches = dict(textcnn.launches)
+    launches = _launches(textcnn)
     want = 2 * MESH_STEPS
     if not (launches[textcnn.FWD_ROWS] == launches[textcnn.BWD_DG_ROWS]
             == want):
@@ -5812,7 +5828,7 @@ def _mesh_entity(torch, textcnn, ds, device) -> dict:
     metrics, _, _ = run(hp, ds, device=device)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(textcnn.launches)
+    launches = _launches(textcnn)
     if launches[textcnn.BWD_DG_ROWS] != 2 * steps or \
             launches[textcnn.FWD_ROWS] < 2 * steps:
         raise AssertionError(f"expected 2 dG-rows and at least 2 "
@@ -5833,7 +5849,7 @@ def _mesh_steps(torch, textcnn, ds, device, mt, mesh_shape, **flags):
     _reset(textcnn)
     losses, params = _plain_steps(torch, model, opt, batches, step)
     torch.cuda.synchronize()
-    launches = dict(textcnn.launches)
+    launches = _launches(textcnn)
     return {"losses": losses, "params": params, "launches": launches,
             "ms": _timed_steps(torch, model, opt, batches, step)}
 
@@ -6031,7 +6047,7 @@ def mesh_phase(torch, textcnn, ds, device, nccl: bool = True) -> dict:
 
     ranks = _finish_world(_start_world("deepconn,entity_steps,entity,seq",
                                        2))
-    launches = {k: 0 for k in textcnn.launches}
+    launches = {k: 0 for k in textcnn.KERNELS}
     for res in ranks + mf:
         for task in res.values():
             for k, v in task["launches"].items():
@@ -6285,7 +6301,7 @@ def main(argv=None) -> None:
         by_path = {path: counts[name] for path, counts in paths.items()}
         kernels.append({
             "name": name, "route": "cuda",
-            "source": src.format(textcnn.SOURCE[name]),
+            "source": src.format(textcnn.KERNELS[name].source),
             "replaces": pallas.format(line),
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
@@ -6334,7 +6350,7 @@ def main(argv=None) -> None:
         by_path = {path: counts[name] for path, counts in paths.items()}
         kernels.append({
             "name": name, "route": "cuda",
-            "source": src.format(textcnn.SOURCE[name]),
+            "source": src.format(textcnn.KERNELS[name].source),
             "replaces": xla_branch, "launches": sum(by_path.values()),
             "launches_by_path": by_path, "max_abs_err": err,
             "ms": numbers["ms"], "plain_ms": numbers["plain_ms"],

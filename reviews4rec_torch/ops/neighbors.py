@@ -7,9 +7,9 @@ over the train stream there).
   tests hold it against the JAX package; the GPU checks hold the kernel
   against it on a cut of the corpus.
 - `sgd_fit`: the plain version for CPU tensors, else one launch of
-  `csrc/neighbors_sgd.cu` for the whole fit (adds one to
-  `launches[SGD]`). The state dict is updated in place on the card and
-  returned; the plain version works on clones.
+  `csrc/neighbors_sgd.cu` for the whole fit (adds one to `SGD` in
+  `train.profiler.counters`). The state dict is updated in place on the
+  card and returned; the plain version works on clones.
 - `slot_table`: SVD++'s lists as (item, mult) slots, built once a fit;
   both versions apply the y updates through it (`pack_slots`: the
   kernel's packed form, with each example's list count).
@@ -30,6 +30,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..train.profiler import count
 from . import _build
 
 SGD = "neighbors_sgd"
@@ -48,9 +49,6 @@ H100_SMEM_BUDGET = 232448 - 2048
 # the kernel packs a slot as item | mult << 24 in an int32
 ITEM_LIMIT = 1 << 24
 MULT_LIMIT = 1 << 7
-
-# kernel launches since the count was last set to 0
-launches: Dict[str, int] = {SGD: 0}
 
 
 def sgd_fit_reference(users: torch.Tensor, items: torch.Tensor,
@@ -318,7 +316,7 @@ def sgd_fit(users: torch.Tensor, items: torch.Tensor, ratings: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"{SGD} launch failed ({variant}, n={n}, K={k}): "
                            f"{lib.neighbors_sgd_error_string(err).decode()}")
-    launches[SGD] += 1
+    count(SGD)
     return state
 
 

@@ -22,40 +22,41 @@ inside the skip span.
 - `textcnn_pool_reference` / `textcnn_pool_backward_reference`: the
   plain PyTorch versions (any device). The CPU tests hold them against
   the JAX package, and the GPU checks hold the kernels against them.
-- `textcnn_pool`: the op, a `TextCNNPool` autograd function. Its forward
-  and its two backward halves each go through a wrapper that runs the
-  plain version for a CPU tensor and, for a CUDA tensor, launches its
-  kernel or raises: `csrc/textcnn_pool_fwd.cu`,
-  `csrc/textcnn_pool_bwd_dg.cu` (dK) and `csrc/textcnn_pool_bwd_dx.cu`
-  (dx, only when x needs a gradient). Each launch adds one to that
-  kernel's entry of `launches`. Where a gradient will be routed (K or x
-  needs one), idx is held to exact arithmetic at max-pool near-ties:
-  for each (b, f) whose best and second values (the second: the largest
-  of a start other than idx's, equal values included) lie within
-  `TIE_TOL` x max(1, out) of each other, idx is the first start of the
-  largest window value recomputed in float64. The forward kernel does
-  that itself (`refine`); on the CPU `refine_ties` does it after the
-  plain version, and it is the kernel's plain version. The kernel's
-  3xTF32 sums sit up to about 1.4e-6 from float64 at NARRE's shape
-  (f32's own, about 1e-7), enough to give a window of a near-tie the
-  gradient that exact arithmetic gives its rival.
-- `textcnn_pool_rows`: the same op on `table[rows]` of a whole [N, T, E]
-  entity doc table (the entity doc cache under `hp.pallas_fuse_rows`),
-  a `TextCNNPoolRows` autograd function differentiable in K and b only.
-  Its two kernels read each row straight from the table, so the
-  [B, T, E] copy `table[rows]` never exists: the row-gathered
-  instantiations of the forward and dG kernels, in the same two sources,
-  `textcnn_pool_fwd_rows` and `textcnn_pool_bwd_dg_rows`. Their plain
-  version is `textcnn_pool_rows_reference`, the op on `table[rows]`.
-- `textcnn_pool_embed`: the same op on `table[ids]` of a frozen [V, E]
-  word table and [B, T] int32 word ids (the fused word gather under
-  `hp.pallas_fuse_gather`; the JAX package's `textcnn_pool_embed`), a
-  `TextCNNPoolEmbed` autograd function differentiable in K and b only.
-  Its kernels, the word-gathered instantiations `textcnn_pool_fwd_ids`
-  and `textcnn_pool_bwd_dg_ids` of the same two sources, read each word
-  straight from the table, so the [B, T, E] doc never exists. Its plain
-  version is `textcnn_pool_embed_reference`, the op on `table[ids]`, and
-  `textcnn_pool_embed_backward_reference` its (dK, db).
+- The three launchers run the plain version for a CPU tensor and, for a
+  CUDA tensor, launch their kernel or raise: `textcnn_pool_forward`
+  (`csrc/textcnn_pool_fwd.cu`), `textcnn_pool_bwd_dg` (dK,
+  `csrc/textcnn_pool_bwd_dg.cu`) and `textcnn_pool_bwd_dx` (dx,
+  `csrc/textcnn_pool_bwd_dx.cu`). The first two take each input form
+  and operand type their source has: a dense x, `rows=` into an entity
+  table or `ids=` into a word table, and `dtype=` f32, bfloat16 or
+  float16. `KERNELS` names every kernel with its source, C entry point,
+  arguments, form and type. Each launch adds one to the kernel's name in
+  `train.profiler.counters`.
+- `textcnn_pool`: the op on a dense x, a `TextCNNPool` autograd
+  function differentiable in x, K and b; the backward computes dx only
+  when x needs it. Where a gradient will be routed (K or x needs one),
+  the f32 idx is held to exact arithmetic at max-pool near-ties: for
+  each (b, f) whose best and second values (the second: the largest of
+  a start other than idx's, equal values included) lie within `TIE_TOL`
+  x max(1, out) of each other, idx is the first start of the largest
+  window value recomputed in float64. The forward kernel does that
+  itself (`refine`); on the CPU `refine_ties` does it after the plain
+  version, and it is the kernel's plain version. The kernel's 3xTF32
+  sums sit up to about 1.4e-6 from float64 at NARRE's shape (f32's own,
+  about 1e-7), enough to give a window of a near-tie the gradient that
+  exact arithmetic gives its rival.
+- `textcnn_pool_rows` and `textcnn_pool_embed`: the same op on
+  `table[rows]` of a whole [N, T, E] entity doc table (the entity doc
+  cache under `hp.pallas_fuse_rows`) and on `table[ids]` of a frozen
+  [V, E] word table and [B, T] int32 word ids (the fused word gather
+  under `hp.pallas_fuse_gather`; the JAX package's `textcnn_pool_embed`),
+  a `TextCNNPoolTable` autograd function differentiable in K and b only.
+  Their kernels (`textcnn_pool_fwd_rows`, `textcnn_pool_bwd_dg_rows`,
+  `textcnn_pool_fwd_ids`, `textcnn_pool_bwd_dg_ids`) read each row or
+  word straight from the table, so the [B, T, E] gather never exists.
+  Their plain versions are `textcnn_pool_rows_reference` and
+  `textcnn_pool_embed_reference` (the op on the gather) and
+  `textcnn_pool_embed_backward_reference` (its dK, db).
 
 The three forms of the forward and of the dG share one kernel body each,
 so the rows and ids forms give the bits of the plain-x kernels on
@@ -64,19 +65,17 @@ so the rows and ids forms give the bits of the plain-x kernels on
 - `textcnn_pool(..., dtype=torch.bfloat16)` or `dtype=torch.float16`:
   the op with 16-bit operands, as the JAX package's XLA TextCNN branch
   computes it at `compute_dtype="bfloat16"` or `"float16"`
-  (`reviews4rec_tpu/models/layers.py:174-187`), a `TextCNNPool16`
-  autograd function. x and K are cast to the 16-bit type, the conv sums
-  in f32 and the bias is added in f32. Its forward is
-  `textcnn_pool_fwd_bf16` or `textcnn_pool_fwd_f16` (two instantiations
-  of one body in `csrc/textcnn_pool_fwd.cu`, one 16-bit `mma.sync` pass);
-  its dK is `textcnn_pool_bwd_dg_bf16` or `textcnn_pool_bwd_dg_f16`
-  (`csrc/textcnn_pool_bwd_dg.cu`, the dG body on 16-bit x), each value
-  the f32 sum rounded to the 16-bit type once, as JAX's cotangent of
-  `kernel.astype(dtype)` is; db is the f32 sum of g, unrounded. Where x
-  needs a gradient, dx is the f32 dx kernel on the 16-bit values of K,
-  rounded to the 16-bit type (the cotangent of `x.astype(dtype)`). The
-  wrappers take the 16-bit type first: `textcnn_pool_forward_16(dtype,
-  ...)` and `textcnn_pool_bwd_dg_16(dtype, ...)`, with the plain versions
+  (`reviews4rec_tpu/models/layers.py:174-187`). x and K are cast to the
+  16-bit type, the conv sums in f32 and the bias is added in f32. Its
+  forward is `textcnn_pool_fwd_bf16` or `textcnn_pool_fwd_f16` (two
+  instantiations of one body in `csrc/textcnn_pool_fwd.cu`, one 16-bit
+  `mma.sync` pass); its dK is `textcnn_pool_bwd_dg_bf16` or
+  `textcnn_pool_bwd_dg_f16` (`csrc/textcnn_pool_bwd_dg.cu`, the dG body
+  on 16-bit x), each value the f32 sum rounded to the 16-bit type once,
+  as JAX's cotangent of `kernel.astype(dtype)` is; db is the f32 sum of
+  g, unrounded. Where x needs a gradient, dx is the f32 dx kernel on the
+  16-bit values of K, rounded to the 16-bit type (the cotangent of
+  `x.astype(dtype)`). Their plain versions are
   `textcnn_pool_16_reference` (the f32 plain forward on the 16-bit
   values) and `textcnn_pool_16_dg_reference` (the f32 plain dG on the
   16-bit values of x, rounded to the 16-bit type).
@@ -86,11 +85,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..train.profiler import count
 from . import _build
 
 FWD, BWD_DG, BWD_DX = "textcnn_pool_fwd", "textcnn_pool_bwd_dg", \
@@ -99,39 +99,52 @@ FWD_ROWS, BWD_DG_ROWS = "textcnn_pool_fwd_rows", "textcnn_pool_bwd_dg_rows"
 FWD_IDS, BWD_DG_IDS = "textcnn_pool_fwd_ids", "textcnn_pool_bwd_dg_ids"
 FWD_BF16, BWD_DG_BF16 = "textcnn_pool_fwd_bf16", "textcnn_pool_bwd_dg_bf16"
 FWD_F16, BWD_DG_F16 = "textcnn_pool_fwd_f16", "textcnn_pool_bwd_dg_f16"
-KERNELS = (FWD, BWD_DG, BWD_DX, FWD_ROWS, BWD_DG_ROWS, FWD_IDS, BWD_DG_IDS,
-           FWD_BF16, BWD_DG_BF16, FWD_F16, BWD_DG_F16)
-# the source `csrc/<source>.cu` that holds each kernel's entry point
-SOURCE = {FWD: FWD, BWD_DG: BWD_DG, BWD_DX: BWD_DX, FWD_ROWS: FWD,
-          BWD_DG_ROWS: BWD_DG, FWD_IDS: FWD, BWD_DG_IDS: BWD_DG,
-          FWD_BF16: FWD, BWD_DG_BF16: BWD_DG, FWD_F16: FWD,
-          BWD_DG_F16: BWD_DG}
-# (pointer, int) argument counts of each entry point, before its stream
-_ARGS = {FWD: (8, 6), BWD_DG: (7, 5), BWD_DX: (6, 5), FWD_ROWS: (7, 6),
-         BWD_DG_ROWS: (8, 6), FWD_IDS: (6, 6), BWD_DG_IDS: (7, 6),
-         FWD_BF16: (6, 5), BWD_DG_BF16: (7, 5), FWD_F16: (6, 5),
-         BWD_DG_F16: (7, 5)}
-# the sizes each source's `<source>_smem_bytes` takes, in order
-_SMEM_ARGS = {FWD: ("E", "W"), BWD_DG: ("E", "W"), BWD_DX: ("W", "F")}
-# the (forward, dG) kernels of each 16-bit operand type
-KERNELS_16 = {torch.bfloat16: (FWD_BF16, BWD_DG_BF16),
-              torch.float16: (FWD_F16, BWD_DG_F16)}
+_F32 = torch.float32
 
 
-def _entry(name: str) -> str:
-    """The C entry point of kernel `name`: `<name>` for the 16-bit
-    kernels, `<name>_f32` for the others."""
-    return name if name.endswith(("_bf16", "_f16")) else f"{name}_f32"
+class Kernel(NamedTuple):
+    """One kernel: the source `csrc/<source>.cu` that holds it, its C
+    entry point, its (pointer, int) argument counts before the stream,
+    the C function giving its shared memory and the sizes that takes,
+    its input form ("x"; "rows" into an [N, T, E] table; "ids" into a
+    [V, E] word table) and the type of its x or table."""
+    source: str
+    entry: str
+    args: Tuple[int, int]
+    smem: str
+    smem_args: Tuple[str, ...]
+    form: str
+    dtype: torch.dtype
 
 
-def _smem_fn(name: str) -> str:
-    """The C function that gives the shared memory of kernel `name`."""
-    return (f"{FWD}_16_smem_bytes" if name in (FWD_BF16, FWD_F16)
-            else f"{SOURCE[name]}_smem_bytes")
+_FWD_SMEM = ("textcnn_pool_fwd_smem_bytes", ("E", "W"))
+_FWD16_SMEM = ("textcnn_pool_fwd_16_smem_bytes", ("E", "W"))
+_DG_SMEM = ("textcnn_pool_bwd_dg_smem_bytes", ("E", "W"))
+KERNELS: Dict[str, Kernel] = {
+    FWD: Kernel(FWD, "textcnn_pool_fwd_f32", (8, 6), *_FWD_SMEM, "x", _F32),
+    BWD_DG: Kernel(BWD_DG, "textcnn_pool_bwd_dg_f32", (7, 5), *_DG_SMEM,
+                   "x", _F32),
+    BWD_DX: Kernel(BWD_DX, "textcnn_pool_bwd_dx_f32", (6, 5),
+                   "textcnn_pool_bwd_dx_smem_bytes", ("W", "F"), "x", _F32),
+    FWD_ROWS: Kernel(FWD, "textcnn_pool_fwd_rows_f32", (7, 6), *_FWD_SMEM,
+                     "rows", _F32),
+    BWD_DG_ROWS: Kernel(BWD_DG, "textcnn_pool_bwd_dg_rows_f32", (8, 6),
+                        *_DG_SMEM, "rows", _F32),
+    FWD_IDS: Kernel(FWD, "textcnn_pool_fwd_ids_f32", (6, 6), *_FWD_SMEM,
+                    "ids", _F32),
+    BWD_DG_IDS: Kernel(BWD_DG, "textcnn_pool_bwd_dg_ids_f32", (7, 6),
+                       *_DG_SMEM, "ids", _F32),
+    FWD_BF16: Kernel(FWD, FWD_BF16, (6, 5), *_FWD16_SMEM, "x",
+                     torch.bfloat16),
+    BWD_DG_BF16: Kernel(BWD_DG, BWD_DG_BF16, (7, 5), *_DG_SMEM, "x",
+                        torch.bfloat16),
+    FWD_F16: Kernel(FWD, FWD_F16, (6, 5), *_FWD16_SMEM, "x", torch.float16),
+    BWD_DG_F16: Kernel(BWD_DG, BWD_DG_F16, (7, 5), *_DG_SMEM, "x",
+                       torch.float16),
+}
+# each kernel's name by (source, form, type)
+_BY_FORM = {(k.source, k.form, k.dtype): name for name, k in KERNELS.items()}
 
-
-# kernel launches since the counts were last set to 0
-launches: Dict[str, int] = {name: 0 for name in KERNELS}
 # the dG kernel's workspace by (device, stream): f32 sums of the batch
 # slices and int32 per-filter counters, zeroed once, which every launch
 # leaves 0 again; launches on one stream run in turn, so they share it
@@ -355,61 +368,63 @@ def textcnn_pool_16_dg_reference(dtype: torch.dtype, x: torch.Tensor,
                                     skip), dtype)
 
 
+
+
 # ---------------------------------------------------------------------
-# kernel wrappers: the plain version for a CPU tensor, else the kernel
+# launchers: the plain version for a CPU tensor, else the kernel
 # ---------------------------------------------------------------------
 def _library(name: str) -> ctypes.CDLL:
-    """The built library of kernel `name`'s source, its entry points
-    typed: `_entry(name)(pointers, [N,] B, T, E, F, W, stream)`, its
-    `_smem_fn(name)(*_SMEM_ARGS[source])` and the source's
-    `<source>_error_string(code)`."""
-    src = SOURCE[name]
+    """The built library of kernel `name`'s source, every kernel of that
+    source typed from `KERNELS`: `<entry>(pointers, [N or V,] B, T, E,
+    F, W, [refine,] stream)`, its `<smem>(*smem_args)` and the source's
+    `<source>_error_string(code)`; the forward source's window bound
+    read once, as `max_window`."""
+    src = KERNELS[name].source
     lib = _build.load(src)
-    typed = getattr(lib, "_typed", set())
-    if name not in typed:
+    if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn = getattr(lib, _entry(name))
-        pointers, ints = _ARGS[name]
-        fn.argtypes = [p] * pointers + [i] * ints + [p]
-        fn.restype = i
-        getattr(lib, _smem_fn(name)).argtypes = [i] * len(_SMEM_ARGS[src])
-        getattr(lib, _smem_fn(name)).restype = ctypes.c_size_t
+        for spec in KERNELS.values():
+            if spec.source != src:
+                continue
+            fn = getattr(lib, spec.entry)
+            pointers, ints = spec.args
+            fn.argtypes = [p] * pointers + [i] * ints + [p]
+            fn.restype = i
+            getattr(lib, spec.smem).argtypes = [i] * len(spec.smem_args)
+            getattr(lib, spec.smem).restype = ctypes.c_size_t
         getattr(lib, f"{src}_error_string").argtypes = [i]
         getattr(lib, f"{src}_error_string").restype = ctypes.c_char_p
         if src == FWD:
             lib.textcnn_pool_fwd_max_window.argtypes = []
             lib.textcnn_pool_fwd_max_window.restype = i
+            lib.max_window = lib.textcnn_pool_fwd_max_window()
         if src == BWD_DG:
             lib.textcnn_pool_bwd_dg_slice_rows.argtypes = [i, i]
             lib.textcnn_pool_bwd_dg_slice_rows.restype = i
-        lib._typed = typed | {name}
+        lib._typed = True
     return lib
 
 
-def _launch(name: str, ref: torch.Tensor, pointers,
+def _launch(name: str, ref: torch.Tensor, tensors,
             dims: Dict[str, int]) -> None:
-    """Launch `_entry(name)` with the sizes `dims` ([N,] B, T, E, F, W,
-    in that order) on the current stream of `ref`'s device, raise with the
-    shape and shared-memory figure if CUDA refuses it, and count the
-    launch."""
+    """Launch kernel `name` on the pointers of `tensors` (None for a
+    null) and the sizes `dims` ([N,] B, T, E, F, W, in that order) on the
+    current stream of `ref`'s device, raise with the shape and
+    shared-memory figure if CUDA refuses it, and count the launch."""
+    spec = KERNELS[name]
     lib = _library(name)
-    src = SOURCE[name]
+    pointers = [t.data_ptr() if t is not None else None for t in tensors]
     with torch.cuda.device(ref.device):
         stream = torch.cuda.current_stream(ref.device).cuda_stream
-        err = getattr(lib, _entry(name))(*pointers, *dims.values(), stream)
+        err = getattr(lib, spec.entry)(*pointers, *dims.values(), stream)
     if err != 0:
-        smem = getattr(lib, _smem_fn(name))(
-            *(dims[k] for k in _SMEM_ARGS[src]))
+        smem = getattr(lib, spec.smem)(*(dims[k] for k in spec.smem_args))
         shape = ", ".join(f"{k}={v}" for k, v in dims.items())
         raise RuntimeError(
             f"{name} launch failed at {shape} ({smem} bytes of shared "
             f"memory per block): "
-            f"{getattr(lib, f'{src}_error_string')(err).decode()}")
-    launches[name] += 1
-
-
-def _ptr(ten: Optional[torch.Tensor]):
-    return ten.data_ptr() if ten is not None else None
+            f"{getattr(lib, f'{spec.source}_error_string')(err).decode()}")
+    count(name)
 
 
 @functools.lru_cache(maxsize=256)
@@ -475,42 +490,76 @@ def _check_skip(skip: Optional[torch.Tensor], b: int) -> None:
                          f"{skip.dtype} {tuple(skip.shape)}")
 
 
-def _check_forward(x, kernel, bias, window, skip, rows=None,
-                   dtype=torch.float32) -> None:
-    """x is [B, T, E], or with `rows` [B] int32 a [N, T, E] table; x and
-    the kernel of type `dtype`, the bias f32."""
-    if x.dim() != 3:
-        raise ValueError(f"x must be [B, T, E] (a table [N, T, E] with "
-                         f"rows), got {tuple(x.shape)}")
-    if rows is not None and rows.dim() != 1:
-        raise ValueError(f"rows must be [B], got {tuple(rows.shape)}")
-    b = x.shape[0] if rows is None else rows.shape[0]
-    t, e = x.shape[1], x.shape[2]
-    if kernel.dim() != 2 or kernel.shape[0] != window * e:
-        raise ValueError(f"kernel must be [W*E={window * e}, F], got "
-                         f"{tuple(kernel.shape)}")
-    f = kernel.shape[1]
-    if tuple(bias.shape) != (f,):
-        raise ValueError(f"bias must be [{f}], got {tuple(bias.shape)}")
+def _check_grad(what, g, idx, window, skip, others, dtypes) -> None:
+    """g [B, F] f32, idx [B, F] int32, W >= 1, the skip, and the (name,
+    tensor) pairs `others` of types `dtypes`, on g's card."""
+    b, f = g.shape
+    if tuple(idx.shape) != (b, f):
+        raise ValueError(f"idx must be [{b}, {f}], got {tuple(idx.shape)}")
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
     _check_skip(skip, b)
-    _check_cuda("textcnn_pool", [("x", x), ("kernel", kernel),
-                                 ("bias", bias), ("skip", skip),
-                                 ("rows", rows)],
-                [dtype, dtype, torch.float32, torch.int32, torch.int32])
-    if min(x.shape[0], b, t, e, f) < 1:
-        raise ValueError(f"empty operand: {x.shape[0]} rows, B={b}, "
-                         f"T={t}, E={e}, F={f}")
+    _check_cuda(what, [("g", g), ("idx", idx), ("skip", skip), *others],
+                [torch.float32, torch.int32, torch.int32, *dtypes])
+
+
+def _kernel(source: str, rows, ids, skip, dtype: torch.dtype) -> str:
+    """The name of `source`'s kernel for the input form (`rows` or `ids`
+    given, else a dense x) and the operand type `dtype`."""
+    form = "rows" if rows is not None else "ids" if ids is not None else "x"
+    if form == "ids" and skip is not None:
+        raise ValueError("the ids form takes no skip span")
+    name = _BY_FORM.get((source, form, dtype))
+    if name is None:
+        raise ValueError(f"{source} has no kernel for {form} at {dtype}")
+    return name
+
+
+def _operands(x, rows, ids) -> Tuple[int, int, int, Dict[str, int]]:
+    """(B, T, E, the table's size: {"N": n}, {"V": v} or {}) of a
+    launch's input: x [B, T, E]; with `rows` [B] a table [N, T, E]; with
+    `ids` [B, T] a word table [V, E]."""
+    if ids is not None:
+        if x.dim() != 2 or ids.dim() != 2:
+            raise ValueError(f"table [V, E] and ids [B, T] expected, got "
+                             f"{tuple(x.shape)} and {tuple(ids.shape)}")
+        return ids.shape[0], ids.shape[1], x.shape[1], {"V": x.shape[0]}
+    if x.dim() != 3 or (rows is not None and rows.dim() != 1):
+        raise ValueError(f"x [B, T, E], or a table [N, T, E] and rows [B], "
+                         f"expected, got {tuple(x.shape)}"
+                         + ("" if rows is None else f", {tuple(rows.shape)}"))
+    n, t, e = x.shape
+    return (n, t, e, {}) if rows is None else (rows.shape[0], t, e, {"N": n})
 
 
 def textcnn_pool_forward(x: torch.Tensor, kernel: torch.Tensor,
                          bias: torch.Tensor, window: int = 3,
                          skip: Optional[torch.Tensor] = None,
-                         second: bool = False, refine: bool = False):
-    """(out, idx) without autograd, and with `second` the second value
-    [B, F] too (`textcnn_pool_reference`'s); with `refine`, idx of each
-    near-tie from float64 (`refine_ties`): the plain version on the CPU,
-    else `csrc/textcnn_pool_fwd.cu`."""
+                         second: bool = False, refine: bool = False, *,
+                         rows: Optional[torch.Tensor] = None,
+                         ids: Optional[torch.Tensor] = None,
+                         dtype: torch.dtype = torch.float32):
+    """(out, idx) without autograd: the plain version on the CPU, else a
+    kernel of `csrc/textcnn_pool_fwd.cu`. x is [B, T, E] of type `dtype`
+    (f32, or bfloat16 / float16 with K of that type); with `rows` [B]
+    int32 an f32 [N, T, E] table read at those rows; with `ids` [B, T]
+    int32 an f32 [V, E] word table read at those words (no skip). On the
+    card a row or id outside the table gives NaN in `out` and -1 in
+    `idx` for its batch row. The f32 dense form alone has `second` (the
+    second value [B, F] too, `textcnn_pool_reference`'s) and `refine`
+    (idx of each near-tie from float64, `refine_ties`)."""
+    name = _kernel(FWD, rows, ids, skip, dtype)
+    if (second or refine) and name != FWD:
+        raise ValueError(f"{name} keeps no second value")
     if x.device.type == "cpu":
+        if rows is not None:
+            return textcnn_pool_rows_reference(x, rows, kernel, bias, window,
+                                               skip)
+        if ids is not None:
+            return textcnn_pool_embed_reference(ids, x, kernel, bias, window)
+        if dtype != _F32:
+            return textcnn_pool_16_reference(dtype, x, kernel, bias, window,
+                                             skip)
         if not (second or refine):
             return textcnn_pool_reference(x, kernel, bias, window, skip)
         out, idx, sec = textcnn_pool_reference(x, kernel, bias, window, skip,
@@ -518,10 +567,21 @@ def textcnn_pool_forward(x: torch.Tensor, kernel: torch.Tensor,
         if refine:
             idx = refine_ties(x, kernel, bias, window, skip, out, idx, sec)
         return (out, idx, sec) if second else (out, idx)
-    _check_forward(x, kernel, bias, window, skip)
-    b, t, e = x.shape
+    b, t, e, size = _operands(x, rows, ids)
+    if kernel.dim() != 2 or kernel.shape[0] != window * e:
+        raise ValueError(f"kernel must be [W*E={window * e}, F], got "
+                         f"{tuple(kernel.shape)}")
     f = kernel.shape[1]
-    max_window = _library(FWD).textcnn_pool_fwd_max_window()
+    if tuple(bias.shape) != (f,):
+        raise ValueError(f"bias must be [{f}], got {tuple(bias.shape)}")
+    _check_skip(skip, b)
+    _check_cuda(name, [("x", x), ("kernel", kernel), ("bias", bias),
+                       ("skip", skip), ("rows", rows), ("ids", ids)],
+                [dtype, dtype, torch.float32] + [torch.int32] * 3)
+    if min(x.shape[0], b, t, e, f) < 1:
+        raise ValueError(f"empty operand: {x.shape[0]} rows, B={b}, "
+                         f"T={t}, E={e}, F={f}")
+    max_window = _library(name).max_window
     if not 1 <= window <= max_window:
         raise ValueError(f"window {window} outside the kernel's "
                          f"1..{max_window}")
@@ -530,45 +590,51 @@ def textcnn_pool_forward(x: torch.Tensor, kernel: torch.Tensor,
     sec = (torch.empty((b, f), dtype=torch.float32, device=x.device)
            if second else None)
     ties = _tie_workspace(x, 4 + 2 * b * f) if refine else None
-    _launch(FWD, x, (x.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
-                     _ptr(skip), out.data_ptr(), idx.data_ptr(), _ptr(sec),
-                     _ptr(ties)),
-            dict(B=b, T=t, E=e, F=f, W=window, refine=int(refine)))
+    index = [i for i in (rows, ids) if i is not None]
+    spans = [] if ids is not None else [skip]
+    tensors = [x, *index, kernel, bias, *spans, out, idx]
+    dims = dict(size, B=b, T=t, E=e, F=f, W=window)
+    if name == FWD:
+        tensors += [sec, ties]
+        dims["refine"] = int(refine)
+    _launch(name, x, tensors, dims)
     return (out, idx, sec) if second else (out, idx)
 
 
-def _check_backward(what, g, idx, other, skip, window) -> None:
-    b, f = g.shape
-    if tuple(idx.shape) != (b, f):
-        raise ValueError(f"idx must be [{b}, {f}], got {tuple(idx.shape)}")
-    if window < 1:
-        raise ValueError(f"window must be >= 1, got {window}")
-    _check_skip(skip, b)
-    f32 = torch.float32
-    _check_cuda(what, [("g", g), ("idx", idx), other, ("skip", skip)],
-                [f32, torch.int32, f32, torch.int32])
-
-
 def textcnn_pool_bwd_dg(x: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
-                        window: int = 3, skip: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
-    """dK [W*E, F] from the saved x [B, T, E], the gated g [B, F] and
-    idx: the plain version on the CPU, else
-    `csrc/textcnn_pool_bwd_dg.cu`."""
+                        window: int = 3, skip: Optional[torch.Tensor] = None,
+                        *, rows: Optional[torch.Tensor] = None,
+                        ids: Optional[torch.Tensor] = None,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """dK [W*E, F] f32 from the saved x, the gated g [B, F] and idx: the
+    plain version on the CPU, else a kernel of
+    `csrc/textcnn_pool_bwd_dg.cu`. x, `rows`, `ids` and `dtype` as
+    `textcnn_pool_forward`'s; at a 16-bit `dtype` each dK value is the
+    f32 sum rounded to that type once (W <= 8 there and with `ids`)."""
+    name = _kernel(BWD_DG, rows, ids, skip, dtype)
     if x.device.type == "cpu":
+        if rows is not None:
+            return _dg_reference(take_rows(x, rows), g, idx, window, skip)
+        if ids is not None:
+            return textcnn_pool_embed_backward_reference(ids, x, g, idx,
+                                                         window)[0]
+        if dtype != _F32:
+            return textcnn_pool_16_dg_reference(dtype, x, g, idx, window,
+                                                skip)
         return _dg_reference(x, g, idx, window, skip)
-    if x.dim() != 3 or g.dim() != 2 or x.shape[0] != g.shape[0]:
-        raise ValueError(f"x [B, T, E] and g [B, F] expected, got "
-                         f"{tuple(x.shape)} and {tuple(g.shape)}")
-    _check_backward(BWD_DG, g, idx, ("x", x), skip, window)
-    b, t, e = x.shape
+    b, t, e, size = _operands(x, rows, ids)
+    if g.dim() != 2 or g.shape[0] != b:
+        raise ValueError(f"g must be [{b}, F], got {tuple(g.shape)}")
+    _check_grad(name, g, idx, window, skip,
+                [("x", x), ("rows", rows), ("ids", ids)],
+                [dtype, torch.int32, torch.int32])
     f = g.shape[1]
-    dk = torch.empty((window * e, f), dtype=torch.float32, device=x.device)
+    dk = torch.empty((window * e, f), dtype=torch.float32, device=g.device)
     partial, counter = _dg_workspace(x, b, f, window * e)
-    _launch(BWD_DG, x, (x.data_ptr(), g.data_ptr(), idx.data_ptr(),
-                        _ptr(skip), dk.data_ptr(), _ptr(partial),
-                        _ptr(counter)),
-            dict(B=b, T=t, E=e, F=f, W=window))
+    index = [i for i in (rows, ids) if i is not None]
+    spans = [] if ids is not None else [skip]
+    _launch(name, x, [x, *index, g, idx, *spans, dk, partial, counter],
+            dict(size, B=b, T=t, E=e, F=f, W=window))
     return dk
 
 
@@ -584,7 +650,8 @@ def textcnn_pool_bwd_dx(g: torch.Tensor, idx: torch.Tensor,
             or kernel.shape[0] % window):
         raise ValueError(f"g [B, F] and kernel [W*E, F] expected, got "
                          f"{tuple(g.shape)} and {tuple(kernel.shape)}")
-    _check_backward(BWD_DX, g, idx, ("kernel", kernel), skip, window)
+    _check_grad(BWD_DX, g, idx, window, skip, [("kernel", kernel)],
+                [torch.float32])
     b, f = g.shape
     e = kernel.shape[0] // window
     if min(t, e) < 1:
@@ -592,205 +659,40 @@ def textcnn_pool_bwd_dx(g: torch.Tensor, idx: torch.Tensor,
     dx = torch.empty((b, t, e), dtype=torch.float32, device=g.device)
     # scratch the launch fills with K transposed, [F, W*E]
     kt = torch.empty(kernel.numel(), dtype=torch.float32, device=g.device)
-    _launch(BWD_DX, g, (g.data_ptr(), idx.data_ptr(), kernel.data_ptr(),
-                        _ptr(skip), dx.data_ptr(), kt.data_ptr()),
+    _launch(BWD_DX, g, [g, idx, kernel, skip, dx, kt],
             dict(B=b, T=t, E=e, F=f, W=window))
     return dx
 
 
-def textcnn_pool_fwd_rows(table: torch.Tensor, rows: torch.Tensor,
-                          kernel: torch.Tensor, bias: torch.Tensor,
-                          window: int = 3,
-                          skip: Optional[torch.Tensor] = None
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, idx) of the op on table[rows] without autograd: the plain
-    version on the CPU, else the row-gathered instantiation of
-    `csrc/textcnn_pool_fwd.cu`. On the card a row outside [0, N) gives
-    NaN in `out` and -1 in `idx` for its batch row."""
-    if table.device.type == "cpu":
-        return textcnn_pool_rows_reference(table, rows, kernel, bias, window,
-                                           skip)
-    _check_forward(table, kernel, bias, window, skip, rows)
-    n, t, e = table.shape
-    b, f = rows.shape[0], kernel.shape[1]
-    max_window = _library(FWD_ROWS).textcnn_pool_fwd_max_window()
-    if not 1 <= window <= max_window:
-        raise ValueError(f"window {window} outside the kernel's "
-                         f"1..{max_window}")
-    out = torch.empty((b, f), dtype=torch.float32, device=table.device)
-    idx = torch.empty((b, f), dtype=torch.int32, device=table.device)
-    _launch(FWD_ROWS, table, (table.data_ptr(), rows.data_ptr(),
-                              kernel.data_ptr(), bias.data_ptr(), _ptr(skip),
-                              out.data_ptr(), idx.data_ptr()),
-            dict(N=n, B=b, T=t, E=e, F=f, W=window))
-    return out, idx
-
-
-def textcnn_pool_bwd_dg_rows(table: torch.Tensor, rows: torch.Tensor,
-                             g: torch.Tensor, idx: torch.Tensor,
-                             window: int = 3,
-                             skip: Optional[torch.Tensor] = None
-                             ) -> torch.Tensor:
-    """dK [W*E, F] of the op on table[rows] from the gated g [B, F] and
-    idx: the plain version on the CPU, else the row-gathered
-    instantiation of `csrc/textcnn_pool_bwd_dg.cu`."""
-    if table.device.type == "cpu":
-        return _dg_reference(take_rows(table, rows), g, idx, window, skip)
-    if (table.dim() != 3 or rows.dim() != 1 or g.dim() != 2
-            or rows.shape[0] != g.shape[0]):
-        raise ValueError(f"table [N, T, E], rows [B] and g [B, F] expected, "
-                         f"got {tuple(table.shape)}, {tuple(rows.shape)} "
-                         f"and {tuple(g.shape)}")
-    _check_backward(BWD_DG_ROWS, g, idx, ("table", table), skip, window)
-    _check_cuda(BWD_DG_ROWS, [("table", table), ("rows", rows)],
-                [torch.float32, torch.int32])
-    n, t, e = table.shape
-    b, f = g.shape
-    dk = torch.empty((window * e, f), dtype=torch.float32, device=g.device)
-    partial, counter = _dg_workspace(table, b, f, window * e)
-    _launch(BWD_DG_ROWS, table, (table.data_ptr(), rows.data_ptr(),
-                                 g.data_ptr(), idx.data_ptr(), _ptr(skip),
-                                 dk.data_ptr(), _ptr(partial),
-                                 _ptr(counter)),
-            dict(N=n, B=b, T=t, E=e, F=f, W=window))
-    return dk
-
-
-def _check_embed(ids: torch.Tensor, table: torch.Tensor) -> None:
-    if ids.dim() != 2 or table.dim() != 2:
-        raise ValueError(f"ids [B, T] and table [V, E] expected, got "
-                         f"{tuple(ids.shape)} and {tuple(table.shape)}")
-    _check_cuda("textcnn_pool_embed", [("table", table), ("ids", ids)],
-                [torch.float32, torch.int32])
-
-
-def textcnn_pool_fwd_ids(ids: torch.Tensor, table: torch.Tensor,
-                         kernel: torch.Tensor, bias: torch.Tensor,
-                         window: int = 3
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, idx) of the op on table[ids] without autograd: the plain
-    version on the CPU, else the word-gathered instantiation of
-    `csrc/textcnn_pool_fwd.cu`. On the card an id outside [0, V) gives
-    NaN in `out` and -1 in `idx` for its batch row."""
-    if table.device.type == "cpu":
-        return textcnn_pool_embed_reference(ids, table, kernel, bias, window)
-    _check_embed(ids, table)
-    v, e = table.shape
-    b, t = ids.shape
-    # the table's rows as docs of one word: K, bias, types, layout
-    _check_forward(table.view(v, 1, e), kernel, bias, window, None)
-    if min(b, t) < 1:
-        raise ValueError(f"empty operand: B={b}, T={t}")
-    f = kernel.shape[1]
-    max_window = _library(FWD_IDS).textcnn_pool_fwd_max_window()
-    if not 1 <= window <= max_window:
-        raise ValueError(f"window {window} outside the kernel's "
-                         f"1..{max_window}")
-    out = torch.empty((b, f), dtype=torch.float32, device=table.device)
-    idx = torch.empty((b, f), dtype=torch.int32, device=table.device)
-    _launch(FWD_IDS, table, (table.data_ptr(), ids.data_ptr(),
-                             kernel.data_ptr(), bias.data_ptr(),
-                             out.data_ptr(), idx.data_ptr()),
-            dict(V=v, B=b, T=t, E=e, F=f, W=window))
-    return out, idx
-
-
-def textcnn_pool_bwd_dg_ids(ids: torch.Tensor, table: torch.Tensor,
-                            g: torch.Tensor, idx: torch.Tensor,
-                            window: int = 3) -> torch.Tensor:
-    """dK [W*E, F] of the op on table[ids] from the gated g [B, F] and
-    idx: the plain version on the CPU, else the word-gathered
-    instantiation of `csrc/textcnn_pool_bwd_dg.cu` (W <= 8)."""
-    if table.device.type == "cpu":
-        return textcnn_pool_embed_backward_reference(ids, table, g, idx,
-                                                     window)[0]
-    if g.dim() != 2 or ids.dim() != 2 or ids.shape[0] != g.shape[0]:
-        raise ValueError(f"ids [B, T] and g [B, F] expected, got "
-                         f"{tuple(ids.shape)} and {tuple(g.shape)}")
-    _check_embed(ids, table)
-    _check_backward(BWD_DG_IDS, g, idx, ("table", table), None, window)
-    v, e = table.shape
-    b, t = ids.shape
-    f = g.shape[1]
-    dk = torch.empty((window * e, f), dtype=torch.float32, device=g.device)
-    partial, counter = _dg_workspace(table, b, f, window * e)
-    _launch(BWD_DG_IDS, table, (table.data_ptr(), ids.data_ptr(),
-                                g.data_ptr(), idx.data_ptr(), dk.data_ptr(),
-                                _ptr(partial), _ptr(counter)),
-            dict(V=v, B=b, T=t, E=e, F=f, W=window))
-    return dk
-
-
-def textcnn_pool_forward_16(dtype: torch.dtype, x: torch.Tensor,
-                            kernel: torch.Tensor, bias: torch.Tensor,
-                            window: int = 3,
-                            skip: Optional[torch.Tensor] = None
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, idx) without autograd from x [B, T, E] and K [W*E, F] of the
-    16-bit `dtype` and f32 bias: the plain version on the CPU, else that
-    type's instantiation of the 16-bit body of `csrc/textcnn_pool_fwd.cu`
-    (`textcnn_pool_fwd_bf16` or `textcnn_pool_fwd_f16`, W <= 8)."""
-    if x.device.type == "cpu":
-        return textcnn_pool_16_reference(dtype, x, kernel, bias, window,
-                                         skip)
-    name = KERNELS_16[dtype][0]
-    _check_forward(x, kernel, bias, window, skip, dtype=dtype)
-    b, t, e = x.shape
-    f = kernel.shape[1]
-    max_window = _library(name).textcnn_pool_fwd_max_window()
-    if not 1 <= window <= max_window:
-        raise ValueError(f"window {window} outside the kernel's "
-                         f"1..{max_window}")
-    out = torch.empty((b, f), dtype=torch.float32, device=x.device)
-    idx = torch.empty((b, f), dtype=torch.int32, device=x.device)
-    _launch(name, x, (x.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
-                      _ptr(skip), out.data_ptr(), idx.data_ptr()),
-            dict(B=b, T=t, E=e, F=f, W=window))
-    return out, idx
-
-
-def textcnn_pool_bwd_dg_16(dtype: torch.dtype, x: torch.Tensor,
-                           g: torch.Tensor, idx: torch.Tensor,
-                           window: int = 3,
-                           skip: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
-    """dK [W*E, F] f32 holding values of the 16-bit `dtype`, from x
-    [B, T, E] of that type, the gated f32 g [B, F] and idx: the plain
-    version on the CPU, else that type's instantiation of
-    `csrc/textcnn_pool_bwd_dg.cu` (`textcnn_pool_bwd_dg_bf16` or
-    `textcnn_pool_bwd_dg_f16`)."""
-    if x.device.type == "cpu":
-        return textcnn_pool_16_dg_reference(dtype, x, g, idx, window, skip)
-    name = KERNELS_16[dtype][1]
-    if x.dim() != 3 or g.dim() != 2 or x.shape[0] != g.shape[0]:
-        raise ValueError(f"x [B, T, E] and g [B, F] expected, got "
-                         f"{tuple(x.shape)} and {tuple(g.shape)}")
-    _check_backward(name, g, idx, ("g", g), skip, window)
-    _check_cuda(name, [("x", x)], [dtype])
-    b, t, e = x.shape
-    f = g.shape[1]
-    dk = torch.empty((window * e, f), dtype=torch.float32, device=x.device)
-    partial, counter = _dg_workspace(x, b, f, window * e)
-    _launch(name, x, (x.data_ptr(), g.data_ptr(), idx.data_ptr(),
-                      _ptr(skip), dk.data_ptr(), _ptr(partial),
-                      _ptr(counter)),
-            dict(B=b, T=t, E=e, F=f, W=window))
-    return dk
+def _gate(out: torch.Tensor, g_out: torch.Tensor) -> torch.Tensor:
+    """The cotangent of out gated by the ReLU (a max clamped to zero
+    passes no gradient), contiguous; db is its sum over the batch."""
+    return torch.where(out > 0, g_out, torch.zeros(
+        (), dtype=g_out.dtype, device=g_out.device)).contiguous()
 
 
 class TextCNNPool(torch.autograd.Function):
-    """(out, idx) of the op, differentiable in x, K and b. The backward
-    computes dx only when x needs it (the JAX op's `need_dx`); a tower
-    over the frozen word table never asks for it. Where x or K needs a
-    gradient, idx is refined at near-ties (the forward's `refine`)
-    before it is saved and returned."""
+    """(out, idx) of the op on a dense x, differentiable in x, K and b,
+    with the conv's operands of type `dtype`. The backward computes dx
+    only when x needs it (the JAX op's `need_dx`); a tower over the
+    frozen word table never asks for it. At f32, where x or K needs a
+    gradient, idx is refined at near-ties (the forward's `refine`) before
+    it is saved and returned. At a 16-bit `dtype` x and K are cast to it:
+    dK is that type's dG kernel's (16-bit values in f32), dx the f32 dx
+    kernel on the 16-bit values of K, rounded to the 16-bit type, and db
+    the f32 sum of the gated g."""
 
     @staticmethod
-    def forward(ctx, x, kernel, bias, window, skip):
-        out, idx = textcnn_pool_forward(
-            x, kernel, bias, window, skip,
-            refine=ctx.needs_input_grad[0] or ctx.needs_input_grad[1])
-        ctx.window = window
+    def forward(ctx, x, kernel, bias, window, skip, dtype):
+        if dtype == _F32:
+            out, idx = textcnn_pool_forward(
+                x, kernel, bias, window, skip,
+                refine=ctx.needs_input_grad[0] or ctx.needs_input_grad[1])
+        else:
+            x, kernel = x.to(dtype).contiguous(), kernel.to(dtype).contiguous()
+            out, idx = textcnn_pool_forward(x, kernel, bias, window, skip,
+                                            dtype=dtype)
+        ctx.window, ctx.dtype = window, dtype
         ctx.save_for_backward(x, kernel, out, idx, skip)
         ctx.mark_non_differentiable(idx)
         return out, idx
@@ -798,102 +700,47 @@ class TextCNNPool(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out, _g_idx):
         x, kernel, out, idx, skip = ctx.saved_tensors
-        w = ctx.window
-        # ReLU gate: a max clamped to zero passes no gradient
-        g = torch.where(out > 0, g_out, torch.zeros((), dtype=g_out.dtype,
-                                                    device=g_out.device))
-        g = g.contiguous()
-        dx = (textcnn_pool_bwd_dx(g, idx, kernel, x.shape[1], w, skip)
-              if ctx.needs_input_grad[0] else None)
-        dk = (textcnn_pool_bwd_dg(x, g, idx, w, skip)
-              if ctx.needs_input_grad[1] else None)
-        return dx, dk, g.sum(0), None, None
+        w, dtype = ctx.window, ctx.dtype
+        g = _gate(out, g_out)
+        dx = dk = None
+        if ctx.needs_input_grad[0] and dtype == _F32:
+            dx = textcnn_pool_bwd_dx(g, idx, kernel, x.shape[1], w, skip)
+        elif ctx.needs_input_grad[0]:
+            dx = _values_16(textcnn_pool_bwd_dx(g, idx, kernel.float(),
+                                                x.shape[1], w, skip), dtype)
+        if ctx.needs_input_grad[1]:
+            dk = textcnn_pool_bwd_dg(x, g, idx, w, skip, dtype=dtype)
+        return dx, dk, g.sum(0), None, None, None
 
 
-class TextCNNPoolRows(torch.autograd.Function):
-    """(out, idx) of the op on table[rows], differentiable in K and b
-    only (the JAX op returns zeros for the table and no cotangent for
-    rows). The table is the frozen entity doc cache; a table that needs
-    a gradient is refused, since the op has no dx."""
+class TextCNNPoolTable(torch.autograd.Function):
+    """(out, idx) of the op on a frozen table read through an index,
+    differentiable in K and b only: `form` "rows", [B] rows of an
+    [N, T, E] entity doc cache (the JAX op returns zeros for the table
+    and no cotangent for rows; a table that needs a gradient is refused,
+    since the op has no dx), or "ids", [B, T] word ids of a [V, E] word
+    table (the JAX op gives it a zero cotangent; here it gets none)."""
 
     @staticmethod
-    def forward(ctx, table, rows, kernel, bias, window, skip):
-        if table.requires_grad:
+    def forward(ctx, table, index, kernel, bias, window, skip, form):
+        if form == "rows" and table.requires_grad:
             raise ValueError("textcnn_pool_rows computes no gradient for its "
                              "table; gather table[rows] and use textcnn_pool")
-        out, idx = textcnn_pool_fwd_rows(table, rows, kernel, bias, window,
-                                         skip)
-        ctx.window = window
-        ctx.save_for_backward(table, rows, out, idx, skip)
+        out, idx = textcnn_pool_forward(table, kernel, bias, window, skip,
+                                        **{form: index})
+        ctx.window, ctx.form = window, form
+        ctx.save_for_backward(table, index, out, idx, skip)
         ctx.mark_non_differentiable(idx)
         return out, idx
 
     @staticmethod
     def backward(ctx, g_out, _g_idx):
-        table, rows, out, idx, skip = ctx.saved_tensors
-        g = torch.where(out > 0, g_out, torch.zeros((), dtype=g_out.dtype,
-                                                    device=g_out.device))
-        g = g.contiguous()
-        dk = (textcnn_pool_bwd_dg_rows(table, rows, g, idx, ctx.window, skip)
+        table, index, out, idx, skip = ctx.saved_tensors
+        g = _gate(out, g_out)
+        dk = (textcnn_pool_bwd_dg(table, g, idx, ctx.window, skip,
+                                  **{ctx.form: index})
               if ctx.needs_input_grad[2] else None)
-        return None, None, dk, g.sum(0), None, None
-
-
-class TextCNNPoolEmbed(torch.autograd.Function):
-    """(out, idx) of the op on table[ids], differentiable in K and b only:
-    the ids are integers and the word table is frozen (the JAX op gives
-    it a zero cotangent; here it gets none)."""
-
-    @staticmethod
-    def forward(ctx, ids, table, kernel, bias, window):
-        out, idx = textcnn_pool_fwd_ids(ids, table, kernel, bias, window)
-        ctx.window = window
-        ctx.save_for_backward(ids, table, out, idx)
-        ctx.mark_non_differentiable(idx)
-        return out, idx
-
-    @staticmethod
-    def backward(ctx, g_out, _g_idx):
-        ids, table, out, idx = ctx.saved_tensors
-        g = torch.where(out > 0, g_out, torch.zeros((), dtype=g_out.dtype,
-                                                    device=g_out.device))
-        g = g.contiguous()
-        dk = (textcnn_pool_bwd_dg_ids(ids, table, g, idx, ctx.window)
-              if ctx.needs_input_grad[2] else None)
-        return None, None, dk, g.sum(0), None
-
-
-class TextCNNPool16(torch.autograd.Function):
-    """(out, idx) of the op on the values of x and K in the 16-bit
-    `dtype` (bfloat16 or float16), differentiable in x, K and b: dK is
-    that type's dG kernel's (16-bit values in f32), dx (only when x needs
-    it) the f32 dx kernel on the 16-bit values of K, rounded to the
-    16-bit type, and db the f32 sum of the gated g."""
-
-    @staticmethod
-    def forward(ctx, x, kernel, bias, window, skip, dtype):
-        xh = x.to(dtype).contiguous()
-        kh = kernel.to(dtype).contiguous()
-        out, idx = textcnn_pool_forward_16(dtype, xh, kh, bias, window,
-                                           skip)
-        ctx.window, ctx.dtype = window, dtype
-        ctx.save_for_backward(xh, kh, out, idx, skip)
-        ctx.mark_non_differentiable(idx)
-        return out, idx
-
-    @staticmethod
-    def backward(ctx, g_out, _g_idx):
-        xh, kh, out, idx, skip = ctx.saved_tensors
-        w, dtype = ctx.window, ctx.dtype
-        g = torch.where(out > 0, g_out, torch.zeros((), dtype=g_out.dtype,
-                                                    device=g_out.device))
-        g = g.contiguous()
-        dx = (_values_16(textcnn_pool_bwd_dx(g, idx, kh.float(),
-                                             xh.shape[1], w, skip), dtype)
-              if ctx.needs_input_grad[0] else None)
-        dk = (textcnn_pool_bwd_dg_16(dtype, xh, g, idx, w, skip)
-              if ctx.needs_input_grad[1] else None)
-        return dx, dk, g.sum(0), None, None, None
+        return None, None, dk, g.sum(0), None, None, None
 
 
 def textcnn_pool(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
@@ -902,12 +749,10 @@ def textcnn_pool(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [B, F] f32, idx [B, F] int32); see the module docstring.
     `dtype` is the conv's operand type: float32, bfloat16 or float16."""
-    if dtype in KERNELS_16:
-        return TextCNNPool16.apply(x, kernel, bias, window, skip, dtype)
-    if dtype != torch.float32:
+    if dtype not in (_F32, torch.bfloat16, torch.float16):
         raise ValueError(f"dtype must be float32, bfloat16 or float16, got "
                          f"{dtype}")
-    return TextCNNPool.apply(x, kernel, bias, window, skip)
+    return TextCNNPool.apply(x, kernel, bias, window, skip, dtype)
 
 
 def textcnn_pool_rows(table: torch.Tensor, rows: torch.Tensor,
@@ -916,7 +761,8 @@ def textcnn_pool_rows(table: torch.Tensor, rows: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [B, F] f32, idx [B, F] int32) of the op on table[rows], for a
     [N, T, E] table and [B] int32 rows; see the module docstring."""
-    return TextCNNPoolRows.apply(table, rows, kernel, bias, window, skip)
+    return TextCNNPoolTable.apply(table, rows, kernel, bias, window, skip,
+                                  "rows")
 
 
 def textcnn_pool_embed(ids: torch.Tensor, table: torch.Tensor,
@@ -924,4 +770,5 @@ def textcnn_pool_embed(ids: torch.Tensor, table: torch.Tensor,
                        window: int = 3) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [B, F] f32, idx [B, F] int32) of the op on table[ids], for a
     [V, E] word table and [B, T] int32 ids; see the module docstring."""
-    return TextCNNPoolEmbed.apply(ids, table, kernel, bias, window)
+    return TextCNNPoolTable.apply(table, ids, kernel, bias, window, None,
+                                  "ids")

@@ -339,7 +339,7 @@ def _place_call(records: Dict[str, np.ndarray], u_ids: np.ndarray,
     ids, then [4, rows, C] grids of each pair's user and item tower slot
     (the inverse indices) and user and item id, zero past the records'
     rows. Built in pinned memory and copied asynchronously on CUDA, as
-    `train.loop._place` copies a batch."""
+    `utils.device.to_device` copies a batch."""
     m, c = records["item"].shape
     n_ids = len(u_ids) + len(i_ids)
     pin = device.type == "cuda"

@@ -97,6 +97,7 @@ from ..parallel.mesh import (full_opt_state, full_params, host_slice,
                              shard_model)
 from ..utils.device import host_tensor, to_device
 from ..utils.logging import file_write, log_end_epoch
+from . import profiler
 from .checkpoint import load_checkpoint, save_checkpoint
 from .evaluate import eval_ranking, evaluate, evaluate_cached
 from .losses import bpr, hinge, softmax_ce
@@ -307,15 +308,6 @@ def epoch_generator(seed: int, epoch: int, device: torch.device
     return torch.Generator(device=device).manual_seed(key)
 
 
-def _place(batch: Dict[str, np.ndarray], device: torch.device
-           ) -> Dict[str, torch.Tensor]:
-    """Host batch -> device tensors; on CUDA through pinned memory, so
-    the copy is asynchronous and overlaps the step before it."""
-    pin = device.type == "cuda"
-    return {k: host_tensor(v, pin).to(device, non_blocking=pin)
-            for k, v in batch.items()}
-
-
 def _lookahead(it: Iterable, depth: int = 2) -> Iterator:
     """Run the (eagerly placing) iterator `depth` items ahead of its
     consumer, so the next batch's copy is issued before this step."""
@@ -334,7 +326,7 @@ def _prefetch(batcher: Batcher, device: torch.device, depth: int = 2,
         for b in batcher:
             b = host_slice(b, mesh)
             count_reviews(counts, [b])
-            yield _place(b, device)
+            yield to_device(b, device)
     return _lookahead(placed(), depth)
 
 
@@ -366,9 +358,10 @@ class ScanSteps:
     with the graph and set to the epoch's stream at the start of each
     epoch, so replays and single steps draw what eager steps draw, and
     resume stays keyed by (seed, epoch). The squared-error sums add up on
-    the device across groups. Each replay adds the kernel launches
-    counted during capture to `ops.textcnn.launches`. A failure to capture or replay raises; a
-    group never falls back to eager steps on the card.
+    the device across groups. Each replay adds to
+    `train.profiler.counters` what the counters gained during its capture
+    (the kernel launches of the S steps). A failure to capture or replay
+    raises; a group never falls back to eager steps on the card.
 
     Spans (`train.profiler.annotate`): `scan.ring_wait` (the host waiting
     for its pinned slot's last copy), `scan.stage` (the group stacked
@@ -402,8 +395,8 @@ class ScanSteps:
         self._slot = 0
         self.graph = None
         self._addresses: Tuple[int, ...] = ()
-        # kernel launches of one replay, counted during capture
-        self.launches: Dict[str, int] = {}
+        # the counts of one replay: what the counters gained in capture
+        self.counted: Dict[str, int] = {}
 
     def start_epoch(self, generator: Optional[torch.Generator]) -> None:
         """Zero the sums and point the dropout stream at `generator`'s."""
@@ -422,7 +415,7 @@ class ScanSteps:
         count_reviews(self.counts, group)
         if len(group) < self.steps:
             for batch in group:
-                self._step(_place(batch, self.device))
+                self._step(to_device(batch, self.device))
             return
         self._stage(group)
         if not self.on_card:
@@ -439,9 +432,8 @@ class ScanSteps:
             except RuntimeError as exc:
                 raise RuntimeError(f"CUDA-graph replay of {self.steps} "
                                    f"training steps failed: {exc}") from exc
-        from ..ops import textcnn
-        for name, n in self.launches.items():
-            textcnn.launches[name] += n
+        for name, n in self.counted.items():
+            count(name, n)
 
     def _step(self, batch: Dict[str, torch.Tensor]) -> None:
         """One step on a batch on the device ({"row", "weight"} with a
@@ -505,7 +497,6 @@ class ScanSteps:
         return tuple(t.data_ptr() for t in params + state)
 
     def _capture(self) -> None:
-        from ..ops import textcnn
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         # warm-up on the capture stream, then every update it made undone
@@ -538,7 +529,8 @@ class ScanSteps:
         graph = torch.cuda.CUDAGraph()
         if self.gen is not None:
             graph.register_generator_state(self.gen)
-        before = dict(textcnn.launches)
+        counters = profiler.counters
+        before = dict(counters)
         try:
             with torch.cuda.graph(graph, stream=stream):
                 for s in range(self.steps):
@@ -547,9 +539,10 @@ class ScanSteps:
             raise RuntimeError(f"CUDA-graph capture of {self.steps} training "
                                f"steps failed: {exc}") from exc
         finally:
-            counted = {k: textcnn.launches[k] - before[k] for k in before}
-            textcnn.launches.update(before)
-        self.launches = {k: v for k, v in counted.items() if v}
+            counted = {k: v - before.get(k, 0) for k, v in counters.items()}
+            counters.clear()
+            counters.update(before)
+        self.counted = {k: v for k, v in counted.items() if v}
         self.graph = graph
         self._addresses = self._state_addresses()
 

@@ -11,10 +11,13 @@
   profiler's timeline beside the device's events, on their clock, and
   nests under the span that encloses it. With no profiler recording it
   checks one flag and creates nothing: under a microsecond a span.
-- `counters` and `count(name, n)`: named event counts since the process
-  started (`scan.captures`: graph captures of `train.loop.ScanSteps`).
-  The kernel-launch counts stay with their ops (`ops.textcnn.launches`,
-  `ops.neighbors.launches`).
+- `counters` and `count(name, n)`: the process's one store of named
+  event counts since it started: each kernel launch under the kernel's
+  name (`ops.textcnn.KERNELS`, `ops.neighbors.SGD`; a graph replay of
+  `train.loop.ScanSteps` adds what its capture counted), `scan.captures`
+  (graph captures), and the `score_grid.*` and `narre.*` counters of
+  `train.evaluate` and `train.loop`. This module imports nothing of the
+  package, so every layer, the kernels' included, counts here.
 - `Throughput`: examples/s and ms per step for the epoch banner.
 """
 

@@ -39,8 +39,12 @@ def host_tensor(a: np.ndarray, pin: bool = False) -> torch.Tensor:
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device
               ) -> Dict[str, torch.Tensor]:
-    """Host numpy batch -> tensors on `device`."""
-    return {k: host_tensor(v).to(device) for k, v in batch.items()}
+    """Host numpy batch -> tensors on `device`; on CUDA through pinned
+    memory, so the copy is asynchronous and overlaps the device work
+    before it (elsewhere a plain copy)."""
+    pin = torch.device(device).type == "cuda"
+    return {k: host_tensor(v, pin).to(device, non_blocking=pin)
+            for k, v in batch.items()}
 
 
 def module_device(module: torch.nn.Module,

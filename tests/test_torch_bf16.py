@@ -151,11 +151,11 @@ def test_plain_versions_are_the_f32_op_on_bf16_values(dtype):
     k = torch.from_numpy(rng.normal(size=(24, 5)).astype(np.float32))
     bias = torch.zeros(5)
     xb, kb = x.to(tdt), k.to(tdt)
-    out, idx = textcnn.textcnn_pool_forward_16(tdt, xb, kb, bias, 3)
+    out, idx = textcnn.textcnn_pool_forward(xb, kb, bias, 3, dtype=tdt)
     want = textcnn.textcnn_pool_reference(xb.float(), kb.float(), bias, 3)
     assert torch.equal(out, want[0]) and torch.equal(idx, want[1])
     g = torch.from_numpy(rng.normal(size=(3, 5)).astype(np.float32))
-    dk = textcnn.textcnn_pool_bwd_dg_16(tdt, xb, g, idx, 3)
+    dk = textcnn.textcnn_pool_bwd_dg(xb, g, idx, 3, dtype=tdt)
     f32 = textcnn.textcnn_pool_backward_reference(xb.float(), kb.float(), g,
                                                   idx, 3)[1]
     assert torch.equal(dk, f32.to(tdt).float())

@@ -14,7 +14,7 @@ from reviews4rec_torch import api as port_api
 from reviews4rec_torch.config import HyperParams as PortHP
 from reviews4rec_torch.data import Batcher
 from reviews4rec_torch.data.corpus import ReviewDataset as PortDataset
-from reviews4rec_torch.train.loop import _place, build_doc_cache
+from reviews4rec_torch.train.loop import build_doc_cache
 from reviews4rec_torch.utils.device import to_device
 from reviews4rec_tpu.config import HyperParams as JaxHP
 from reviews4rec_tpu.data.corpus import ReviewDataset as JaxDataset
@@ -104,7 +104,7 @@ def test_read_only_records_place_without_warning(tmp_path, corpora):
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         placed = to_device(dict(disk), CPU)
-        staged = _place({k: v[:5] for k, v in disk.items()}, CPU)
+        staged = to_device({k: v[:5] for k, v in disk.items()}, CPU)
         cache = build_doc_cache(dict(disk), pd.word_vectors, torch.float32,
                                 CPU, chunk_words=100)
     for k, v in disk.items():

@@ -26,6 +26,7 @@ from reviews4rec_torch.ops import textcnn
 from reviews4rec_torch.ops.textcnn import (textcnn_pool,
                                            textcnn_pool_backward_reference,
                                            textcnn_pool_reference)
+from reviews4rec_torch.train import profiler
 from reviews4rec_torch.weights import load_flax_params
 from reviews4rec_tpu.models.layers import TextCNN as JaxTextCNN
 from reviews4rec_tpu.ops.textcnn_pallas import textcnn_pool as jax_pool
@@ -197,7 +198,7 @@ def test_autograd_function_equals_plain_backward(with_skip):
     b, t, e, f, w = 6, 50, 16, 12, 3
     x, k, bias, g = _inputs(b, t, e, f, w, seed=3)
     skip = np.asarray([[4, 9]] * b, np.int32) if with_skip else None
-    before = dict(textcnn.launches)
+    before = dict(profiler.counters)
     tx, tk, tb = (torch.from_numpy(a).requires_grad_() for a in (x, k, bias))
     sk = None if skip is None else torch.from_numpy(skip)
     out, idx = textcnn_pool(tx, tk, tb, w, sk)
@@ -207,7 +208,7 @@ def test_autograd_function_equals_plain_backward(with_skip):
     np.testing.assert_array_equal(tx.grad.numpy(), dx)
     np.testing.assert_array_equal(tk.grad.numpy(), dk)
     np.testing.assert_array_equal(tb.grad.numpy(), db)
-    assert textcnn.launches == before
+    assert profiler.counters == before
 
 
 def test_no_dx_when_x_needs_no_grad(monkeypatch):
