@@ -36,19 +36,25 @@
 6. Trains a full-width TextCNN tower over a trainable word table, the
    path whose input needs a gradient (dx kernel), and holds its first
    step's gradients against the same step on the CPU.
-7. The entity doc cache (`cache_doc_embeds` + `cache_entity`): holds
-   the two row-gathered kernels (forward and dG on `table[rows]` of a
-   whole [N, T, E] entity table) bitwise against the plain-x kernels on
-   `table[rows]` and within the limits of 2 against their plain
-   versions (the cases of 2 and the NARRE shape, a B whose last dG
-   slice is partial; the dG also at E=256 and 512 on the forward
-   kernel's idx; two dG launches bitwise equal; a
+7. The entity doc cache (`cache_doc_embeds` + `cache_entity`): first
+   one 64 x 104 tile of the rows forward's warpgroup product
+   (`csrc/wgmma_tf32_rate.cu`) against float64 beside `mma.sync`'s, and
+   the card's body choice against `fwd_body`; holds the two
+   row-gathered kernels (forward and dG on `table[rows]` of a whole
+   [N, T, E] entity table) within the limits of 2 against their plain
+   versions (idx equal but at float64 near-ties within 1e-5; the cases
+   of 2 and the NARRE shape, a B whose last dG slice is partial, a rank
+   chunk of 3,200 rows, docs of one and three tiles; the dG also at
+   E=256 and 512 on the forward kernel's idx; the dG bitwise the plain-x
+   dG on the same idx, and the forward bitwise the plain-x kernel where
+   both take the `mma.sync` body; two launches of each bitwise equal; a
    row outside the table gives NaN and -1 in its forward row and NaN in
-   exactly the dK values its taps touch), and times them; trains both
-   heads 8 steps over the entity
+   exactly the dK values its taps touch), and times them (the
+   warpgroup body beside the `mma.sync` one, and the card's `wgmma`
+   TF32 rate); trains both heads 8 steps over the entity
    cache with and without `pallas_fuse_rows` against the JAX trainer's
-   in `tests/torch_fixtures/entity_ref.npz` (the two variants bitwise
-   equal); trains deepconn 2 epochs through `api.run` on the entity
+   in `tests/torch_fixtures/entity_ref.npz` (printing whether the two
+   variants agree bitwise); trains deepconn 2 epochs through `api.run` on the entity
    cache with `pallas_fuse_rows` and profiles 50 of its steps; serves
    both heads from the entity tables (`predict`, `finalize`,
    `Recommender(entity=True)`) against `e2e_ref.npz`.
@@ -511,6 +517,75 @@ def time_mma_sync(torch, _build) -> float:
     return 2 * 16 * 8 * 8 * mma / (ms * 1e-3) / 1e12
 
 
+def _wgmma_lib(_build):
+    import ctypes
+
+    lib = _build.load("wgmma_tf32_rate")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.wgmma_tf32_check.argtypes = [p] * 4 + [i] * 3 + [p]
+    lib.wgmma_tf32_rate_launch.argtypes = [p, i, i, p]
+    return lib
+
+
+def check_wgmma_tile(torch, _build) -> dict:
+    """One 64 x 104 tile over K=192 (W*E of the serving shape) in 3xTF32
+    by `wgmma` m64n104k8 (`csrc/wgmma_tf32_rate.cu`, the rows forward's
+    product and B layout) and by `mma.sync` m16n8k8 on the same split,
+    both against float64, on random normal A and B of the forward's
+    scale. The wgmma tile's largest error must stay within 2x the
+    mma.sync one's. Returns both errors, whether the two agree bitwise,
+    and the error with B's two descriptor strides swapped (a wrong
+    layout reads far off)."""
+    lib = _wgmma_lib(_build)
+    gen = torch.Generator().manual_seed(25)
+    k = 192
+    a = torch.randn(64, k, generator=gen).cuda()
+    b = (0.05 * torch.randn(k, 104, generator=gen)).cuda()
+    want = a.double() @ b.double()
+    stream = torch.cuda.current_stream().cuda_stream
+    res = {}
+    for name, (lbo, sbo) in (("wgmma", (128, 256)), ("swapped", (256, 128))):
+        d_wg = torch.full((64, 104), float("nan"), device="cuda")
+        d_mma = torch.full_like(d_wg, float("nan"))
+        if lib.wgmma_tf32_check(a.data_ptr(), b.data_ptr(), d_wg.data_ptr(),
+                                d_mma.data_ptr(), k, lbo, sbo, stream):
+            raise RuntimeError("wgmma_tf32_check launch failed")
+        torch.cuda.synchronize()
+        res[name] = (d_wg.double() - want).abs().max().item()
+        if name == "wgmma":
+            res["mma_sync"] = (d_mma.double() - want).abs().max().item()
+            res["bitwise"] = torch.equal(d_wg, d_mma)
+    print(f"wgmma 3xTF32 tile 64x104, K={k}, vs float64: max|err| wgmma "
+          f"{res['wgmma']:.3e}, mma.sync {res['mma_sync']:.3e} (ratio "
+          f"{res['wgmma'] / max(res['mma_sync'], 1e-30):.3f}, limit 2); "
+          f"bitwise equal: {res['bitwise']}; descriptor strides swapped "
+          f"{res['swapped']:.3e}")
+    if not res["wgmma"] <= 2.0 * res["mma_sync"]:
+        raise AssertionError("the wgmma 3xTF32 tile is less precise than "
+                             "twice the mma.sync one")
+    return res
+
+
+def time_wgmma(torch, _build) -> float:
+    """TF/s of `wgmma` m64n104k8 TF32 with A from registers on this card:
+    one block of two warpgroups on every SM, each issuing the rows
+    forward's k-step (three wgmma, a commit, a wait for all but one
+    group) on fixed fragments; median of 30 launches, CUDA events."""
+    lib = _wgmma_lib(_build)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    iters = 1024
+    out = torch.empty(sms * 256, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        if lib.wgmma_tf32_rate_launch(out.data_ptr(), sms, iters, stream):
+            raise RuntimeError("wgmma_tf32_rate launch failed")
+
+    ms = _median_ms(torch, run)
+    wgmma = sms * 2 * iters * 24 * 3
+    return 2 * 64 * 104 * 8 * wgmma / (ms * 1e-3) / 1e12
+
+
 def time_textcnn(torch, textcnn) -> dict:
     """Median of 30 single calls at the serving shape, CUDA events."""
     import torch.nn.functional as F
@@ -604,15 +679,17 @@ def _timed(torch, fn):
 
 def _reset(textcnn) -> None:
     from reviews4rec_torch.train import profiler
-    for name in textcnn.KERNELS:
+    for name in (*textcnn.KERNELS, textcnn.FWD_ROWS_WGMMA):
         profiler.counters[name] = 0
 
 
 def _launches(textcnn) -> dict:
     """Each TextCNN kernel's launches since the last `_reset` (their
-    counters in `train.profiler.counters`)."""
+    counters in `train.profiler.counters`), and the rows forward's that
+    took its warpgroup body."""
     from reviews4rec_torch.train import profiler
-    return {name: profiler.counters.get(name, 0) for name in textcnn.KERNELS}
+    return {name: profiler.counters.get(name, 0)
+            for name in (*textcnn.KERNELS, textcnn.FWD_ROWS_WGMMA)}
 
 
 def serve(torch, textcnn, ds, device) -> dict:
@@ -999,8 +1076,9 @@ def _rows_cases():
     `check_rows`: the entity training shape (N = the e2e users), a B
     that is no tile multiple, skip spans of length 0, over the whole doc
     and past T, forced integer ties, another E and W, exact ties of
-    real-valued windows, the NARRE tower's docs and a B whose last dG
-    slice is partial."""
+    real-valued windows, the NARRE tower's docs, a B whose last dG
+    slice is partial, a rank call's chunk of 3,200 towers, and docs of
+    one and of three tiles of 64 starts."""
     s = SERVE_SHAPE
     t, e, f, w = s["t"], s["e"], s["f"], s["w"]
     return [
@@ -1016,6 +1094,13 @@ def _rows_cases():
          (2560, 100, e, f, w), None),
         ("B=333 partial last slice", _random_case, 400, (333, t, e, f, w),
          None),
+        # a rank call's tower chunk; docs of one tile of starts (the second
+        # warpgroup idle) and of an odd number of tiles, with spans
+        ("rank chunk N=3200 B=3200", _random_case, 3200, (3200, t, e, f, w),
+         None),
+        ("T=1", _random_case, 20, (9, 1, e, f, w), None),
+        ("T=130 skip spans", _random_case, 30, (5, 130, e, f, w),
+         [[0, 0], [0, 130], [64, 3], [120, 40], [1, 62]]),
     ]
 
 
@@ -1031,14 +1116,63 @@ def _rows_for(torch, n: int, b: int, seed: int):
     return rows.to(torch.int32).cuda()
 
 
+def _check_body_choice(textcnn) -> None:
+    """The forward's body by shape: `textcnn.fwd_body` (the launcher's
+    mirror, which the CPU tests hold) against the card's own choice
+    (`textcnn_pool_fwd_rows_wgmma`) at the serving and rank shapes, the
+    NARRE tower's, E=32, 256 and 512, W=2, 4 and 5, F=64, 96, 97, 100,
+    104 and 129."""
+    lib = textcnn._library(textcnn.FWD)
+    shapes = [(e, f, w) for e in (32, 64, 256, 512) for f in (64, 96, 97,
+                                                              100, 104, 129)
+              for w in (2, 3, 4, 5)]
+    wrong = [(e, f, w) for e, f, w in shapes
+             if bool(lib.textcnn_pool_fwd_rows_wgmma(e, f, w))
+             != (textcnn.fwd_body("rows", e, f, w) == "wgmma")]
+    took = [s for s in shapes if textcnn.fwd_body("rows", *s) == "wgmma"]
+    print(f"rows forward body by (E, F, W): the card and fwd_body agree on "
+          f"{len(shapes) - len(wrong)} of {len(shapes)} shapes; wgmma at "
+          f"{took}; its shared memory at E=64 W=3 "
+          f"{textcnn.wgmma_smem_bytes(64, 3)} bytes")
+    if wrong or (64, 100, 3) not in took:
+        raise AssertionError(f"the card's body choice differs from "
+                             f"fwd_body at {wrong}")
+
+
+def _near_tie_gap(torch, textcnn, x, k, bias, w, skip, idx, ref_idx):
+    """(how many idx differ from ref_idx, the widest float64 gap between
+    the two windows of such a (b, f)), on x with the skip span zeroed."""
+    moved = (idx != ref_idx).nonzero()
+    if not len(moved):
+        return 0, 0.0
+    if skip is not None:
+        x = torch.where(textcnn._span_mask(skip, x.shape[1])[..., None],
+                        0.0, x)
+    rows, cols = moved[:, 0], moved[:, 1]
+    a, b = (_window_f64(torch, x, k, bias, w, rows, cols, s[rows, cols])
+            for s in (idx, ref_idx))
+    return len(moved), (a - b).abs().max().item()
+
+
 def check_rows(torch, textcnn) -> dict:
-    """Both row-gathered kernels against the plain-x kernels on
-    table[rows] (bitwise: out, idx, dK, and dK and db through the two
-    autograd functions) and against their plain versions (out within
-    1e-4, idx equal, dK within 1e-4 * max(1, max|dK|), db within 1e-4;
-    exact on integer inputs). A row outside [0, N) must give NaN and -1
-    in its batch row and leave the others alone. Returns the largest
-    errors against the plain versions."""
+    """Both row-gathered kernels against their plain versions: out within
+    1e-4 and idx equal except where the two starts' windows lie within
+    1e-5 of each other in float64 (a near-tie the f32 plain version may
+    break the other way), dK within 1e-4 * max(1, max|dK|) on the
+    forward's own idx, db within 1e-4; out, idx, dK and db exact on
+    integer inputs. The dG is bitwise the plain-x dG on table[rows] and
+    the same idx, and the rows autograd function's dK and db are bitwise
+    the two kernels' and the gated g's sum. Where the rows forward takes
+    the `mma.sync` body it is bitwise the plain-x kernel on table[rows]
+    (one body), and so are the two autograd functions; where it takes
+    the warpgroup body (`fwd_body`), the line prints whether it is
+    bitwise that body all the same. Each launch of the warpgroup body,
+    and no other, adds one to `FWD_ROWS_WGMMA`. A row outside [0, N) must
+    give NaN and -1 in its batch row and leave the others alone. Returns
+    the largest errors against the plain versions."""
+    from reviews4rec_torch.train import profiler
+
+    _check_body_choice(textcnn)
     worst = {"fwd": 0.0, "dg": 0.0}
     for j, (name, make, n, (b, t, e, f, w), skip) in enumerate(_rows_cases()):
         table, k, bias = (a.cuda() for a in make(torch, n, t, e, f, w,
@@ -1047,21 +1181,24 @@ def check_rows(torch, textcnn) -> dict:
         sk = (torch.tensor(skip, dtype=torch.int32, device="cuda")
               if skip is not None else None)
         exact = make is _tie_case
+        wg = textcnn.fwd_body("rows", e, f, w) == "wgmma"
         gen = torch.Generator().manual_seed(200 + j)
         g = (torch.randint(-3, 4, (b, f), generator=gen).float() if exact
              else torch.randn(b, f, generator=gen)).cuda()
         x = table[rows.long()].contiguous()
 
+        took = profiler.counters.get(textcnn.FWD_ROWS_WGMMA, 0)
         out_r, idx_r = textcnn.textcnn_pool_forward(table, k, bias, w, sk,
                                                     rows=rows)
+        took = profiler.counters.get(textcnn.FWD_ROWS_WGMMA, 0) - took
         out_x, idx_x = textcnn.textcnn_pool_forward(x, k, bias, w, sk)
         ref_out, ref_idx = textcnn.textcnn_pool_rows_reference(
             table, rows, k, bias, w, sk)
         gated = torch.where(out_r > 0, g, 0.0)
         dk_r = textcnn.textcnn_pool_bwd_dg(table, gated, idx_r, w, sk,
                                            rows=rows)
-        dk_x = textcnn.textcnn_pool_bwd_dg(x, gated, idx_x, w, sk)
-        dk_ref = textcnn._dg_reference(x, gated, ref_idx, w, sk)
+        dk_x = textcnn.textcnn_pool_bwd_dg(x, gated, idx_r, w, sk)
+        dk_ref = textcnn._dg_reference(x, gated, idx_r, w, sk)
         grads = []
         for op, src in ((textcnn.textcnn_pool_rows, (table, rows)),
                         (textcnn.textcnn_pool, (x,))):
@@ -1069,25 +1206,33 @@ def check_rows(torch, textcnn) -> dict:
             op(*src, kr, br, w, sk)[0].backward(g)
             grads.append((kr.grad, br.grad))
         torch.cuda.synchronize()
-        bitwise = (torch.equal(out_r, out_x) and torch.equal(idx_r, idx_x)
-                   and torch.equal(dk_r, dk_x)
-                   and torch.equal(grads[0][0], grads[1][0])
-                   and torch.equal(grads[0][1], grads[1][1]))
+        same_fwd = torch.equal(out_r, out_x) and torch.equal(idx_r, idx_x)
+        same_dg = (torch.equal(dk_r, dk_x) and torch.equal(grads[0][0], dk_r)
+                   and torch.equal(grads[0][1], gated.sum(0)))
+        same_grads = (torch.equal(grads[0][0], grads[1][0])
+                      and torch.equal(grads[0][1], grads[1][1]))
         out_err = (out_r - ref_out).abs().max().item()
-        bad_idx = int((idx_r != ref_idx).sum())
+        moved, gap = _near_tie_gap(torch, textcnn, x, k, bias, w, sk, idx_r,
+                                   ref_idx)
         dk_err = (dk_r - dk_ref).abs().max().item()
         db_err = (grads[0][1] - gated.sum(0)).abs().max().item()
         dk_tol = 0.0 if exact else 1e-4 * max(1.0, dk_ref.abs().max().item())
         db_tol = 0.0 if exact else 1e-4
         per_slice = textcnn.dg_slice_rows(b, f)
-        print(f"rows kernels {name}: bitwise the plain-x kernels on "
-              f"table[rows]: {bitwise}; vs plain: max|out err| "
-              f"{out_err:.3e}, idx mismatches {bad_idx}, max|dK err| "
-              f"{dk_err:.3e} (limit {dk_tol:.1e}), max|db err| "
-              f"{db_err:.3e}; {len(set(rows.tolist()))} distinct of {b} "
-              f"rows; dG slices of {per_slice} rows")
-        if not (bitwise and out_err <= (0.0 if exact else 1e-4)
-                and not bad_idx and dk_err <= dk_tol and db_err <= db_tol):
+        print(f"rows kernels {name}: forward body "
+              f"{'wgmma' if wg else 'mma.sync'} ({took} wgmma launch"
+              f"{'' if took == 1 else 'es'} counted); bitwise the plain-x "
+              f"(mma.sync) kernel on table[rows]: forward {same_fwd}, "
+              f"autograd {same_grads}; dG bitwise the plain-x dG and the "
+              f"autograd's: {same_dg}; vs plain: max|out err| {out_err:.3e}, "
+              f"idx mismatches {moved} (windows within {gap:.1e} in "
+              f"float64), max|dK err| {dk_err:.3e} (limit {dk_tol:.1e}), "
+              f"max|db err| {db_err:.3e}; {len(set(rows.tolist()))} distinct "
+              f"of {b} rows; dG slices of {per_slice} rows")
+        if not (same_dg and (wg or (same_fwd and same_grads))
+                and took == int(wg) and out_err <= (0.0 if exact else 1e-4)
+                and (moved == 0 if exact else gap <= 1e-5)
+                and dk_err <= dk_tol and db_err <= db_tol):
             raise AssertionError(f"the rows kernels disagree ({name})")
         if "partial last slice" in name and not (b > per_slice
                                                  and b % per_slice):
@@ -1099,6 +1244,9 @@ def check_rows(torch, textcnn) -> dict:
             _check_deterministic(torch, textcnn.BWD_DG_ROWS, lambda: textcnn
                                  .textcnn_pool_bwd_dg(table, gated, idx_r, w,
                                                       rows=rows))
+            _check_deterministic(torch, textcnn.FWD_ROWS, lambda: torch.cat(
+                [a.flatten().view(torch.int32) for a in textcnn
+                 .textcnn_pool_forward(table, k, bias, w, rows=rows)]))
             _check_bad_rows_dg(torch, textcnn, table, rows, gated, idx_r, w)
             bad = rows.clone()
             bad[2], bad[3] = -1, n
@@ -1108,8 +1256,8 @@ def check_rows(torch, textcnn) -> dict:
             keep[2:4] = False
             ok = (bool(torch.isnan(out_b[2:4]).all())
                   and bool((idx_b[2:4] == -1).all())
-                  and torch.equal(out_b[keep], out_x[keep])
-                  and torch.equal(idx_b[keep], idx_x[keep]))
+                  and torch.equal(out_b[keep], out_r[keep])
+                  and torch.equal(idx_b[keep], idx_r[keep]))
             print(f"rows kernels, rows -1 and N: NaN and -1 in their batch "
                   f"rows, the others unchanged: {ok}")
             if not ok:
@@ -1190,7 +1338,58 @@ def _check_bad_rows_dg(torch, textcnn, table, rows, gated, idx, w) -> None:
                              "exactly its dK values")
 
 
-def time_rows(torch, textcnn) -> dict:
+def _ptxas(_build, source: str, needle: str) -> dict:
+    """ptxas's registers and spill bytes of the first kernel function of
+    `source` whose name holds `needle`, and the warnings of its build."""
+    import re
+
+    log = _build.library_path(source).with_suffix(".log").read_text()
+    part = log.split(needle, 1)[1] if needle in log else ""
+    regs = re.search(r"Used (\d+) registers", part)
+    spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      part)
+    return {"registers": int(regs.group(1)) if regs else -1,
+            "spill_stores": int(spill.group(1)) if spill else -1,
+            "spill_loads": int(spill.group(2)) if spill else -1,
+            "warnings": [ln.strip() for ln in log.splitlines()
+                         if "warning" in ln.lower()]}
+
+
+def _time_rows_bodies(torch, textcnn, table, rows, k, bias, w) -> dict:
+    """Device time a launch (`_per_launch`) of the rows forward on
+    table[rows] and of the `mma.sync` body on the same rows, launched as
+    the plain-x kernel on the gathered x (bitwise the rows form's
+    `mma.sync` body; it also keeps a second value), the largest |out|
+    error of each against float64, and the bounds at this shape."""
+    b = rows.shape[0]
+    _, t, e = table.shape
+    f = k.shape[1]
+    x = table.index_select(0, rows.long())
+    out_r, _ = textcnn.textcnn_pool_forward(table, k, bias, w, rows=rows)
+    out_x, _ = textcnn.textcnn_pool_forward(x, k, bias, w)
+    err = []
+    for lo in range(0, b, 256):   # float64 in slices of 256 rows
+        want, _ = textcnn.textcnn_pool_reference(
+            x[lo:lo + 256].double(), k.double(), bias.double(), w)
+        err.append([(o[lo:lo + 256].double() - want).abs().max().item()
+                    for o in (out_r, out_x)])
+    flops = 2.0 * b * (t + w - 1) * w * e * f
+    distinct = int(rows.unique().numel())
+    nbytes = 4.0 * (distinct * t * e + w * e * f + f + b) + 8.0 * b * f
+    return {"rows": _per_launch(torch, lambda: textcnn.textcnn_pool_forward(
+                table, k, bias, w, rows=rows)),
+            "mma_sync": _per_launch(torch, lambda: textcnn
+                                    .textcnn_pool_forward(x, k, bias, w)),
+            "err64": max(r[0] for r in err),
+            "err64_mma": max(r[1] for r in err),
+            "bitwise": torch.equal(out_r, out_x),
+            "body": textcnn.fwd_body("rows", e, f, w),
+            **_bound(flops, nbytes),
+            "bound_tc_ms": _tc_bound_ms(flops, nbytes), "b": b,
+            "distinct": distinct}
+
+
+def time_rows(torch, textcnn, _build) -> dict:
     """Medians of 30 single calls (CUDA events) of each rows kernel at
     the entity training shape (a [2500, 1000, 64] f32 table, the e2e
     users; 256 random rows), beside its plain version, the plain-x
@@ -1198,7 +1397,12 @@ def time_rows(torch, textcnn) -> dict:
     gather alone, and a library yardstick the port never calls:
     `index_select` + cuDNN conv1d + ReLU + max (channels-first table
     prepared outside the timing) for the forward, `torch.autograd.grad`
-    of that graph with respect to (K, b) for dG."""
+    of that graph with respect to (K, b) for dG. The forward's two bodies
+    (`_time_rows_bodies`) at that shape and at a rank call's chunk (3,200
+    distinct rows of a [3200, 1000, 64] table), ptxas's registers and
+    spills of the warpgroup body, and the card's `wgmma` and `mma.sync`
+    TF32 rates. The warpgroup body's |out| error against float64 must
+    stay within 2x the `mma.sync` body's."""
     import torch.nn.functional as F
 
     b, t, e, f, w = (SERVE_SHAPE[k] for k in "btefw")
@@ -1270,6 +1474,25 @@ def time_rows(torch, textcnn) -> dict:
         # the [B, T, E] copy the rows kernels do without: read and written
         "gather_bound_ms": 1e3 * 8.0 * b * t * e / PEAK_BYTES_S,
         "distinct": distinct, "gated_off": int((~nz).sum())}
+
+    res["bodies"] = _time_rows_bodies(torch, textcnn, table, rows, k, bias,
+                                      w)
+    big = torch.randn(3200, t, e, device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(2))
+    perm = torch.randperm(3200, generator=torch.Generator().manual_seed(13))
+    res["bodies_rank"] = _time_rows_bodies(
+        torch, textcnn, big, perm.to(torch.int32).cuda(), k, bias, w)
+    del big
+    res["ptxas"] = _ptxas(_build, "textcnn_pool_fwd",
+                          "textcnn_pool_fwd_rows_wgmma_kernel")
+    res["wgmma_tflops"] = time_wgmma(torch, _build)
+    res["mma_tflops"] = time_mma_sync(torch, _build)
+    for key in ("bodies", "bodies_rank"):
+        r = res[key]
+        if r["body"] == "wgmma" and not r["err64"] <= 2.0 * r["err64_mma"]:
+            raise AssertionError(f"the warpgroup body's error against float64"
+                                 f" ({r['err64']:.3e}) passes twice the "
+                                 f"mma.sync body's ({r['err64_mma']:.3e})")
 
     # the NARRE tower's shape over a table of as many rows as the batch
     n = b = NARRE_SHAPE["b"]
@@ -1712,10 +1935,11 @@ def train_entity_vs_jax(torch, textcnn, ds, device) -> dict:
     whole by the rows kernels (`pallas_fuse_rows`), and once on the
     host's CPU through the plain versions. Each run is held against
     entity_ref.npz within `_steps_vs_ref`'s bounds, params within
-    ENTITY_PARAMS_TOL; the two card variants must agree bitwise, and the
-    card's final params are printed against the CPU run's, the floor
-    that f32 summation order alone sets after Adam. Returns the launches
-    of the card runs."""
+    ENTITY_PARAMS_TOL. The line prints whether the two card variants
+    agree bitwise (they need not: the rows forward's warpgroup body sums
+    in another order than the plain-x kernel) and the card's final params
+    against the CPU run's, the floor that f32 summation order alone sets
+    after Adam. Returns the launches of the card runs."""
     from reviews4rec_torch.config import HyperParams
     from reviews4rec_torch.models import build_model
     from reviews4rec_torch.train.loop import (build_entity_cache,
@@ -1774,8 +1998,6 @@ def train_entity_vs_jax(torch, textcnn, ds, device) -> dict:
         print(f"  {mt}: rows kernels bitwise the table[rows] path (losses, "
               f"step-1 grads, params): {same}; card vs the CPU's plain "
               f"path, final params max|diff| {floor:.2e} ({worst})")
-        if not same:
-            raise AssertionError(f"{mt}: pallas_fuse_rows changes training")
     if not (launches[textcnn.FWD_ROWS] == launches[textcnn.BWD_DG_ROWS]
             == len(MODELS) * 2 * steps):
         raise AssertionError("expected 2 launches of each rows kernel per "
@@ -3031,15 +3253,10 @@ def _check_time_fwd(torch, textcnn, what: str, x, conv) -> dict:
     out, idx = textcnn.textcnn_pool_forward(x, k, bias, w)
     ref_out, ref_idx = textcnn.textcnn_pool_reference(x, k, bias, w)
     err = (out - ref_out).abs().max().item()
-    moved = (idx != ref_idx).nonzero()
-    gap = 0.0
-    if len(moved):
-        rows, cols = moved[:, 0], moved[:, 1]
-        a, b = (_window_f64(torch, x, k, bias, w, rows, cols, s[rows, cols])
-                for s in (idx, ref_idx))
-        gap = (a - b).abs().max().item()
+    moved, gap = _near_tie_gap(torch, textcnn, x, k, bias, w, None, idx,
+                               ref_idx)
     print(f"textcnn_pool_fwd {what}: max|out err| {err:.3e}, idx differs "
-          f"from the plain f32 version's at {len(moved)} of {idx.numel()} "
+          f"from the plain f32 version's at {moved} of {idx.numel()} "
           f"(windows within {gap:.1e} of each other in float64)")
     if not (err <= 1e-4 and gap <= 1e-5):
         raise AssertionError(f"kernel disagrees with the plain version "
@@ -3050,7 +3267,7 @@ def _check_time_fwd(torch, textcnn, what: str, x, conv) -> dict:
     fwd = lambda: textcnn.textcnn_pool_forward(x, k, bias, w)  # noqa: E731
     res = dict(_bound(flops, 4.0 * (n * t * e + w * e * f + f) + 8.0 * n * f),
                tf32x3_ms=1e3 * 3 * flops / PEAK_TF32_FLOP_S,
-               max_abs_err=err, idx_near_ties=len(moved),
+               max_abs_err=err, idx_near_ties=moved,
                plain_ms=_median_ms(torch, lambda: textcnn
                                    .textcnn_pool_reference(x, k, bias, w),
                                    n=10),
@@ -4570,6 +4787,26 @@ def _print_rows_times(textcnn, rows) -> None:
                  if "bound_tc_ms" in r else ""))
     _print_narre_dg(textcnn.BWD_DG_ROWS, rows["dg_narre"],
                     f"table positions of {NARRE_SHAPE['b']} rows")
+    for key in ("bodies", "bodies_rank"):
+        r = rows[key]
+        print(f"{textcnn.FWD_ROWS} B={r['b']} T=1000 E=64 F=100 W=3 "
+              f"({r['distinct']} distinct rows): {r['body']} body "
+              f"{r['rows']['device_ms']:.4f} ms of device time a launch "
+              f"({r['rows']['launch_ms']:.4f} ms a launch over 100 "
+              f"back-to-back), mma.sync body (plain-x kernel on the gather) "
+              f"{r['mma_sync']['device_ms']:.4f} ms "
+              f"({r['mma_sync']['launch_ms']:.4f}); bounds f32 "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), 3xTF32 "
+              f"{r['bound_tc_ms']:.4f} ms; max|out err| vs float64 "
+              f"{r['err64']:.3e} against mma.sync's {r['err64_mma']:.3e}; "
+              f"bitwise the mma.sync body: {r['bitwise']}")
+    p = rows["ptxas"]
+    print(f"textcnn_pool_fwd_rows_wgmma_kernel (ptxas -v): {p['registers']} "
+          f"registers, {p['spill_stores']} bytes spill stores, "
+          f"{p['spill_loads']} bytes spill loads; the card's TF32 rates: "
+          f"wgmma m64n104k8 {rows['wgmma_tflops']:.1f} TFLOP/s, mma.sync "
+          f"m16n8k8 {rows['mma_tflops']:.1f} TFLOP/s; build warnings "
+          f"{p['warnings'] or 'none'}")
 
 
 # ---------------------------------------------------------------------
@@ -6182,8 +6419,9 @@ def main(argv=None) -> None:
         bwd = time_backward(torch, textcnn)
         _print_kernel_times(textcnn, fwd, bwd)
     if enter("rows"):
+        check_wgmma_tile(torch, _build)
         rows_err = check_rows(torch, textcnn)
-        rows = time_rows(torch, textcnn)
+        rows = time_rows(torch, textcnn, _build)
         _print_rows_times(textcnn, rows)
 
     ds = _load_corpus(ReviewDataset)

@@ -121,8 +121,9 @@
 // (mma_sync_rate.cu) at this kernel's 8 warps a block and prints the
 // time the 3xTF32 products alone take at that rate; PERF.md keeps the
 // reading. The kernel spends the rest on the fragment loads, the A split
-// and the per-tile epilogue around them. `wgmma`, with K and the x tile
-// read from shared memory by descriptor, would lift that ceiling.
+// and the per-tile epilogue around them, issued by the warps that issue
+// the mma. The rows form's warpgroup body (below) lifts that ceiling at
+// the entity towers' shape.
 //
 // Three sources of x, one body (template parameter kSrc); only the tile
 // loader and the row's validity differ:
@@ -140,6 +141,51 @@
 // idx, so a bad id shows in the loss instead of reading foreign memory.
 // What it saves is the [B, T, E] copy table[rows] that the plain kernel
 // needs: 65.5 MB written and read back, at least 39 us at 3.35 TB/s.
+//
+// The rows form's warpgroup body (`textcnn_pool_fwd_rows_wgmma_kernel`),
+// which the rows entry takes at (E, W) = (64, 3) and 96 < F <= 104, the
+// shape of every deepconn and deepconn++ entity tower (training, serving
+// and the factorized ranking call), where the table is 16-byte aligned;
+// every other rows shape keeps the body above. Same op, same 3xTF32
+// split and order of products, same tie rule, skip span and bad-row
+// output; its sums may differ from the `mma.sync` body's in the last bits
+// (chip_smoke.py prints whether they do).
+// - Products: `wgmma.mma_async.m64n104k8` TF32 (wgmma_tf32.cuh), a
+//   warpgroup's 64 starts by all 104 filters (F padded) a k-step, three
+//   products into one f32 accumulator per k-step (lo*hi, hi*lo, hi*hi, in
+//   `tile_mma`'s k order). A comes from registers, split there: tap w is
+//   a row offset of w into the x tile, which a descriptor cannot take
+//   inside a swizzled tile and registers can. B, K's hi and lo copies, is
+//   staged once a block, split, in the no-swizzle K-major layout, and
+//   read by descriptor: no B fragment passes through a register.
+// - The k-loop is straight-line code (24 k-steps at E = 64, W = 3): each
+//   k-step's A fragments are registers of their own, and a k-step's
+//   products run while the next one's A is loaded and split (a commit
+//   and a wait for all but the newest group a k-step).
+// - Warp roles: two consumer warpgroups take tiles t % 2 of each batch
+//   row (64 starts each, so 128 a pair, as the body above); one producer
+//   warp keeps the rows' x tiles in flight in a ring of 4 stages (the
+//   next tile of each warpgroup lands while both run their products)
+//   with a full and an empty mbarrier each. The producer's 16-byte
+//   `cp.async` copies (the zero-fill form for a padding word, the skip
+//   span or a row outside [0, N)) arrive on the full barrier as they
+//   land (`cp.async.mbarrier.arrive`): no copy is issued by a thread
+//   that issues products. (A bulk copy a word row, `cp.async.bulk`, took
+//   7% longer a launch on the H100.) The pitch is the body above's,
+//   E + 4 floats.
+// - Epilogue a tile: bias, ReLU, the mask s < T + W - 1 and the running
+//   max per accumulator column (strict >, rising starts within a
+//   thread); at a row's end lanes merge by shuffle and the 8 warps of
+//   both warpgroups by a shared-memory atomicMax on a packed key a filter
+//   (the value's bits, then the start's complement: the lower start wins
+//   on equal values). One warpgroup's epilogue runs under the other's
+//   products.
+// - Blocks: persistent, one an SM, walking batch rows as the body above.
+//   Shared memory at E = 64, W = 3: K 2 x 79,872 B, the ring 4 x 66 x
+//   272 B, the barriers 64 B, the keys 832 B: 232,448 B, all a block
+//   may have.
+//   ptxas's registers and spills, and the time a launch beside the body
+//   above, are printed by chip_smoke.py and kept in PERF.md.
 //
 // Word-gathered variant (the fused word gather, `hp.pallas_fuse_gather`):
 // the block stages the ids of a tile's starts + W - 1 word positions in
@@ -221,6 +267,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "wgmma_tf32.cuh"
 
 namespace {
 
@@ -835,6 +883,345 @@ int launch(const float* x, const int* rows, const float* k, const float* bias,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// The rows form on warpgroup products (`textcnn_pool_fwd_rows_f32` at the
+// shapes `wg_takes` names): the same op, tie rule and row checks as the
+// body above, its products issued by `wgmma` (wgmma_tf32.cuh)
+// ---------------------------------------------------------------------
+
+constexpr int kWgStarts = 64;   // window starts of a warpgroup's tile
+constexpr int kWgStages = 4;    // x tiles in flight: two a warpgroup
+constexpr int kWgConsumers = 2;  // warpgroups of products
+constexpr int kWgThreads = kWgConsumers * 128 + 32;  // and one producer warp
+constexpr int kWgNT = wg::kN / 8;  // n8 tiles of filters
+
+// bytes of one of K's two copies (hi, lo): per k-step 13 n8 tiles of two
+// 128-byte core matrices
+__host__ __device__ constexpr size_t wg_k_bytes(int e, int window) {
+  return (size_t)window * (e / 8) * kWgNT * 256;
+}
+// bytes of one x tile: the tile's starts + W - 1 word rows, E + 4 floats
+// a row (pitch as the body above: A-fragment loads in 32 distinct banks)
+__host__ __device__ constexpr size_t wg_stage_bytes(int e, int window) {
+  return 4 * (size_t)(kWgStarts + window - 1) * row_pitch(e);
+}
+// K (hi, lo), the x ring, a full and an empty mbarrier a stage, then a
+// row's merge: one packed (value, start) key a filter
+size_t wg_smem_bytes(int e, int window) {
+  return 2 * wg_k_bytes(e, window) + kWgStages * wg_stage_bytes(e, window) + 16 * kWgStages +
+         8 * wg::kN;
+}
+
+// the key of (v, start) that orders as the merge's rule: the larger v,
+// then the lower start; 0 for a thread's empty max (v = -1), which every
+// start's relu(.) >= 0 passes
+__device__ __forceinline__ unsigned long long merge_key(float v, int start) {
+  return v < 0.f ? 0ull
+                 : (unsigned long long)__float_as_uint(v) << 32 | (uint32_t)~(uint32_t)start;
+}
+
+// Whether the rows form at (E, F, W) takes the warpgroup body: its k-loop
+// is straight-line code for (E, W) = (64, 3), the shape of every entity
+// tower (deepconn, deepconn++), F fills its 13 n8 tiles (96 < F <= 104)
+// and its shared memory fits `max_smem`. ops/textcnn.py's `fwd_body`
+// is its mirror; chip_smoke.py holds the two to each other.
+bool wg_takes(int E, int F, int W, int max_smem) {
+  return E == 64 && W == 3 && F > 96 && F <= wg::kN &&
+         wg_smem_bytes(E, W) <= (size_t)max_smem;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// arrive once this thread's `cp.async` copies so far have landed (one of
+// the arrivals the barrier counts)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+// wait for the completion of the barrier's phase of this parity
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+}
+// the consumer warpgroups' own barrier (the producer warp never joins it)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kWgConsumers * 128) : "memory");
+}
+
+// acc = the sums of one warpgroup's 64 starts (this thread's A rows from
+// xa: tile row g of its warp, column tq) by the 104 filters, in 3xTF32 as
+// `tile_mma`: per k-step a_lo*b_hi, a_hi*b_lo, a_hi*b_hi, in its k order.
+// Straight-line code, so each k-step's fragments are registers of their
+// own and one k-step's products run while the next one's A is loaded.
+template <int W, int kKcs>
+__device__ __forceinline__ void wg_tile(float (&acc)[wg::kAcc], const float* xa, uint32_t khi,
+                                        uint32_t klo, uint64_t* empty) {
+  constexpr int pitch = row_pitch(8 * kKcs);
+  wg::pin(acc);
+#pragma unroll
+  for (int ks = 0; ks < W * kKcs; ++ks) {
+    const float* ap = xa + (ks / kKcs) * pitch + (ks % kKcs) * 8;
+    uint32_t hi[4], lo[4];
+    split_tf32(ap[0], hi[0], lo[0]);
+    split_tf32(ap[8 * pitch], hi[1], lo[1]);
+    split_tf32(ap[4], hi[2], lo[2]);
+    split_tf32(ap[8 * pitch + 4], hi[3], lo[3]);
+    const uint64_t bh = wg::desc(khi + ks * kWgNT * 256, 128, 256);
+    const uint64_t bl = wg::desc(klo + ks * kWgNT * 256, 128, 256);
+    wg::fence();
+    wg::mma(acc, lo, bh, ks > 0);
+    wg::mma(acc, hi, bl, 1);
+    wg::mma(acc, hi, bh, 1);
+    wg::commit();
+    if (ks == W * kKcs - 1) mbar_arrive(empty);  // every A load of the tile is done
+    wg::wait<1>();
+  }
+  wg::wait<0>();
+  wg::pin(acc);
+}
+
+// Block: two consumer warpgroups and a producer warp; persistent blocks
+// walk batch rows blockIdx.x, + gridDim.x, ..., each row as tiles of 64
+// starts, tile t to warpgroup t % 2. Every item (row, tile) goes through
+// stage item % kWgStages of the ring: the producer's copies arrive on the
+// stage's `full` barrier, the 128 threads of the warpgroup that took it
+// arrive on its `empty` one once the tile's last k-step is issued (every
+// A fragment of the tile is then in registers).
+template <int W, int kKcs>
+__global__ void __launch_bounds__(kWgThreads, 1)
+textcnn_pool_fwd_rows_wgmma_kernel(const float* __restrict__ table, const int* __restrict__ rows,
+                                   const float* __restrict__ k, const float* __restrict__ bias,
+                                   const int* __restrict__ skip, float* __restrict__ out,
+                                   int* __restrict__ idx, int N, int B, int T, int F) {
+  constexpr int E = 8 * kKcs;
+  constexpr int pitch = row_pitch(E);
+  constexpr int tile_rows = kWgStarts + W - 1;
+  constexpr int stage = tile_rows * pitch;  // floats
+  extern __shared__ uint4 smem16[];
+  char* sm = reinterpret_cast<char*>(smem16);
+  float* k_hi = reinterpret_cast<float*>(sm);
+  float* k_lo = reinterpret_cast<float*>(sm + wg_k_bytes(E, W));
+  float* ring = reinterpret_cast<float*>(sm + 2 * wg_k_bytes(E, W));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kWgStages * stage);
+  uint64_t* empty = full + kWgStages;
+  unsigned long long* merge = reinterpret_cast<unsigned long long*>(empty + kWgStages);
+
+  const int tid = threadIdx.x;
+  const int t_out = T + W - 1;
+  const int n_tiles = (t_out + kWgStarts - 1) / kWgStarts;
+  const int nrows = (B - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kWgConsumers * 128) {
+    // the producer warp: 16-byte `cp.async` copies of the tile's word
+    // rows, the zero-fill form for a word outside the doc, inside the
+    // skip span or of a row outside [0, N); each lane's copies arrive on
+    // the stage's full barrier as they land
+    const int lane = tid & 31;
+    const int items = nrows * n_tiles;
+    for (int it = 0; it < items; ++it) {
+      const int r = it / n_tiles;
+      const int tile = it - r * n_tiles;
+      const int b = blockIdx.x + r * gridDim.x;
+      const int src = rows[b];
+      const bool ok = src >= 0 && src < N;
+      const int lo = skip != nullptr ? skip[2 * b] : 0;
+      const int hi = skip != nullptr ? lo + skip[2 * b + 1] : 0;
+      const int s = it % kWgStages;
+      if (it >= kWgStages) mbar_wait(&empty[s], (it / kWgStages - 1) & 1);
+      float* dst = ring + s * stage;
+      const float* xb = table + (size_t)(ok ? src : 0) * T * E;
+      const int word0 = tile * kWgStarts - (W - 1);
+      constexpr int per_row = E / 4;  // 16-byte pieces of a word row
+#pragma unroll 4
+      for (int i = lane; i < tile_rows * per_row; i += 32) {
+        const int row = i / per_row;
+        const int c = 4 * (i - row * per_row);
+        const int word = word0 + row;
+        const bool in = ok && word >= 0 && word < T && (word < lo || word >= hi);
+        cp_async16(dst + row * pitch + c, in ? xb + (size_t)word * E + c : table, in ? 16 : 0);
+      }
+      cp_async_arrive(&full[s]);
+    }
+    cp_async_wait<0>();  // no copy outlives its thread
+    return;
+  }
+
+  // K in both copies, in B's core-matrix order: thread i writes float i
+  // of a copy (conflict-free), K[kk][f] with kk = ks*8 + c*4 + q and
+  // f = 8j + r for offset ((ks*13 + j)*2 + c)*32 + r*4 + q; zero past F
+  {
+    constexpr int n = W * E * wg::kN;
+    constexpr int kBatch = 8;  // loads in flight a thread
+    for (int i0 = tid; i0 < n; i0 += kBatch * kWgConsumers * 128) {
+      float v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * kWgConsumers * 128;
+        const int q = i & 3, r = (i >> 2) & 7, c = (i >> 5) & 1;
+        const int j = (i >> 6) % kWgNT, ks = (i >> 6) / kWgNT;
+        const int f = 8 * j + r;
+        v[u] = i < n && f < F ? __ldg(k + (size_t)(ks * 8 + c * 4 + q) * F + f) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * kWgConsumers * 128;
+        if (i < n) {
+          uint32_t h, l;
+          split_tf32(v[u], h, l);
+          k_hi[i] = __uint_as_float(h);
+          k_lo[i] = __uint_as_float(l);
+        }
+      }
+    }
+  }
+  for (int f = tid; f < wg::kN; f += kWgConsumers * 128) merge[f] = 0;
+  // K's writes before the wgmma of the async proxy read them
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  consumers_sync();
+
+  const int wgi = tid >> 7;  // this warpgroup
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int wq = warp & 3;  // the warp's 16 rows of the warpgroup's 64
+  float bj[kWgNT][2];
+  float best[kWgNT][2];
+  int best_s[kWgNT][2];
+#pragma unroll
+  for (int j = 0; j < kWgNT; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int f = 8 * j + 2 * tq + c;
+      bj[j][c] = f < F ? __ldg(bias + f) : 0.f;
+      best[j][c] = -1.f;  // every valid start gives relu(.) >= 0
+      best_s[j][c] = 0;
+    }
+  const uint32_t khi = smem_addr(k_hi), klo = smem_addr(k_lo);
+
+  for (int r = 0; r < nrows; ++r) {
+    for (int tile = wgi; tile < n_tiles; tile += kWgConsumers) {
+      const int it = r * n_tiles + tile;
+      const int s = it % kWgStages;
+      mbar_wait(&full[s], (it / kWgStages) & 1);
+      float acc[wg::kAcc];
+      wg_tile<W, kKcs>(acc, ring + s * stage + (wq * 16 + g) * pitch + tq, khi, klo, &empty[s]);
+      // running max over this thread's two starts g and g + 8, in order
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int st = tile * kWgStarts + wq * 16 + g + 8 * half;
+        if (st >= t_out) continue;
+#pragma unroll
+        for (int j = 0; j < kWgNT; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float v = fmaxf(acc[4 * j + 2 * half + c] + bj[j][c], 0.f);
+            if (v > best[j][c]) {
+              best[j][c] = v;
+              best_s[j][c] = st;
+            }
+          }
+      }
+    }
+
+    // end of batch row: merge the 8 lanes of each column by shuffle, then
+    // the 8 warps of both warpgroups by atomicMax on the column's packed
+    // key; the lower start wins on equal values
+#pragma unroll
+    for (int j = 0; j < kWgNT; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float v = best[j][c];
+        int st = best_s[j][c];
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+          const int os = __shfl_xor_sync(0xffffffffu, st, off);
+          if (ov > v || (ov == v && os < st)) {
+            v = ov;
+            st = os;
+          }
+        }
+        if (g == 0) atomicMax(&merge[8 * j + 2 * tq + c], merge_key(v, st));
+        best[j][c] = -1.f;
+        best_s[j][c] = 0;
+      }
+    consumers_sync();
+    const int b = blockIdx.x + r * gridDim.x;
+    const bool row_ok = rows[b] >= 0 && rows[b] < N;
+    for (int f = tid; f < wg::kN; f += kWgConsumers * 128) {
+      const unsigned long long key = merge[f];
+      merge[f] = 0;
+      if (f >= F) continue;
+      out[(size_t)b * F + f] = row_ok ? __uint_as_float((uint32_t)(key >> 32))
+                                      : __int_as_float(0x7fc00000);  // NaN
+      idx[(size_t)b * F + f] = row_ok ? (int)~(uint32_t)key : -1;
+    }
+    consumers_sync();  // the keys are 0 again for the next row
+  }
+}
+
+// the warpgroup body's launch: one persistent block an SM (or a row)
+int launch_rows_wg(const float* table, const int* rows, const float* k, const float* bias,
+                   const int* skip, float* out, int* idx, int N, int B, int T, int E, int F,
+                   int W, int sms, cudaStream_t stream) {
+  const size_t smem = wg_smem_bytes(E, W);
+  static bool smem_set = false;  // raised once, not inside a graph capture
+  if (!smem_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(textcnn_pool_fwd_rows_wgmma_kernel<3, 8>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  const int blocks = B < sms ? B : sms;
+  textcnn_pool_fwd_rows_wgmma_kernel<3, 8><<<blocks, kWgThreads, smem, stream>>>(
+      table, rows, k, bias, skip, out, idx, N, B, T, F);
+  return (int)cudaGetLastError();
+}
+
+// whether a rows launch at (E, F, W) takes the warpgroup body on this
+// card (`wg_takes` on its shared memory), given a 16-byte aligned table
+// (its copies are of 16 bytes); sets `sms`
+bool rows_wg_shape(int E, int F, int W, int* sms) {
+  int dev = 0, max_smem = 0;
+  static int static_smem = -1;  // the kernel's own, out of the same total
+  if (static_smem < 0) {
+    cudaFuncAttributes attr;
+    if (cudaFuncGetAttributes(&attr, textcnn_pool_fwd_rows_wgmma_kernel<3, 8>) != cudaSuccess)
+      return false;
+    static_smem = (int)attr.sharedSizeBytes;
+  }
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return false;
+  return wg_takes(E, F, W, max_smem - static_smem);
+}
+
 template <int kSrc>
 int dispatch(const float* x, const int* rows, const float* k, const float* bias,
              const int* skip, float* out, int* idx, float* second, int* ties, int N, int B,
@@ -842,6 +1229,11 @@ int dispatch(const float* x, const int* rows, const float* k, const float* bias,
   if (N <= 0 || B <= 0 || T <= 0 || E <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
   if (refine && ties == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (kSrc == kRows) {
+    int sms = 0;
+    if (rows_wg_shape(E, F, W, &sms) && reinterpret_cast<uintptr_t>(x) % 16 == 0)
+      return launch_rows_wg(x, rows, k, bias, skip, out, idx, N, B, T, E, F, W, sms, s);
+  }
   switch (W) {
     case 1:
       return launch<1, kSrc>(x, rows, k, bias, skip, out, idx, second, ties, N, B, T, E, F,
@@ -1308,6 +1700,13 @@ int textcnn_pool_fwd_rows_f32(const float* table, const int* rows, const float* 
                               int N, int B, int T, int E, int F, int W, void* stream) {
   return dispatch<kRows>(table, rows, k, bias, skip, out, idx, nullptr, nullptr, N, B, T, E, F,
                          W, 0, stream);
+}
+
+// 1 where a rows launch at (E, F, W) on a 16-byte aligned table takes
+// the warpgroup body on this card, else 0 (the `mma.sync` body).
+int textcnn_pool_fwd_rows_wgmma(int e, int f, int w) {
+  int sms = 0;
+  return rows_wg_shape(e, f, w, &sms) ? 1 : 0;
 }
 
 // The word-gathered forward: a word table [V, E] and ids [B, T] int32 in

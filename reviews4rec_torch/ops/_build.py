@@ -2,10 +2,10 @@
 
 Each `csrc/<name>.cu` is compiled by `nvcc` on its own into
 `build/kernels/lib<name>-<hash>.so` at the root of the checkout, with a
-plain C interface that `ctypes` loads. The hash covers the source and
-the flags, so an edited source builds anew and an unchanged one is
-reused. `build()` starts one `nvcc` per source, all at once, and waits
-for them together.
+plain C interface that `ctypes` loads. The hash covers the source, the
+headers of `csrc/` and the flags, so an edited source builds anew and an
+unchanged one is reused. `build()` starts one `nvcc` per source, all at
+once, and waits for them together.
 """
 
 from __future__ import annotations
@@ -47,6 +47,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    # the headers a source may include
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

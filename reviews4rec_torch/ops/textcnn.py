@@ -60,7 +60,12 @@ inside the skip span.
 
 The three forms of the forward and of the dG share one kernel body each,
 so the rows and ids forms give the bits of the plain-x kernels on
-`table[rows]` and `table[ids]`.
+`table[rows]` and `table[ids]`, with one exception: the rows forward at
+the shapes `fwd_body` names ((E, W) = (64, 3), 96 < F <= 104: every
+entity tower of deepconn and deepconn++) issues its products by warpgroup
+(`wgmma`, 3xTF32 as the other body) from a body of its own, whose sums
+may differ from the `mma.sync` body's in the last bits. Such launches
+also count under `FWD_ROWS_WGMMA`.
 
 - `textcnn_pool(..., dtype=torch.bfloat16)` or `dtype=torch.float16`:
   the op with 16-bit operands, as the JAX package's XLA TextCNN branch
@@ -96,6 +101,9 @@ from . import _build
 FWD, BWD_DG, BWD_DX = "textcnn_pool_fwd", "textcnn_pool_bwd_dg", \
     "textcnn_pool_bwd_dx"
 FWD_ROWS, BWD_DG_ROWS = "textcnn_pool_fwd_rows", "textcnn_pool_bwd_dg_rows"
+# the rows forward's launches that took its warpgroup body (`fwd_body`);
+# every rows forward launch also counts under FWD_ROWS
+FWD_ROWS_WGMMA = FWD_ROWS + ".wgmma"
 FWD_IDS, BWD_DG_IDS = "textcnn_pool_fwd_ids", "textcnn_pool_bwd_dg_ids"
 FWD_BF16, BWD_DG_BF16 = "textcnn_pool_fwd_bf16", "textcnn_pool_bwd_dg_bf16"
 FWD_F16, BWD_DG_F16 = "textcnn_pool_fwd_f16", "textcnn_pool_bwd_dg_f16"
@@ -144,6 +152,40 @@ KERNELS: Dict[str, Kernel] = {
 }
 # each kernel's name by (source, form, type)
 _BY_FORM = {(k.source, k.form, k.dtype): name for name, k in KERNELS.items()}
+
+# The rows forward's warpgroup body (`csrc/textcnn_pool_fwd.cu`,
+# `wg_takes`): built for these (E, W), 104 filters a product (13 n8 tiles,
+# so F in (96, 104]), and its shared memory: K's hi and lo copies, a ring
+# of four x tiles of 64 + W - 1 words at a pitch of E + 4 floats, two
+# mbarriers a tile, one 8-byte merge key a filter
+WGMMA_SHAPES = ((64, 3),)
+WGMMA_N = 104
+WGMMA_STAGES = 4
+# the H100's shared memory a block may opt into
+SMEM_OPTIN = 232448
+
+
+def wgmma_smem_bytes(e: int, w: int) -> int:
+    """Shared memory of one block of the rows forward's warpgroup body."""
+    k_copy = w * (e // 8) * (WGMMA_N // 8) * 256
+    stage = 4 * (64 + w - 1) * (e + 4)
+    return 2 * k_copy + WGMMA_STAGES * stage + 16 * WGMMA_STAGES + \
+        8 * WGMMA_N
+
+
+def fwd_body(form: str, e: int, f: int, w: int) -> str:
+    """The f32 forward's body for an input form ("x", "rows", "ids") at
+    (E, F, W): "wgmma" for the rows form at a shape its warpgroup body
+    takes, else "mma_sync". The launcher counts by the card's own choice
+    (`textcnn_pool_fwd_rows_wgmma`, which reads the card's shared memory;
+    the body also wants the table 16-byte aligned); chip_smoke.py holds
+    the two to each other."""
+    if (form == "rows" and (e, w) in WGMMA_SHAPES
+            and WGMMA_N - 8 < f <= WGMMA_N
+            and wgmma_smem_bytes(e, w) <= SMEM_OPTIN):
+        return "wgmma"
+    return "mma_sync"
+
 
 # the dG kernel's workspace by (device, stream): f32 sums of the batch
 # slices and int32 per-filter counters, zeroed once, which every launch
@@ -398,6 +440,8 @@ def _library(name: str) -> ctypes.CDLL:
             lib.textcnn_pool_fwd_max_window.argtypes = []
             lib.textcnn_pool_fwd_max_window.restype = i
             lib.max_window = lib.textcnn_pool_fwd_max_window()
+            lib.textcnn_pool_fwd_rows_wgmma.argtypes = [i, i, i]
+            lib.textcnn_pool_fwd_rows_wgmma.restype = i
         if src == BWD_DG:
             lib.textcnn_pool_bwd_dg_slice_rows.argtypes = [i, i]
             lib.textcnn_pool_bwd_dg_slice_rows.restype = i
@@ -598,6 +642,9 @@ def textcnn_pool_forward(x: torch.Tensor, kernel: torch.Tensor,
         tensors += [sec, ties]
         dims["refine"] = int(refine)
     _launch(name, x, tensors, dims)
+    if (name == FWD_ROWS and x.data_ptr() % 16 == 0
+            and _library(name).textcnn_pool_fwd_rows_wgmma(e, f, window)):
+        count(FWD_ROWS_WGMMA)
     return (out, idx, sec) if second else (out, idx)
 
 
