@@ -16,6 +16,8 @@ from __future__ import annotations
 
 from typing import Dict
 
+from portbench import models
+
 PEAK_FLOPS = 495e12
 HBM_BYTES_S = 3.35e12
 F32 = 4
@@ -47,13 +49,8 @@ def dense_flop(n_in: int, n_out: int) -> float:
 
 def _towers(cfg: Dict) -> Dict[str, int]:
     """(docs a side per example, words a doc, E, F, W, latent) of a
-    configuration."""
-    hp = cfg["hp"]
-    narre = cfg["model"] == "NARRE"
-    return {"docs": hp["narre_num_reviews"] if narre else 1,
-            "t": hp["narre_num_words"] if narre else hp["input_length"],
-            "e": hp["word_embed_size"], "f": cfg["num_filters"],
-            "w": cfg["window"], "l": hp["latent_size"]}
+    configuration, from its model's file."""
+    return models.load(cfg["model"]).towers(cfg)
 
 
 def tower_flop(cfg: Dict) -> float:
@@ -64,20 +61,17 @@ def tower_flop(cfg: Dict) -> float:
                         + dense_flop(s["f"], s["l"]))
 
 
+def towers_fwd_bound_s(cfg: Dict, entities: int) -> float:
+    """The least time the card could take for the pooled convs of
+    `entities` towers, each its docs of its words."""
+    s = _towers(cfg)
+    return textcnn_fwd_bound_s(entities * s["docs"], s["t"], s["e"], s["f"],
+                               s["w"])
+
+
 def head_flop(cfg: Dict) -> float:
     """Forward FLOP of one pair's head from the two towers' outputs."""
-    s = _towers(cfg)
-    L = s["l"]
-    if cfg["model"] == "NARRE":
-        r = s["docs"]
-        # two attention scorers over r reviews, weighted sums, hadamard
-        # and the final MLP
-        att = r * (dense_flop(2 * L, L) + dense_flop(L, 1)) + 2 * r * L
-        return 2 * att + L + dense_flop(L, L) + dense_flop(L, 1)
-    k = cfg["fm_factors"]
-    n = 2 * L
-    # FM: x V, (x*x)(V*V), the squared difference summed, the linear term
-    return 2 * dense_flop(n, k) + 3 * k + 2 * n + dense_flop(n, 1)
+    return models.load(cfg["model"]).head_flop(cfg)
 
 
 def train_flop_per_example(cfg: Dict) -> float:

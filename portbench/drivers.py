@@ -19,7 +19,7 @@ A traffic file `portbench/traffic/<mix>.json` names its `entry`:
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Set, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +31,7 @@ from reviews4rec_torch.models import build_model
 from reviews4rec_torch.train import evaluate, loop
 from reviews4rec_torch.utils.device import to_device
 
-from . import counts
+from . import counts, models
 from .corpus import stream, torch_seed
 
 
@@ -56,11 +56,13 @@ def hyper_params(cfg: Dict, seed: int) -> HyperParams:
 
 
 def load_model(hp: HyperParams, dataset: ReviewDataset,
-               weights: Dict[str, torch.Tensor], device: torch.device):
-    """The program's model with the benchmark's weights."""
+               weights: Dict[str, torch.Tensor], device: torch.device,
+               left_out: Set[str]):
+    """The program's model with the benchmark's weights, which leave out
+    the state-dict keys `left_out` (the model file's `LEFT_OUT`)."""
     model = build_model(hp, dataset.word_vectors, device=device)
     missing, unexpected = model.load_state_dict(weights, strict=False)
-    if unexpected or set(missing) != {"word_vectors"}:
+    if unexpected or set(missing) != set(left_out):
         raise ValueError(f"weights do not fit the model: missing {missing}, "
                          f"unexpected {unexpected}")
     return model
@@ -71,21 +73,20 @@ class Session:
     returns its work in the entry's unit (examples, pairs, calls);
     `outputs` holds what the check compares."""
 
+    needs: Tuple[str, ...] = ()   # what the entry asks of the model's file
+
     def __init__(self, cfg, traffic, corpus, weights, seed, device):
         self.cfg, self.traffic, self.corpus = cfg, traffic, corpus
         self.seed, self.device = seed, device
+        self.arch = models.load(cfg["model"], self.needs)
         self.dataset = to_dataset(corpus)
         self.hp = self.dataset.apply_to(hyper_params(cfg, seed))
-        self.model = load_model(self.hp, self.dataset, weights, device)
+        self.model = load_model(self.hp, self.dataset, weights, device,
+                                self.arch.LEFT_OUT)
         self.outputs: Dict = {}
         self.flop = 0.0        # required FLOP of the units run so far
         self.fwd_bound_s = 0.0  # least time of their forward launches
         self.steps_per_unit = 1
-
-    def _fwd_bound(self, n: int, t: int) -> float:
-        c = self.cfg
-        return counts.textcnn_fwd_bound_s(n, t, c["hp"]["word_embed_size"],
-                                          c["num_filters"], c["window"])
 
 
 class Train(Session):
@@ -107,11 +108,9 @@ class Train(Session):
                                seed=hp.seed)
         self.epoch = 0
         self.steps_per_unit = len(self.batcher)
-        narre = self.cfg["model"] == "NARRE"
-        # the forward work of a step: two towers of B (x reviews) docs
-        self.step_fwd_bound_s = 2 * self._fwd_bound(
-            hp.batch_size * (hp.narre_num_reviews if narre else 1),
-            hp.narre_num_words if narre else hp.input_length)
+        # the forward work of a step: two sides' towers of B examples
+        self.step_fwd_bound_s = 2 * counts.towers_fwd_bound_s(
+            self.cfg, hp.batch_size)
         params = dict(self.model.named_parameters())
         p0 = {k: v.detach().clone() for k, v in params.items()}
         self.unit()       # warm-up epoch: builds kernels, captures the graph
@@ -200,6 +199,8 @@ def rank_grids(corpus, traffic: Dict, seed: int
 
 
 class Rank(Session):
+    needs = ("rank_scores",)
+
     def __init__(self, *a):
         super().__init__(*a)
         self.model.eval()
@@ -246,11 +247,9 @@ class Rank(Session):
         n_users = len(np.unique(recs["user"][:, 0]))
         n_items = len(np.unique(items))
         self.flop += counts.rank_flop(self.cfg, n_users, n_items, pairs)
-        gb = self.traffic["grid_batch"]
-        batches = -(-items.shape[0] // gb)
-        t = self.hp.input_length
-        self.fwd_bound_s += batches * (
-            self._fwd_bound(gb, t) + self._fwd_bound(gb * items.shape[1], t))
+        # the towers the call requires: each distinct user and item once
+        self.fwd_bound_s += (counts.towers_fwd_bound_s(self.cfg, n_users)
+                             + counts.towers_fwd_bound_s(self.cfg, n_items))
         return pairs
 
     def close(self) -> None:

@@ -1,23 +1,19 @@
-"""The plain reference: DeepCoNN and NARRE written out in plain PyTorch
-from the published description and the configuration, in float64 (f32
+"""The plain reference: each model written out in plain PyTorch from
+the published description and the configuration, in float64 (f32
 rounding alone moves some seeds' 10-step trajectories by 1e-5: a bias
-whose gradient is near zero takes Adam's full step either way). It imports nothing of the program and takes nothing the
-program made: it builds every document from the corpus's own review
-lists, computes from the benchmark's weights, draws the dropout masks
-from the generator seed the benchmark derives from the run's seed, and
-takes its gradients from autograd and its updates from Adam written
-out here.
+whose gradient is near zero takes Adam's full step either way). It
+imports nothing of the program and takes nothing the program made: it
+builds every document from the corpus's own review lists, computes from
+the benchmark's weights, draws the dropout masks from the generator
+seed the benchmark derives from the run's seed, and takes its gradients
+from autograd and its updates from Adam written out here.
 
-Semantics it shares with the configuration (not with the program's
-code):
+What differs between models (their documents, forward, ranking scores,
+and where one trains otherwise its objective and update) lies in the
+model's file, `portbench/models/<model>.py`; this class holds what
+every model shares. Semantics it shares with the configuration (not
+with the program's code):
 
-- a user's (item's) document is its train reviews concatenated in list
-  order, the first T words, zero-padded; in training the pair's own
-  review is masked in place (its word span zeroed), as the entity cache
-  states. NARRE's: the first R reviews a row, W words each, with the
-  ids on the other side of those reviews as attention context (pad id
-  count + 1), the pair's own review row zeroed in the features and the
-  context;
 - the TextCNN: W-1 zero words pad each end, relu(conv + b), max over
   every window start (the gradient through the first start that
   reaches it), FC to the latent size, dropout;
@@ -25,8 +21,10 @@ code):
   < 1 - p
   and scales it by 1 / (1 - p), drawn in the order the forward reads
   the layers, step after step from one generator;
-- the loss is the mean squared error over the batch's rows; Adam with
-  additive L2 weight decay (betas 0.9, 0.999, eps 1e-8).
+- unless the model's file says otherwise, the loss is the mean squared
+  error over the batch's rows, and the update Adam with additive L2
+  weight decay (betas 0.9, 0.999, eps 1e-8). The loss each step
+  reports is the rating's mean squared error either way.
 
 `tf32=True` is the control: float32, every product computed on operands
 rounded to TF32 (10 mantissa bits, to nearest), the precision the
@@ -40,6 +38,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from . import models
 
 BETAS, EPS = (0.9, 0.999), 1e-8
 
@@ -101,11 +101,10 @@ class Reference:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.cfg, self.corpus, self.device, self.tf32 = cfg, corpus, device, tf32
-        hp = cfg["hp"]
-        self.narre = cfg["model"] == "NARRE"
-        self.T = hp["narre_num_words"] if self.narre else hp["input_length"]
-        self.R = hp.get("narre_num_reviews", 1)
-        self.p = hp["dropout"]
+        self.arch = models.load(cfg["model"])
+        shape = self.arch.towers(cfg)
+        self.T, self.R = shape["t"], shape["docs"]
+        self.p = cfg["hp"]["dropout"]
         self.window = cfg["window"]
         dtype = torch.float32 if tf32 else torch.float64
         self.wv = torch.as_tensor(corpus.word_vectors, device=device,
@@ -155,6 +154,12 @@ class Reference:
         y = self.textcnn(x, w[f"{side}.conv_kernel"], w[f"{side}.conv_bias"])
         return self.dense(w, f"{side}.fc", y)
 
+    def fm(self, w: Dict, x: torch.Tensor) -> torch.Tensor:
+        v = w["fm.V"]
+        xv = self.mm(x, v)
+        inter = 0.5 * torch.sum(xv * xv - self.mm(x * x, v * v), dim=-1)
+        return inter + self.dense(w, "fm.lin", x)[..., 0]
+
     # --- documents --------------------------------------------------------
     def _t(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
@@ -166,117 +171,71 @@ class Reference:
         return (self._t(np.stack([d for d, _ in out])),
                 self._t(np.asarray([s for _, s in out], np.int64)))
 
-    def batch_inputs(self, users, items):
-        """The train docs of (user, item) pairs, each masking its own
-        review."""
-        c = self.corpus
-        a = [c.this_index[(int(u), int(i))] for u, i in zip(users, items)]
-        if not self.narre:
-            ud, us = self.concat_docs(c.user_reviews, users, [x[0] for x in a])
-            idd, isp = self.concat_docs(c.item_reviews, items,
-                                        [x[1] for x in a])
-            return {"udoc": ud, "uspan": us, "idoc": idd, "ispan": isp}
-        R, W = self.R, self.T
-        u = [rows_doc(c.user_reviews[x], c.u_to_i[x], R, W, c.num_items + 1)
-             for x in users]
-        it = [rows_doc(c.item_reviews[x], c.i_to_u[x], R, W, c.num_users + 1)
-              for x in items]
-        return {"udoc": self._t(np.stack([d for d, _ in u])),
-                "uctx": self._t(np.stack([x for _, x in u])),
-                "idoc": self._t(np.stack([d for d, _ in it])),
-                "ictx": self._t(np.stack([x for _, x in it])),
-                "uskip": self._t([x[0] if x[0] < R else -1 for x in a]),
-                "iskip": self._t([x[1] if x[1] < R else -1 for x in a])}
-
-    # --- models -----------------------------------------------------------
-    def fm(self, w: Dict, x: torch.Tensor) -> torch.Tensor:
-        v = w["fm.V"]
-        xv = self.mm(x, v)
-        inter = 0.5 * torch.sum(xv * xv - self.mm(x * x, v * v), dim=-1)
-        return inter + self.dense(w, "fm.lin", x)[..., 0]
-
-    def _attend(self, w, scorer, feats, ctx, skip, gen):
-        if skip is not None:
-            hit = (torch.arange(feats.shape[1], device=feats.device)[None, :]
-                   == skip[:, None])[..., None]
-            feats = torch.where(hit, torch.zeros((), device=feats.device),
-                                feats)
-            ctx = torch.where(hit, torch.zeros((), device=ctx.device), ctx)
-        h = torch.relu(self.dense(w, scorer + ".fc0",
-                                  torch.cat([feats, ctx], dim=-1)))
-        s = self.dense(w, scorer + ".fc1", self.drop(h, gen))[..., 0]
-        return torch.sum(torch.softmax(s, dim=-1)[..., None] * feats, dim=1)
+    # --- the model's file -------------------------------------------------
+    def batch_inputs(self, users, items) -> Dict:
+        """The training inputs of (user, item) pairs, each masking its
+        own review."""
+        return self.arch.batch_inputs(self, users, items)
 
     def forward(self, w: Dict, users, items, inp: Dict,
                 gen: Optional[torch.Generator]) -> torch.Tensor:
-        if not self.narre:
-            u = self.drop(self.tower(w, "user_conv", inp["udoc"],
-                                     inp["uspan"]), gen)
-            i = self.drop(self.tower(w, "item_conv", inp["idoc"],
-                                     inp["ispan"]), gen)
-            return w["global_bias"][0] + self.fm(w, torch.cat([u, i], -1))
-        b, R, L = len(users), self.R, self.cfg["hp"]["latent_size"]
-        uid, iid = self._t(users).long(), self._t(items).long()
-        uf = self.drop(self.tower(w, "user_conv",
-                                  inp["udoc"].reshape(b * R, -1)), gen)
-        itf = self.drop(self.tower(w, "item_conv",
-                                   inp["idoc"].reshape(b * R, -1)), gen)
-        ua = self._attend(w, "att_user", uf.reshape(b, R, L),
-                          w["item_embedding"][inp["uctx"]], inp["uskip"], gen)
-        ia = self._attend(w, "att_item", itf.reshape(b, R, L),
-                          w["user_embedding"][inp["ictx"]], inp["iskip"], gen)
-        u = ua + self.drop(w["user_embedding"][uid], gen)
-        i = ia + self.drop(w["item_embedding"][iid], gen)
-        h = torch.relu(self.dense(w, "final.fc0", self.drop(u * i, gen)))
-        return (self.dense(w, "final.fc1", h)[..., 0] + w["user_bias"][uid]
-                + w["item_bias"][iid] + w["global_bias"][0])
+        """The rating prediction of each pair."""
+        return self.arch.forward(self, w, users, items, inp, gen)
+
+    def encode(self, *a, **kw) -> torch.Tensor:
+        """Eval tower outputs, where the model's file has them."""
+        return models.need(self.arch, "encode")(self, *a, **kw)
+
+    def score(self, *a, **kw) -> torch.Tensor:
+        """Eval scores of tower outputs, where the model's file has them."""
+        return models.need(self.arch, "score")(self, *a, **kw)
+
+    def rank_scores(self, users: np.ndarray, grid: np.ndarray) -> np.ndarray:
+        """[M, C] eval scores of each grid row's user and candidates."""
+        return models.need(self.arch, "rank_scores")(self, users, grid)
 
     # --- training ---------------------------------------------------------
     def train(self, batches: List[Tuple[np.ndarray, np.ndarray, np.ndarray]],
               gen_seed: int) -> Dict:
-        """Steps of Adam from the weights on `batches` (user, item,
-        rating), every step's dropout drawn in turn from one generator
-        seeded `gen_seed`. Returns each step's loss, Adam's first moment
-        after the last step (weight decay in its gradients, as Adam
-        takes them) and the parameters after it."""
-        hp = self.cfg["hp"]
-        lr, wd = hp["lr"], hp["weight_decay"]
+        """Steps from the weights on `batches` (user, item, rating), every
+        step's dropout drawn in turn from one generator seeded
+        `gen_seed`, by the model's objective and update (the defaults:
+        the mean squared error, `adam_l2`). Returns each step's rating
+        mean squared error, the update's first moment after the last
+        step (weight decay in its gradients, as Adam takes them) and the
+        parameters after it."""
+        objective = getattr(self.arch, "objective", None)
+        update = getattr(self.arch, "update", adam_l2)
         w = {k: v.clone().requires_grad_(True) for k, v in self.w.items()}
-        m = {k: torch.zeros_like(v) for k, v in w.items()}
-        v2 = {k: torch.zeros_like(v) for k, v in w.items()}
+        state = {"exp_avg": {k: torch.zeros_like(v) for k, v in w.items()},
+                 "exp_avg_sq": {k: torch.zeros_like(v) for k, v in w.items()}}
         gen = torch.Generator(device=self.device).manual_seed(gen_seed)
         losses = []
         for step, (users, items, y) in enumerate(batches, start=1):
             inp = self.batch_inputs(users, items)
             pred = self.forward(w, users, items, inp, gen)
-            loss = torch.mean((pred - self._t(y)) ** 2)
+            y = self._t(y)
+            mse = torch.mean((pred - y) ** 2)
+            loss = mse if objective is None else objective(self, pred, y)
             grads = torch.autograd.grad(loss, list(w.values()))
-            losses.append(float(loss.detach()))
+            losses.append(float(mse.detach()))
             with torch.no_grad():
-                c1, c2 = 1 - BETAS[0] ** step, 1 - BETAS[1] ** step
-                for k, gk in zip(w, grads):
-                    g = gk + wd * w[k]
-                    m[k] = BETAS[0] * m[k] + (1 - BETAS[0]) * g
-                    v2[k] = BETAS[1] * v2[k] + (1 - BETAS[1]) * g * g
-                    w[k] -= lr * (m[k] / c1) / (torch.sqrt(v2[k] / c2) + EPS)
-            del inp, pred, loss, grads
-        return {"losses": losses, "exp_avg": m,
+                update(self, w, dict(zip(w, grads)), state, step)
+            del inp, pred, mse, loss, grads
+        return {"losses": losses, "exp_avg": state["exp_avg"],
                 "params": {k: t.detach() for k, t in w.items()}}
 
-    # --- scoring (DeepCoNN) -----------------------------------------------
-    @torch.no_grad()
-    def encode(self, side: str, ids: Sequence[int], chunk: int = 128
-               ) -> torch.Tensor:
-        """Eval tower outputs [len(ids), L] of whole documents."""
-        lists = (self.corpus.user_reviews if side == "user_conv"
-                 else self.corpus.item_reviews)
-        out = []
-        for s in range(0, len(ids), chunk):
-            docs, _ = self.concat_docs(lists, ids[s:s + chunk])
-            out.append(self.tower(self.w, side, docs))
-        return torch.cat(out)
 
-    @torch.no_grad()
-    def score(self, u: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-        """Eval scores of paired tower outputs [..., L]."""
-        return self.w["global_bias"][0] + self.fm(self.w, torch.cat([u, i], -1))
+def adam_l2(ref: Reference, w: Dict[str, torch.Tensor],
+            grads: Dict[str, torch.Tensor], state: Dict, step: int) -> None:
+    """Adam with additive L2 weight decay, in place on `w` and `state`
+    ("exp_avg", "exp_avg_sq"); `step` counts from 1."""
+    hp = ref.cfg["hp"]
+    lr, wd = hp["lr"], hp["weight_decay"]
+    m, v2 = state["exp_avg"], state["exp_avg_sq"]
+    c1, c2 = 1 - BETAS[0] ** step, 1 - BETAS[1] ** step
+    for k, gk in grads.items():
+        g = gk + wd * w[k]
+        m[k] = BETAS[0] * m[k] + (1 - BETAS[0]) * g
+        v2[k] = BETAS[1] * v2[k] + (1 - BETAS[1]) * g * g
+        w[k] -= lr * (m[k] / c1) / (torch.sqrt(v2[k] / c2) + EPS)

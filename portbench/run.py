@@ -4,10 +4,11 @@
 
 From the root of a checkout. The cell is an entry of `workloads` in
 `BENCHMARK.json`; its configuration file, `portbench/traffic/<mix>.json`
-and `portbench/limits/<cell>.json` are found by name, and each per-layer
-metric's reader is `portbench/metrics/<name>.py` (or, failing that, the
-file of the name without its last `.part`: `mfu.train` ->
-`metrics/mfu.py`).
+and `portbench/limits/<cell>.json` are found by name, the harness's
+part of the configuration's model is `portbench/models/<model>.py`
+(`portbench.models`), and each per-layer metric's reader is
+`portbench/metrics/<name>.py` (or, failing that, the file of the name
+without its last `.part`: `mfu.train` -> `metrics/mfu.py`).
 
 A run: the corpus and the weights from the seed, the program's set-up
 and warm-up (`portbench.drivers`), then units of the window until
@@ -77,11 +78,15 @@ def load_json(*parts: str):
 
 
 def cell_files(bench: dict, name: str):
-    """(workload entry, configuration, traffic mix, limits) of a cell."""
-    wl = next((w for w in bench["workloads"] if w["name"] == name), None)
+    """(workload entry, configuration, traffic mix, limits) of a cell of
+    `bench`, or of one held out of it (`portbench/held_out.json`)."""
+    held = load_json(HERE, "held_out.json")
+    wl = next((w for w in bench["workloads"] + held["workloads"]
+               if w["name"] == name), None)
     if wl is None:
         raise SystemExit(f"no workload {name!r} in BENCHMARK.json")
-    conf = next(c for c in bench["configs"] if c["name"] == wl["config"])
+    conf = next(c for c in bench["configs"] + held.get("configs", [])
+                if c["name"] == wl["config"])
     return (wl, load_json(ROOT, conf["file"]),
             load_json(HERE, "traffic", wl["traffic"] + ".json"),
             load_json(HERE, "limits", name + ".json"))
@@ -259,18 +264,11 @@ def check_numbers(cfg, traffic, data, w, device, out, limits, tf32: bool):
                    "params": out["p_end"]}
         return check.train_numbers(got, want, w)
 
-    def grid_scores(r, users, grid):
-        items, pos = np.unique(grid, return_inverse=True)
-        u = r.encode("user_conv", users.tolist())
-        i = r.encode("item_conv", items.tolist())[
-            torch.as_tensor(pos.reshape(grid.shape), device=device)]
-        return r.score(u[:, None, :].expand_as(i), i).cpu().numpy()
-
     ks = traffic["ks"]
-    want = grid_scores(ref, out["users"], out["grid"])
+    want = ref.rank_scores(out["users"], out["grid"])
     if tf32:
         ctrl = reference.Reference(cfg, data, w, device, tf32=True)
-        got = grid_scores(ctrl, out["users"], out["grid"])
+        got = ctrl.rank_scores(out["users"], out["grid"])
         return check.rank_numbers(got, check.harness_rank_metrics(got, ks),
                                   want, ks, limits["score_gap"])
     return check.rank_numbers(out["scores"], out["metrics"], want, ks,

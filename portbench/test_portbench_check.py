@@ -16,6 +16,7 @@ from reviews4rec_torch.train import evaluate, loop
 
 CPU = torch.device("cpu")
 TRAIN = [c for c in ALL_CELLS if c.endswith(".train")]
+RANK = [c for c in ALL_CELLS if c.endswith(".rank")]
 
 
 def _run(bench_all, cell, control=False):
@@ -79,7 +80,8 @@ def test_half_batch_left_out_fails(bench_all, cell, monkeypatch):
     assert _run(bench_all, cell)["correct"] is False
 
 
-def test_altered_grid_score_fails(bench_all, monkeypatch):
+@pytest.mark.parametrize("cell", RANK)
+def test_altered_grid_score_fails(bench_all, cell, monkeypatch):
     score_grid = evaluate.score_grid
 
     def altered(*a, **kw):
@@ -88,6 +90,6 @@ def test_altered_grid_score_fails(bench_all, monkeypatch):
         return out
 
     monkeypatch.setattr(evaluate, "score_grid", altered)
-    result = _run(bench_all, "deepconn.rank")
+    result = _run(bench_all, cell)
     assert result["correct"] is False
     assert result["checks"]["score_gap"]["value"] > 0.01

@@ -16,6 +16,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from . import models
 from .corpus import torch_seed
 
 ROW_MULTIPLE = 16
@@ -26,14 +27,15 @@ def entity_rows(n: int) -> int:
     return -(-(n + 2) // ROW_MULTIPLE) * ROW_MULTIPLE
 
 
-def _tower(side: str, e: int, f: int, w: int, L: int):
+def tower_leaves(side: str, e: int, f: int, w: int, L: int):
+    """A TextCNN tower's conv and FC to latent."""
     return [(f"{side}.conv_kernel", (w * e, f), "xavier"),
             (f"{side}.conv_bias", (f,), 0.0),
             (f"{side}.fc.weight", (L, f), "xavier"),
             (f"{side}.fc.bias", (L,), 0.0)]
 
 
-def _dense(name: str, n_in: int, n_out: int):
+def dense_leaves(name: str, n_in: int, n_out: int):
     return [(f"{name}.weight", (n_out, n_in), "xavier"),
             (f"{name}.bias", (n_out,), 0.0)]
 
@@ -41,23 +43,8 @@ def _dense(name: str, n_in: int, n_out: int):
 def spec(cfg: Dict, num_users: int, num_items: int
          ) -> List[Tuple[str, tuple, object]]:
     """(name, shape, init) of every parameter: "xavier", or the centre
-    of a bias."""
-    hp = cfg["hp"]
-    e, L = hp["word_embed_size"], hp["latent_size"]
-    f, w = cfg["num_filters"], cfg["window"]
-    towers = _tower("user_conv", e, f, w, L) + _tower("item_conv", e, f, w, L)
-    if cfg["model"] == "deepconn":
-        return towers + [("global_bias", (1,), 4.0),
-                         ("fm.V", (2 * L, cfg["fm_factors"]), "xavier"),
-                         *_dense("fm.lin", 2 * L, 1)]
-    ur, ir = entity_rows(num_users), entity_rows(num_items)
-    return ([("user_embedding", (ur, L), "xavier"),
-             ("item_embedding", (ir, L), "xavier")] + towers
-            + _dense("att_user.fc0", 2 * L, L) + _dense("att_user.fc1", L, 1)
-            + _dense("att_item.fc0", 2 * L, L) + _dense("att_item.fc1", L, 1)
-            + _dense("final.fc0", L, L) + _dense("final.fc1", L, 1)
-            + [("user_bias", (ur,), 0.1), ("item_bias", (ir,), 0.1),
-               ("global_bias", (1,), 4.0)])
+    of a bias; the model's file lists them (`portbench/models`)."""
+    return models.load(cfg["model"]).params(cfg, num_users, num_items)
 
 
 def make(cfg: Dict, num_users: int, num_items: int, seed: int,
